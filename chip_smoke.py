@@ -14,14 +14,27 @@ nonzero before the result lines:
 3. kernel K1 (window attention) against its plain twin at the Swin-S bench
    shapes -- stage 0 (W=1521, H=3) and stage 1 (W=245, H=6), with and
    without the real shift mask, f32 (TF32 off) and bf16 -- with times;
-4. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
+4. kernel K2 (window-attention backward) against its twin at the four
+   Swin-S train shapes (160^3, batch 2), f32 and bf16, masked and not,
+   with times and bit-equal results over two runs; the autograd function
+   (K1 forward, K2 backward) against autograd through K1's twin;
+5. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
    4 x 2560 boxes (dense overlaps plus zero-volume padding, IoU 0.3);
-5. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
+6. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
-6. the main path: 3 synthetic Hypersim-layout scenes at 200x200x130
+7. a small train step (swin_t, 64^3, f32, batch 2) on the GPU against the
+   CPU: same weights, the same injected anchor sample, drop-path off;
+   loss terms and every gradient leaf;
+8. the eval path: 3 synthetic Hypersim-layout scenes at 200x200x130
    through ``run_rpn --mode eval`` (Swin-S, bf16), then
-   ``--mode benchmark``, with every kernel's launch count read around them.
+   ``--mode benchmark``, with K1's and K3's launch counts read around them;
+9. the train path: 4 train and 2 validation synthetic scenes at 160^3
+   through ``run_rpn --mode train`` (Swin-S, bf16, batch 2, one epoch,
+   validation eval, checkpoints), with every kernel's launch count read
+   around it; ``--mode eval --checkpoint <save>/model_best``; then 20
+   timed train steps at that shape (ms/step with CUDA events, peak device
+   memory).
 
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Imports no jax.
@@ -110,6 +123,90 @@ def check_window_attention(torch, dev):
     return rows, main
 
 
+def check_window_attention_backward(torch, dev):
+    """K2 against its twin at the Swin-S train shapes (160^3, batch 2),
+    with the real shift masks; dbias bit-equal over two runs; the autograd
+    function (K1 + K2) against autograd through K1's twin."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
+    from nerf_rpn_tpu_torch.ops.window_attention import (
+        WindowAttention,
+        window_attention_backward,
+        window_attention_backward_reference,
+        window_attention_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # token grids 40^3, 20^3, 10^3 (padded to 12^3), 5^3 (padded to 8^3)
+    stages = [("stage0", (40, 40, 40), 3, 96), ("stage1", (20, 20, 20), 6, 192),
+              ("stage2", (12, 12, 12), 12, 384), ("stage3", (8, 8, 8), 24, 768)]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, main = [], None
+    for name, pad, heads, c in stages:
+        mask_np = shift_attn_mask(pad, (4, 4, 4), (2, 2, 2))
+        w = 2 * mask_np.shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((w, 64, 3 * c), generator=gen, device=dev).to(dtype)
+            dout = torch.randn((w, 64, c), generator=gen, device=dev).to(dtype)
+            bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=dev)
+            for masked in (False, True):
+                mask = torch.from_numpy(mask_np).to(dev) if masked else None
+                dqkv, dbias = window_attention_backward(qkv, dout, bias, mask, heads)
+                dqkv2, dbias2 = window_attention_backward(qkv, dout, bias, mask, heads)
+                if not (torch.equal(dbias, dbias2) and torch.equal(dqkv, dqkv2)):
+                    fail(f"K2 {name} {dtype} mask={masked}: two runs differ")
+                ref_q, ref_b = window_attention_backward_reference(
+                    qkv, dout, bias, mask, heads)
+                scale = ref_q.float().abs().max().item()
+                err = (dqkv.float() - ref_q.float()).abs().max().item()
+                if dtype == torch.float32:
+                    # f32 products summed in other orders
+                    lim = 1e-5 * (1.0 + scale)
+                else:
+                    # a probability or ds rounding to the neighbouring bf16
+                    # value moves an output by <= 2 bf16 ulps of its scale
+                    lim = 2.0 ** (np.floor(np.log2(scale)) - 6)
+                b_scale = ref_b.abs().max().item()
+                b_err = (dbias - ref_b).abs().max().item()
+                # dbias: f32 sums over W windows in another order
+                b_lim = 2e-5 * (1.0 + b_scale)
+                if not (np.isfinite(err) and err <= lim and np.isfinite(b_err)
+                        and b_err <= b_lim):
+                    fail(f"K2 {name} {dtype} mask={masked}: dqkv max|err| {err} "
+                         f"(limit {lim}), dbias {b_err} (limit {b_lim})")
+                ms, plain_ms = time_pair(
+                    torch,
+                    lambda: window_attention_backward_reference(qkv, dout, bias, mask, heads),
+                    lambda: window_attention_backward(qkv, dout, bias, mask, heads))
+                row = dict(stage=name, W=w, H=heads, C=c, dtype=str(dtype).split(".")[-1],
+                           mask=masked, max_abs_err=err, dbias_max_abs_err=b_err,
+                           ms=ms, plain_ms=plain_ms)
+                rows.append(row)
+                print("K2", json.dumps(row), flush=True)
+                if name == "stage0" and dtype == torch.bfloat16 and masked:
+                    main = row
+
+    # the autograd function against autograd through the twin (f32: the
+    # point is the algorithm; the twin's own backward rounds nothing)
+    mask = torch.from_numpy(shift_attn_mask((40, 40, 40), (4, 4, 4), (2, 2, 2))).to(dev)
+    qkv = torch.randn((2000, 64, 288), generator=gen, device=dev).requires_grad_()
+    bias = (0.5 * torch.randn((3, 64, 64), generator=gen, device=dev)).requires_grad_()
+    cot = torch.randn((2000, 64, 96), generator=gen, device=dev)
+    grads = []
+    for fn in (lambda: WindowAttention.apply(qkv, bias, mask, 3),
+               lambda: window_attention_reference(qkv, bias, mask, 3)):
+        qkv.grad = bias.grad = None
+        (fn() * cot).sum().backward()
+        grads.append((qkv.grad.clone(), bias.grad.clone()))
+    for (a, b), what in zip(zip(*grads), ("dqkv", "dbias")):
+        err = (a - b).abs().max().item()
+        if not err <= 1e-5 * (1.0 + b.abs().max().item()):
+            fail(f"autograd K1+K2 vs twin autograd: {what} max|err| {err}")
+    print(f"[K2] autograd function vs twin autograd (stage 0, f32, masked): ok", flush=True)
+    return rows, main
+
+
 def check_suppression_graph(torch, dev):
     from nerf_rpn_tpu_torch.ops.nms_graph import (
         aabb_suppression_graph,
@@ -183,7 +280,7 @@ def check_small_slice(torch, dev):
           f"boxes max|err| {box_err:.3g}, {int(c_out['valid'].sum())} valid", flush=True)
 
 
-def run_main_path(torch, workdir):
+def run_eval_path(torch, workdir):
     import numpy as np
 
     from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
@@ -230,19 +327,221 @@ def run_main_path(torch, workdir):
     times = [bench[k] for k in ("forward_ms", "propose_ms", "total_ms")]
     if not all(np.isfinite(times)) or bench["valid_proposals"] <= 0:
         fail(f"benchmark {bench}")
-    print(f"[main path] eval: recall@50 {recalls[0]:.4f}, AP@50 {aps[0]:.4f}, "
+    print(f"[eval path] eval: recall@50 {recalls[0]:.4f}, AP@50 {aps[0]:.4f}, "
           f"recall@25 {report['recall_25_top_300']['ar']:.4f}, "
           f"AP@25 {report['ap_25']['ap']:.4f} on 3 random-weight scenes", flush=True)
-    print(f"[main path] benchmark {bench['shape']} bf16, {bench['reps']} reps: "
+    print(f"[eval path] benchmark {bench['shape']} bf16, {bench['reps']} reps: "
           f"forward {bench['forward_ms']:.3f} ms/scene, propose "
           f"{bench['propose_ms']:.3f} ms/scene, whole {bench['total_ms']:.3f} "
           f"ms/scene (median {bench['total_median_ms']:.3f}, "
           f"p{bench['tail_percentile']:.1f} {bench['total_tail_ms']:.3f})", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    print(f"[main path] launches {json.dumps(launches)}", flush=True)
+    require_launches(launches, EVAL_KERNELS, "eval")
     return launches, bench
+
+
+def check_small_train_step(torch, dev):
+    """swin_t at 64^3, f32, batch 2, drop-path off: one train step on the
+    GPU (K1 forward, K2 backward) against the same step on the CPU (plain
+    twins), with the same weights and the same anchor sample injected."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
+    from nerf_rpn_tpu_torch.models.swin import SwinBlock
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import level_shapes_for, make_rpn_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, strides = (64, 64, 64), (4, 8, 16, 32)
+    cfg = rpn_lib.RPNConfig(reg_loss_weight=5.0, reg_loss_weight_2d=0.5)
+    rng = np.random.default_rng(4)
+    gt = np.zeros((2, 8, 6), np.float32)
+    gt[0, :3] = [[4, 6, 8, 28, 24, 36], [32, 32, 16, 56, 60, 40], [8, 40, 40, 24, 60, 62]]
+    gt[1, :2] = [[0, 0, 0, 40, 32, 24], [20, 24, 28, 36, 40, 48]]
+    batch = {"grids": torch.from_numpy(rng.uniform(0, 1, (2, *shape, 4)).astype(np.float32)),
+             "gt_boxes": torch.from_numpy(gt), "gt_mask": torch.from_numpy(gt[..., 3] > 0),
+             "ori_sizes": torch.tensor([[64, 60, 64], [56, 64, 52]], dtype=torch.int32)}
+    # the anchor sample, drawn once on the CPU and fed to both steps
+    shapes = level_shapes_for(shape, strides)
+    anchors, _, level_strides, _ = rpn_lib.build_level_tables(cfg, shape, shapes)
+    pad = rpn_lib.dynamic_padding_masks(shapes, level_strides, 13, batch["ori_sizes"])
+    matches = rpn_lib.assign_anchors(cfg, torch.from_numpy(anchors), batch["gt_boxes"],
+                                     batch["gt_mask"], pad)
+    indices = rpn_lib.sample_anchors(cfg, matches, torch.Generator().manual_seed(0))
+
+    cpu = NeRFRPN("swin_t", conv_depth=2)
+    init_params(cpu, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # moderate head outputs, as in the small slice
+        cpu.rpn_head.cls_logits.weight.mul_(0.05)
+        cpu.rpn_head.bbox_pred.weight.mul_(0.05)
+    gpu = NeRFRPN("swin_t", conv_depth=2)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    results = []
+    for model, d in ((cpu, torch.device("cpu")), (gpu, dev)):
+        for m in model.modules():
+            if isinstance(m, SwinBlock):
+                m.drop_path = 0.0
+        state = TrainState(model, 1e-3, 10)
+        grads = {}
+        apply = state.apply_gradients
+
+        def capture(model=model, grads=grads, apply=apply):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()})
+            return apply()
+
+        state.apply_gradients = capture
+        step = make_rpn_train_step(model, cfg, shape, strides, device=d)
+        metrics = step(state, {k: v.to(d) for k, v in batch.items()},
+                       torch.Generator(d).manual_seed(0), torch.Generator(d).manual_seed(1),
+                       indices=[t.to(d) for t in indices])
+        results.append(({k: float(v) for k, v in metrics.items()}, grads))
+    (c_m, c_g), (g_m, g_g) = results
+    for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "loss_rpn_box_reg_2d", "grad_norm"):
+        # f32 through ~20 layers and their backward, other sum orders: 1e-4
+        if not (np.isfinite(g_m[k]) and abs(g_m[k] - c_m[k]) <= 1e-4 * abs(c_m[k])):
+            fail(f"small train step: {k} GPU {g_m[k]} vs CPU {c_m[k]}")
+    worst = 0.0
+    for name, c in c_g.items():
+        scale = c.abs().max().item()
+        err = (g_g[name] - c).abs().max().item()
+        if scale == 0:
+            if err != 0:
+                fail(f"small train step: gradient {name} should be 0, max|g| {err}")
+            continue
+        worst = max(worst, err / scale)
+        # 1e-3 of each leaf's largest entry, as the CPU test against JAX
+        if not err <= 1e-3 * scale:
+            fail(f"small train step: gradient {name} max|err| {err} vs scale {scale}")
+    print(f"[small train step] loss GPU {g_m['loss']:.6f} vs CPU {c_m['loss']:.6f}; "
+          f"worst gradient leaf max|err| / max|g| {worst:.3g} over {len(c_g)} leaves",
+          flush=True)
+
+
+TRAIN_KERNELS = ("window_attention_fwd", "window_attention_bwd", "aabb_suppression_graph")
+EVAL_KERNELS = ("window_attention_fwd", "aabb_suppression_graph")
+
+
+def require_launches(launches, names, path):
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    print(f"[{path} path] launches {json.dumps(launches)}", flush=True)
+
+
+def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda"):
+    """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
+    batch 2), then ``--mode eval --checkpoint <save>/model_best``.  The
+    keywords shrink the run for a rehearsal on the CPU."""
+    import numpy as np
+
+    from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    data = os.path.join(workdir, "data160")
+    save = os.path.join(workdir, "train")
+    write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2,
+                            resolution=(resolution,) * 3, seed=1,
+                            box_size=(resolution / 10, resolution / 4))
+    common = ["--backbone_type", backbone, "--bf16", "--resolution", str(resolution),
+              "--batch_size", "2", "--device", device, "--features_path", data,
+              "--boxes_path", data, "--dataset_split", os.path.join(data, "split.npz")]
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                           "--save_path", save, *common])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    train_s = time.perf_counter() - t0
+    if len(logged) != 2:
+        fail(f"train path: expected 2 logged steps, got {len(logged)}")
+    for m in logged:
+        vals = [m[k] for k in ("loss", "loss_objectness", "loss_rpn_box_reg",
+                               "grad_norm", "param_norm")]
+        if not (np.all(np.isfinite(vals)) and m["loss"] > 0):
+            fail(f"train path: bad metrics {m}")
+    for name in ("model_best", "epoch_1", "model_best.args.json"):
+        if not os.path.isfile(os.path.join(save, name)):
+            fail(f"train path: {name} was not written")
+    print(f"[train path] 1 epoch, 2 steps + validation eval in {train_s:.1f} s; losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in logged), flush=True)
+    require_launches(launches, TRAIN_KERNELS, "train")
+
+    kernels.reset_counts()
+    out = os.path.join(workdir, "eval_ckpt")
+    recalls, _ = run_rpn.main(["--mode", "eval", "--checkpoint",
+                               os.path.join(save, "model_best"), "--save_path", out,
+                               "--output_proposals", *common])
+    torch.cuda.synchronize()
+    eval_launches = kernels.counts()
+    files = sorted(os.listdir(os.path.join(out, "proposals")))
+    if len(files) != 2 or not np.all(np.isfinite(recalls)):
+        fail(f"eval from the checkpoint: files {files}, recalls {recalls}")
+    for name in files:
+        with np.load(os.path.join(out, "proposals", name)) as z:
+            p, s = z["proposal"], z["score"]
+        if p.shape[0] == 0 or not (np.isfinite(p).all() and np.isfinite(s).all()):
+            fail(f"eval from the checkpoint: {name} proposals {p.shape}")
+    print(f"[train path] eval --checkpoint model_best: recall@50 {recalls[0]:.4f} "
+          f"on 2 scenes", flush=True)
+    require_launches(eval_launches, EVAL_KERNELS, "eval-from-checkpoint")
+    return launches, data, common
+
+
+def time_train_steps(torch, data, common, steps=20, warmup=3):
+    """Device ms per train step (CUDA events around each step) and the
+    peak device memory, at the train path's shape on its first batch."""
+    import numpy as np
+
+    from nerf_rpn_tpu.data.datasets import batch_iterator
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
+
+    args = run_rpn.parse_args(["--mode", "train", *common, "--num_workers", "0",
+                               "--save_path", os.path.join(os.path.dirname(data), "timed")])
+    trainer = run_rpn.Trainer(args)
+    train_set, _, _ = run_rpn.common.build_datasets(args, "train", augment=False)
+    host = next(iter(batch_iterator(
+        train_set, args.batch_size, shuffle=False, drop_last=True,
+        pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=6,
+        fixed_shape=trainer.mesh_shape, num_workers=0)))
+    batch = trainer.to_device(host)
+    state = TrainState(trainer.model, args.lr, steps + warmup, args.weight_decay,
+                       args.clip_grad_norm)
+    step = make_rpn_train_step(trainer.model, trainer.cfg_train, trainer.mesh_shape,
+                               run_rpn.STRIDES, device=trainer.device)
+    gen = torch.Generator(trainer.device).manual_seed(0)
+    drop = torch.Generator(trainer.device).manual_seed(1)
+    for _ in range(warmup):
+        step(state, batch, gen, drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    losses = []
+    t0 = time.perf_counter()
+    for a, b in events:
+        a.record()
+        losses.append(step(state, batch, gen, drop)["loss"])
+        b.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"timed train steps: non-finite losses {losses}")
+    row = {"shape": list(trainer.mesh_shape), "batch": args.batch_size, "steps": steps,
+           "ms_per_step_mean": float(ms.mean()), "ms_per_step_median": float(np.median(ms)),
+           "ms_per_step_min": float(ms.min()), "ms_per_step_max": float(ms.max()),
+           "wall_ms_per_step": wall_ms, "peak_mem_gib": peak_gib,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    print("[train steps]", json.dumps(row), flush=True)
+    return row
 
 
 def main() -> None:
@@ -270,6 +569,10 @@ def main() -> None:
     phase_done(torch, "K1 vs twin", t0)
 
     t0 = time.perf_counter()
+    _, k2 = check_window_attention_backward(torch, dev)
+    phase_done(torch, "K2 vs twin", t0)
+
+    t0 = time.perf_counter()
     k3 = check_suppression_graph(torch, dev)
     phase_done(torch, "K3 vs twin", t0)
 
@@ -278,16 +581,34 @@ def main() -> None:
     phase_done(torch, "small slice vs CPU", t0)
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        launches, _ = run_main_path(torch, work)
-    phase_done(torch, "main path", t0)
+    check_small_train_step(torch, dev)
+    phase_done(torch, "small train step vs CPU", t0)
 
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        run_eval_path(torch, work)
+        phase_done(torch, "eval path", t0)
+
+        t0 = time.perf_counter()
+        launches, data, common = run_train_path(torch, work)
+        phase_done(torch, "train path", t0)
+
+        t0 = time.perf_counter()
+        time_train_steps(torch, data, common)
+        phase_done(torch, "timed train steps", t0)
+
+    # launches: the train path's run (train steps + validation eval)
     record = {"kernels": [
         {"name": "window_attention_fwd", "route": "cuda",
          "source": "nerf_rpn_tpu_torch/csrc/window_attention.cu",
          "replaces": "nerf_rpn_tpu/ops/window_attention.py:80",
          "launches": launches["window_attention_fwd"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "window_attention_bwd", "route": "cuda",
+         "source": "nerf_rpn_tpu_torch/csrc/window_attention_bwd.cu",
+         "replaces": "nerf_rpn_tpu/ops/window_attention.py:313",
+         "launches": launches["window_attention_bwd"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
         {"name": "aabb_suppression_graph", "route": "cuda",
          "source": "nerf_rpn_tpu_torch/csrc/nms_graph.cu",
          "replaces": "nerf_rpn_tpu/ops/nms_graph.py:47",

@@ -1,30 +1,44 @@
-"""Anchor NeRF-RPN command line, torch port: ``--mode eval | benchmark``.
+"""Anchor NeRF-RPN command line, torch port: ``--mode train | eval | benchmark``.
 
 Port of ``nerf_rpn_tpu/cli/run_rpn.py`` for the Swin backbones with
-axis-aligned boxes, in f32 or ``--bf16``.  The flags are the JAX CLI's
-flags that these two modes read, plus:
+axis-aligned boxes and the smooth-L1 box loss, in f32 or ``--bf16``, on one
+device.  The flags are the JAX CLI's flags that these modes read, plus:
 
 - ``--weights <npz>``: a flax params tree flattened to ``a/b/c`` keys
-  (``nerf_rpn_tpu_torch.weights.save_npz``); without it the weights are
-  drawn from ``--seed`` through a ``torch.Generator``;
+  (``nerf_rpn_tpu_torch.weights.save_npz``); without it (and without
+  ``--checkpoint``) the weights are drawn from ``--seed`` through a
+  ``torch.Generator``;
 - ``--device``: ``cuda`` (default when a GPU is present) or ``cpu``.
   Asking for ``cuda`` without a GPU is an error.
 
+``--mode train`` is ``Trainer.train_loop`` of the JAX CLI: shuffled,
+augmented batches (``drop_last``), AdamW with optax's one-cycle schedule
+and clip, a log line every ``--log_interval`` steps, a validation eval
+every ``--eval_interval`` epochs, ``epoch_N`` and ``model_best`` (by the
+last validation recall) checkpoints in ``--save_path`` (``torch.save``,
+the reference layout), pruned to ``--keep_checkpoints``.  ``--checkpoint``
+(with ``--load_backbone_only``) loads such a file for train and eval.
+
 Datasets, ``unmask_proposals``, the proposals npz and the Recall/AP report
 with its ``eval.json`` are the JAX package's host code (``cli/common.py``).
-Not ported yet: ``--mode train``, ``--rotated_bbox``, ``--checkpoint``
-(orbax), ``--save_results`` and ``--output_all``.
+Not ported yet: ``--rotated_bbox``, ``--reg_loss_type`` other than
+``smooth_l1``, multi-GPU training (``--gpus``), ``--wandb``,
+``--check_arch``, ``--save_results`` and ``--output_all``; orbax and
+``.msgpack`` checkpoints are not read.
 
 Example::
 
-    python -m nerf_rpn_tpu_torch.cli.run_rpn --mode eval --backbone_type swin_s \\
+    python -m nerf_rpn_tpu_torch.cli.run_rpn --mode train --backbone_type swin_s \\
         --bf16 --features_path data --boxes_path data \\
-        --dataset_split data/split.npz --save_path out --resolution 200
+        --dataset_split data/split.npz --save_path out --resolution 160 \\
+        --batch_size 2 --num_epochs 1
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 import numpy as np
 import torch
@@ -36,7 +50,9 @@ from nerf_rpn_tpu_torch import weights as weights_lib
 from nerf_rpn_tpu_torch.device import resolve_device
 from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
-from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
+from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
+from nerf_rpn_tpu_torch.train.state import TrainState
+from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step, make_rpn_train_step
 
 STRIDES = (4, 8, 16, 32)
 BENCH_SHAPE = (200, 200, 130)
@@ -44,8 +60,8 @@ BENCH_SHAPE = (200, 200, 130)
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Eval and benchmark the NeRF RPN (PyTorch + CUDA port).")
-    p.add_argument("--mode", default="eval", choices=["eval", "benchmark"])
+        description="Train, eval and benchmark the NeRF RPN (PyTorch + CUDA port).")
+    p.add_argument("--mode", default="train", choices=["train", "eval", "benchmark"])
     p.add_argument("--dataset_name", "-dn", default="hypersim",
                    choices=["hypersim", "front3d", "general", "scannet"])
     p.add_argument("--features_path", default="")
@@ -53,9 +69,14 @@ def parse_args(argv=None):
     p.add_argument("--save_path", default="")
     p.add_argument("--dataset_split", default="")
     p.add_argument("--preload", action="store_true")
+    p.add_argument("--checkpoint", default="")
+    p.add_argument("--load_backbone_only", action="store_true")
     p.add_argument("--backbone_type", default="swin_s",
                    choices=["resnet", "resnet_tiny", "vgg_AF", "vgg_EF",
                             "swin_t", "swin_s", "swin_b", "swin_l"])
+    p.add_argument("--freeze_backbone", action="store_true")
+    p.add_argument("--train_csv", default="")
+    p.add_argument("--val_csv", default="")
     p.add_argument("--test_csv", default="")
     p.add_argument("--resolution", type=int, default=160)
     p.add_argument("--rotated_bbox", action="store_true")
@@ -65,13 +86,35 @@ def parse_args(argv=None):
     p.add_argument("--filter", choices=["none", "tp", "fp"], default="none")
     p.add_argument("--filter_threshold", type=float, default=0.7)
     p.add_argument("--top_k", type=int, default=None)
+    p.add_argument("--rotate_prob", type=float, default=0.5)
+    p.add_argument("--flip_prob", type=float, default=0.5)
+    p.add_argument("--rot_scale_prob", type=float, default=0.5)
     p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--reg_loss_weight", type=float, default=5.0)
+    p.add_argument("--reg_loss_weight_2d", type=float, default=0.0)
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--clip_grad_norm", type=float, default=0.1)
     p.add_argument("--log_to_file", action="store_true")
+    p.add_argument("--log_interval", type=int, default=20)
+    p.add_argument("--eval_interval", type=int, default=1)
+    p.add_argument("--keep_checkpoints", type=int, default=1)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--gpus", default="")
     p.add_argument("--rpn_head_conv_depth", type=int, default=4)
+    p.add_argument("--rpn_pre_nms_top_n_train", type=int, default=2500)
     p.add_argument("--rpn_pre_nms_top_n_test", type=int, default=2500)
+    p.add_argument("--rpn_post_nms_top_n_train", type=int, default=2500)
     p.add_argument("--rpn_post_nms_top_n_test", type=int, default=2500)
     p.add_argument("--rpn_nms_thresh", type=float, default=0.3)
+    p.add_argument("--rpn_fg_iou_thresh", type=float, default=0.35)
+    p.add_argument("--rpn_bg_iou_thresh", type=float, default=0.2)
+    p.add_argument("--rpn_batch_size_per_mesh", type=int, default=256)
+    p.add_argument("--rpn_positive_fraction", type=float, default=0.5)
     p.add_argument("--rpn_score_thresh", type=float, default=0.0)
+    p.add_argument("--reg_loss_type", default="smooth_l1",
+                   choices=["smooth_l1", "iou", "linear_iou", "giou", "diou"])
     p.add_argument("--pad_multiple", type=int, default=32)
     p.add_argument("--max_gt", type=int, default=64)
     p.add_argument("--num_workers", type=int, default=4,
@@ -89,15 +132,16 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     if args.rotated_bbox:
         raise NotImplementedError(
-            "--rotated_bbox is not ported to torch yet (ROADMAP.md, queue 1)")
-    # build_datasets reads the augmentation flags; eval never augments
-    args.flip_prob = args.rotate_prob = args.rot_scale_prob = 0.0
-    args.train_csv = args.val_csv = ""
+            "--rotated_bbox is not ported to torch yet (ROADMAP.md, queue 1, item 6)")
+    if args.gpus or args.wandb:
+        raise NotImplementedError(
+            "--gpus (multi-GPU training) and --wandb are not ported to torch yet "
+            "(ROADMAP.md, queue 1, item 8)")
     return args
 
 
 class Trainer:
-    """Holds the model, its device and the eval step of one CLI run."""
+    """Holds the model, its device and the steps of one CLI run."""
 
     def __init__(self, args):
         self.args = args
@@ -120,21 +164,100 @@ class Trainer:
             self.logger.info(f"Loaded weights {args.weights}")
         else:
             init_params(self.model, torch.Generator().manual_seed(args.seed))
+        if args.checkpoint:
+            ckpt_lib.restore_checkpoint(self.model, args.checkpoint,
+                                        backbone_only=args.load_backbone_only)
+            self.logger.info(f"Loaded checkpoint {args.checkpoint}")
         self.model.to(self.device).eval()
-        self.cfg = RPNConfig(
-            pre_nms_top_n=args.rpn_pre_nms_top_n_test,
-            post_nms_top_n=args.rpn_post_nms_top_n_test,
-            nms_thresh=args.rpn_nms_thresh,
-            score_thresh=args.rpn_score_thresh,
+        self.cfg_train = self._make_cfg(args.rpn_pre_nms_top_n_train,
+                                        args.rpn_post_nms_top_n_train)
+        self.cfg = self._make_cfg(args.rpn_pre_nms_top_n_test,
+                                  args.rpn_post_nms_top_n_test)
+        self.state = None
+
+    def _make_cfg(self, pre_nms: int, post_nms: int) -> RPNConfig:
+        a = self.args
+        return RPNConfig(
+            fg_iou_thresh=a.rpn_fg_iou_thresh,
+            bg_iou_thresh=a.rpn_bg_iou_thresh,
+            batch_size_per_mesh=a.rpn_batch_size_per_mesh,
+            positive_fraction=a.rpn_positive_fraction,
+            pre_nms_top_n=pre_nms,
+            post_nms_top_n=post_nms,
+            nms_thresh=a.rpn_nms_thresh,
+            score_thresh=a.rpn_score_thresh,
+            reg_loss_type=a.reg_loss_type,
+            reg_loss_weight=a.reg_loss_weight,
+            reg_loss_weight_2d=a.reg_loss_weight_2d,
         )
 
     def eval_step(self, mesh_shape):
         return make_rpn_eval_step(self.model, self.cfg, mesh_shape, STRIDES,
                                   device=self.device)
 
+    def to_device(self, batch: dict) -> dict:
+        """Host batch (numpy) -> the step's device tensors."""
+        return {
+            "grids": torch.from_numpy(batch["grids"]).to(self.device, self.dtype),
+            "ori_sizes": torch.from_numpy(batch["ori_sizes"]).to(self.device),
+            "gt_boxes": torch.from_numpy(batch["gt_boxes"]).to(self.device),
+            "gt_mask": torch.from_numpy(batch["gt_mask"]).to(self.device),
+        }
+
+    # -- train --------------------------------------------------------------
+
+    def train_loop(self) -> list[dict[str, float]]:
+        """Returns the logged metrics (one dict per log line)."""
+        args = self.args
+        train_set, val_set, _ = common.build_datasets(args, "train", augment=True)
+        self.logger.info(
+            f"Loaded {len(train_set)} training scenes, {len(val_set)} validation scenes")
+        steps_per_epoch = max(1, len(train_set) // args.batch_size)
+        self.state = TrainState(
+            self.model, args.lr, args.num_epochs * steps_per_epoch, args.weight_decay,
+            args.clip_grad_norm, freeze_backbone=args.freeze_backbone)
+        train_step = make_rpn_train_step(self.model, self.cfg_train, self.mesh_shape,
+                                         STRIDES, device=self.device)
+        os.makedirs(args.save_path, exist_ok=True)
+        # separate streams for anchor sampling and stochastic depth
+        gen = torch.Generator(self.device).manual_seed(args.seed)
+        drop_gen = torch.Generator(self.device).manual_seed(args.seed + 1)
+        best_metric, logged = None, []
+        for epoch in range(1, args.num_epochs + 1):
+            it = batch_iterator(
+                train_set, args.batch_size, shuffle=True, seed=epoch, drop_last=True,
+                pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=6,
+                fixed_shape=self.mesh_shape, num_workers=args.num_workers)
+            for i, batch in enumerate(prefetch_iterator(it, depth=args.prefetch_batches)):
+                t0 = time.perf_counter()
+                metrics = train_step(self.state, self.to_device(batch), gen, drop_gen)
+                if i % args.log_interval == 0:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    logged.append(dict(metrics, epoch=epoch, iter=i))
+                    self.logger.info(
+                        f"Epoch {epoch} [{i}] loss {metrics['loss']:.4f} "
+                        f"obj {metrics['loss_objectness']:.4f} "
+                        f"reg {metrics['loss_rpn_box_reg']:.4f} "
+                        f"reg2d {metrics['loss_rpn_box_reg_2d']:.4f} "
+                        f"grad_norm {metrics['grad_norm']:.4f} "
+                        f"({time.perf_counter() - t0:.2f}s/it)")
+            if epoch % args.eval_interval == 0 or epoch == args.num_epochs:
+                recalls, _ = self.eval(val_set, write_json=False)
+                metric = recalls[-1] if recalls else -1.0
+                if best_metric is None or metric > best_metric:
+                    best_metric = metric
+                    ckpt_lib.save_checkpoint(
+                        self.state, os.path.join(args.save_path, "model_best"),
+                        vars(args), epoch)
+                ckpt_lib.save_checkpoint(
+                    self.state, os.path.join(args.save_path, f"epoch_{epoch}"),
+                    vars(args), epoch)
+                ckpt_lib.delete_old_checkpoints(args.save_path, args.keep_checkpoints)
+        return logged
+
     # -- eval ---------------------------------------------------------------
 
-    def eval(self, dataset):
+    def eval(self, dataset, write_json: bool = True):
         args = self.args
         eval_step = self.eval_step(self.mesh_shape)
         it = batch_iterator(
@@ -172,7 +295,7 @@ class Trainer:
             return None, None
         return common.report_metrics(
             proposals_list, scores_list, gt_boxes_list, args, self.logger,
-            args.rpn_post_nms_top_n_test)
+            args.rpn_post_nms_top_n_test, write_json=write_json)
 
     # -- benchmark ----------------------------------------------------------
 
@@ -227,6 +350,8 @@ class Trainer:
 def main(argv=None):
     args = parse_args(argv)
     trainer = Trainer(args)
+    if args.mode == "train":
+        return trainer.train_loop()
     if args.mode == "eval":
         _, _, test_set = common.build_datasets(args, "eval", augment=False)
         return trainer.eval(test_set)

@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -33,6 +34,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # exactly, so it is built without FMA contraction (and never fast-math)
 KERNEL_FLAGS = {
     "window_attention": ["-O3"],
+    "window_attention_bwd": ["-O3"],
     "nms_graph": ["-O3", "--fmad=false"],
 }
 
@@ -43,6 +45,11 @@ SIGNATURES = {
         "window_attention",
         # qkv, bias, mask|NULL, out, W, H, C, nW, dtype_code, scale, stream
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "window_attention_bwd": (
+        "window_attention_bwd",
+        # qkv, dout, bias, mask|NULL, dqkv, dbias_part, dbias, W, H, C, nW,
+        # group, dtype_code, scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "aabb_suppression_graph": (
         "nms_graph",
         # boxes, out, P, Np, thresh, stream
@@ -127,8 +134,12 @@ def library(lib: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every kernel library; returns the seconds it took."""
+    """Build every kernel library, one ``nvcc`` per source all started
+    together, then load them; returns the seconds it took."""
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_FLAGS)) as pool:
+        for fut in [pool.submit(build, lib) for lib in KERNEL_FLAGS]:
+            fut.result()
     for lib in KERNEL_FLAGS:
         library(lib)
     return time.perf_counter() - t0

@@ -38,30 +38,39 @@ class NeRFRPN(nn.Module):
         self.backbone = build_backbone(backbone_type, dtype)
         self.rpn_head = RPNHead3D(256, num_anchors, conv_depth, dtype)
 
-    def forward(self, grids: torch.Tensor):
-        features = list(self.backbone(grids))
+    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
+        """``generator`` draws the backbone's stochastic-depth masks in
+        train mode (unused in eval)."""
+        features = list(self.backbone(grids, generator))
         logits, deltas = self.rpn_head(features)
         return features, logits, deltas
 
 
+# flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"):
+# a standard normal cut at +-2 and divided by its std after the cut, this
+# constant, before it is scaled by 1/sqrt(fan_in)
+TRUNCATED_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from ``generator``, shaped like the flax initialisers:
-    LeCun-normal kernels (std 1/sqrt(fan_in)), zero biases, unit LayerNorm
-    scales, N(0, 0.02) relative-position tables and N(0, 0.01) RPN-head
-    convs."""
+    """Random weights from ``generator`` with the flax initialisers' laws:
+    LeCun-normal kernels (normal cut at +-2 sigma, sigma =
+    1/(0.8796 sqrt(fan_in)), flax's ``lecun_normal``), zero biases, unit
+    LayerNorm scales, relative-position tables from
+    ``truncated_normal(0.02)`` (cut at +-0.04, no rescale) and N(0, 0.01)
+    RPN-head convs (flax ``normal(0.01)``, not truncated)."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "relative_position_bias_table":
-            std = 0.02
+            torch.nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
         elif ".norm" in name or "patch_partition.2" in name:
             p.fill_(1.0 if leaf == "weight" else 0.0)
-            continue
         elif leaf == "bias":
             p.zero_()
-            continue
         elif name.startswith("rpn_head."):
-            std = 0.01
+            p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
         else:
-            std = 1.0 / math.sqrt(p[0].numel())
-        p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * std)
+            std = 1.0 / math.sqrt(p[0].numel()) / TRUNCATED_STD
+            torch.nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                        generator=generator)

@@ -1,11 +1,15 @@
-"""Anchor RPN inference: proposal generation (port of ``models/rpn.py``).
+"""Anchor RPN: proposal generation and training losses (port of ``models/rpn.py``).
 
 Fixed-capacity, masked outputs like the JAX package, so that the two
 compare row for row: per-level top-k, decode of the survivors only, clip,
 small-box / score filters, NMS per (scene, level), and a global top-k.  The
-anchor tables come from ``nerf_rpn_tpu.models.anchors`` (numpy, free of
-jax).  The AABB path only: OBB decoding and the training losses come with
-later slices.
+losses are ``rpn_losses`` split in three steps -- ``assign_anchors``
+(matching, per scene), ``sample_anchors`` (balanced sampling) and
+``rpn_losses_at`` (the loss terms at the sampled rows) -- so that a test
+can feed the JAX package's sampled indices to the last one.  The anchor
+tables come from ``nerf_rpn_tpu.models.anchors`` (numpy, free of jax).
+The AABB path with the smooth-L1 regression only: OBB boxes and the IoU
+losses come with the rotated-geometry slice.
 """
 
 from __future__ import annotations
@@ -18,19 +22,29 @@ import torch
 
 from nerf_rpn_tpu.models import anchors as anchor_lib
 from nerf_rpn_tpu_torch.ops import coders
-from nerf_rpn_tpu_torch.ops.aabb import clip_boxes_to_grid, small_box_mask
+from nerf_rpn_tpu_torch.ops.aabb import clip_boxes_to_grid, pairwise_iou_aabb, small_box_mask
 from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
+from nerf_rpn_tpu_torch.utils.losses import bce_with_logits, smooth_l1
+from nerf_rpn_tpu_torch.utils.projection import project_points
+from nerf_rpn_tpu_torch.utils.target_assign import match_anchors, sample_balanced_indices
 
 
 @dataclasses.dataclass(frozen=True)
 class RPNConfig:
-    """Static RPN inference configuration (defaults = the reference CLI's)."""
+    """Static RPN configuration (defaults = the reference CLI's)."""
 
+    fg_iou_thresh: float = 0.35
+    bg_iou_thresh: float = 0.2
+    batch_size_per_mesh: int = 256
+    positive_fraction: float = 0.5
     pre_nms_top_n: int = 2500
     post_nms_top_n: int = 2500
     nms_thresh: float = 0.3
     score_thresh: float = 0.0
+    reg_loss_type: str = "smooth_l1"
+    reg_loss_weight: float = 1.0
+    reg_loss_weight_2d: float = 0.0
 
     # constants of the JAX config that no CLI flag sets
     min_size = 1e-3
@@ -38,8 +52,17 @@ class RPNConfig:
     aspect_ratios = anchor_lib.DEFAULT_ASPECT_RATIOS
     delta_dim = 6
 
+    def __post_init__(self):
+        if self.reg_loss_type != "smooth_l1":
+            raise NotImplementedError(
+                f"reg_loss_type {self.reg_loss_type!r} needs the rotated IoU "
+                "geometry, not ported to torch yet (ROADMAP.md, queue 1, item 6)")
+
     def decode(self, deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
         return coders.decode_aabb(deltas, anchors)
+
+    def encode(self, gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+        return coders.encode_aabb(gt, anchors)
 
 
 def build_level_tables(cfg: RPNConfig, mesh_size: Sequence[int],
@@ -80,6 +103,33 @@ def dynamic_padding_masks_levels(level_shapes: Sequence[Sequence[int]],
         masks.append(torch.repeat_interleave(cell_ok.reshape(b, -1),
                                              anchors_per_loc, dim=-1))
     return masks
+
+
+def dynamic_padding_masks(level_shapes: Sequence[Sequence[int]],
+                          strides: Sequence[Sequence[int]], anchors_per_loc: int,
+                          ori_sizes: torch.Tensor) -> torch.Tensor:
+    """(B, N_total) form of :func:`dynamic_padding_masks_levels`."""
+    return torch.cat(dynamic_padding_masks_levels(
+        level_shapes, strides, anchors_per_loc, ori_sizes), dim=-1)
+
+
+def gather_delta_rows_levels(deltas: Sequence[torch.Tensor], idx: torch.Tensor,
+                             counts: Sequence[int], anchors_per_loc: int,
+                             delta_dim: int) -> torch.Tensor:
+    """(B, K, D) delta rows at FLAT anchor indices (order: level, x, y, z,
+    anchor), gathered from the head's native per-level (B, X, Y, Z, A*D)
+    layout; no (B, N_total, D) concatenation is built."""
+    b = idx.shape[0]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    out = None
+    for lvl, d in enumerate(deltas):
+        d = d.reshape(b, -1, anchors_per_loc * delta_dim)
+        local = (idx - int(offsets[lvl])).clamp(0, int(counts[lvl]) - 1)
+        val = _select_deltas(d, local, delta_dim)
+        in_level = (idx >= int(offsets[lvl])) & (idx < int(offsets[lvl + 1]))
+        val = torch.where(in_level[..., None], val, 0.0)
+        out = val if out is None else out + val
+    return out
 
 
 def _select_deltas(dl: torch.Tensor, top_i: torch.Tensor, delta_dim: int) -> torch.Tensor:
@@ -162,3 +212,103 @@ def generate_proposals_levels(cfg: RPNConfig,
 def voxel_objectness_scores(logits: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Per-level max-over-anchors objectness (B, X, Y, Z)."""
     return [l.reshape(*l.shape[:4], -1).amax(dim=-1) for l in logits]
+
+
+# ---------------------------------------------------------------------------
+# Training losses
+# ---------------------------------------------------------------------------
+
+
+def assign_anchors(cfg: RPNConfig, anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                   gt_mask: torch.Tensor, padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, N) matches of the (N, 6) anchors to the (B, G, 6) zero-padded gt
+    boxes: gt index, -1 background, -2 ignore (padded anchors included).
+
+    One scene at a time: the (G, N) IoU matrix of a scene is already
+    243 MB in f32 at the train shape (G = 64, N = 950,625).
+    """
+    out = []
+    for i in range(gt_boxes.shape[0]):
+        iou = pairwise_iou_aabb(gt_boxes[i], anchors)
+        if padding_mask is not None:
+            iou = torch.where(padding_mask[i][None, :], iou, -1.0)
+        matches = match_anchors(iou, gt_mask[i], cfg.fg_iou_thresh, cfg.bg_iou_thresh,
+                                allow_low_quality=True)
+        if padding_mask is not None:
+            matches = torch.where(padding_mask[i], matches, -2)
+        out.append(matches)
+    return torch.stack(out)
+
+
+def sample_anchors(cfg: RPNConfig, matches: torch.Tensor, generator: torch.Generator):
+    """Balanced sample of each scene's anchors: ``(pos_idx, pos_take,
+    neg_idx, neg_take)``, each (B, K)."""
+    return sample_balanced_indices(matches, cfg.batch_size_per_mesh,
+                                   cfg.positive_fraction, generator=generator)
+
+
+def rpn_losses_at(cfg: RPNConfig, objectness: torch.Tensor,
+                  pred_deltas: Sequence[torch.Tensor], anchors: torch.Tensor,
+                  gt_boxes: torch.Tensor, matches: torch.Tensor, indices, *,
+                  level_counts: Sequence[int], anchors_per_loc: int,
+                  max_mesh_dim: int = 160) -> dict[str, torch.Tensor]:
+    """The RPN loss terms at the sampled anchors ``indices = (pos_idx,
+    pos_take, neg_idx, neg_take)``.
+
+    ``objectness`` (B, N); ``pred_deltas`` the head's native per-level
+    outputs, split from the flat anchor index by ``level_counts`` and
+    ``anchors_per_loc``.  Every normaliser is summed over the whole batch:
+    ``num_sampled = max(sum(pos_take) + sum(neg_take), 1)``.
+    """
+    pos_idx, pos_take, neg_idx, neg_take = indices
+    b = objectness.shape[0]
+    num_sampled = torch.clamp_min(pos_take.sum() + neg_take.sum(), 1).float()
+    num_pos = torch.clamp_min(pos_take.sum(), 1).float()
+
+    obj_pos = torch.gather(objectness, 1, pos_idx)
+    obj_neg = torch.gather(objectness, 1, neg_idx)
+    obj_loss = (
+        torch.sum(bce_with_logits(obj_pos, torch.ones_like(obj_pos)) * pos_take)
+        + torch.sum(bce_with_logits(obj_neg, torch.zeros_like(obj_neg)) * neg_take)
+    ) / num_sampled
+
+    k_matches = torch.gather(matches, 1, pos_idx).clamp_min(0)
+    matched_gt = torch.gather(gt_boxes, 1, k_matches[..., None].expand(-1, -1, gt_boxes.shape[-1]))
+    k_anchors = anchors[pos_idx]
+    k_deltas = gather_delta_rows_levels(pred_deltas, pos_idx, level_counts,
+                                        anchors_per_loc, cfg.delta_dim)
+    targets = cfg.encode(matched_gt, k_anchors)
+    reg = smooth_l1(k_deltas, targets, beta=1.0 / 9)
+    losses = {"loss_objectness": obj_loss,
+              "loss_rpn_box_reg": torch.sum(reg * pos_take[..., None]) / num_sampled}
+
+    if cfg.reg_loss_weight_2d > 0:
+        k = pos_idx.shape[1]
+        proposals = cfg.decode(k_deltas, k_anchors)
+        # (min corner, max corner) through the four cameras
+        pred_uv = project_points(proposals.reshape(b, k, 2, 3), max_mesh_dim)
+        tgt_uv = project_points(matched_gt.reshape(b, k, 2, 3), max_mesh_dim)
+        l2d = smooth_l1(pred_uv, tgt_uv, beta=1.0 / 9)
+        losses["loss_rpn_box_reg_2d"] = (
+            torch.sum(l2d * pos_take[..., None, None, None]) / num_pos / max_mesh_dim)
+    else:
+        losses["loss_rpn_box_reg_2d"] = torch.zeros((), device=objectness.device)
+    return losses
+
+
+def rpn_losses(cfg: RPNConfig, generator: torch.Generator, objectness: torch.Tensor,
+               pred_deltas: Sequence[torch.Tensor], anchors: torch.Tensor,
+               gt_boxes: torch.Tensor, gt_mask: torch.Tensor, *,
+               level_counts: Sequence[int], anchors_per_loc: int,
+               padding_mask: torch.Tensor | None = None, max_mesh_dim: int = 160,
+               indices=None) -> dict[str, torch.Tensor]:
+    """Objectness BCE, smooth-L1 box regression and the 2D projection term
+    (``rpn_losses`` of the JAX package): assign, sample (from ``generator``,
+    unless ``indices`` are given), then the losses at the sampled rows."""
+    with torch.no_grad():
+        matches = assign_anchors(cfg, anchors, gt_boxes, gt_mask, padding_mask)
+        if indices is None:
+            indices = sample_anchors(cfg, matches, generator)
+    return rpn_losses_at(cfg, objectness, pred_deltas, anchors, gt_boxes, matches, indices,
+                         level_counts=level_counts, anchors_per_loc=anchors_per_loc,
+                         max_mesh_dim=max_mesh_dim)

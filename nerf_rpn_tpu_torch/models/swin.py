@@ -8,8 +8,11 @@ merging of stages i > 0), ``attn.qkv``, ``attn.proj``,
 ``attn.relative_position_bias_table``, ``mlp.0`` / ``mlp.3`` and
 ``fpn_neck.{lateral_convs,fpn_convs}.{i}``.
 
-Eval only: stochastic depth is the identity at eval and is not ported.  The
-window attention goes through ``ops.window_attention`` (kernel K1 on CUDA).
+The window attention goes through ``ops.window_attention.WindowAttention``
+on every block: kernel K1 forward and kernel K2 backward on CUDA.  In train
+mode (``module.train()``) each block drops its residual branches per
+sample (stochastic depth) with a keep mask drawn from the generator passed
+to ``forward``; in eval it is the identity.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from torch import nn
 from nerf_rpn_tpu_torch.models.fpn import FPN
 from nerf_rpn_tpu_torch.models.layers import dense, layer_norm
 from nerf_rpn_tpu_torch.ops.activations import erf_gelu
-from nerf_rpn_tpu_torch.ops.window_attention import window_attention
+from nerf_rpn_tpu_torch.ops.window_attention import WindowAttention
 
 SWIN_VARIANTS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -136,9 +139,9 @@ class ShiftedWindowAttention3D(nn.Module):
         n = int(np.prod(self.window))
         qkv = dense(window_partition(x, self.window), self.qkv, self.dtype)
         bias = self.relative_position_bias_table[self.relative_position_index]
-        bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
-        y = window_attention(qkv, bias.contiguous(),
-                             self._mask(pad_size, shift, x.device), self.num_heads)
+        bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
+        y = WindowAttention.apply(qkv, bias, self._mask(pad_size, shift, x.device),
+                                  self.num_heads)
         y = dense(y, self.proj, self.dtype)
         y = window_reverse(y, self.window, b, pad_size)
         if sum(shift):
@@ -146,12 +149,23 @@ class ShiftedWindowAttention3D(nn.Module):
         return y[:, :sx, :sy, :sz]
 
 
+def stochastic_depth(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Drop whole samples of a residual branch: a per-sample Bernoulli keep
+    mask of shape (B, 1, ..., 1) (uniform < keep, as ``jax.random.bernoulli``
+    draws it) and ``y * mask / keep`` in y's dtype."""
+    keep = 1.0 - rate
+    u = torch.rand((y.shape[0],) + (1,) * (y.dim() - 1), generator=generator,
+                   device=generator.device)
+    return y * (u < keep).to(device=y.device, dtype=y.dtype) / keep
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: tuple[int, int, int],
                  shift: tuple[int, int, int], mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = ShiftedWindowAttention3D(dim, window, shift, num_heads, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -162,11 +176,19 @@ class SwinBlock(nn.Module):
             [nn.Linear(dim, hidden), nn.Identity(), nn.Identity(),
              nn.Linear(hidden, dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm(x, self.norm1, self.dtype))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        def drop(y):
+            if not self.training or self.drop_path == 0.0:
+                return y
+            if generator is None:
+                raise ValueError("train mode needs a generator for stochastic depth")
+            return stochastic_depth(y, self.drop_path, generator)
+
+        x = x + drop(self.attn(layer_norm(x, self.norm1, self.dtype)))
         h = dense(layer_norm(x, self.norm2, self.dtype), self.mlp[0], self.dtype)
         h = dense(erf_gelu(h), self.mlp[3], self.dtype)
-        return x + h
+        return x + drop(h)
 
 
 class PatchMerging3D(nn.Module):
@@ -221,7 +243,8 @@ class SwinFPN(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  patch_size: tuple[int, int, int] = (4, 4, 4),
                  window: tuple[int, int, int] = (4, 4, 4), mlp_ratio: float = 4.0,
-                 expand_dim: bool = True, out_channels: int = 256, in_dim: int = 4,
+                 stochastic_depth_prob: float = 0.1, expand_dim: bool = True,
+                 out_channels: int = 256, in_dim: int = 4,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -237,24 +260,29 @@ class SwinFPN(nn.Module):
             [nn.Conv3d(in_dim, embed_dim, patch_size, stride=patch_size),
              nn.Identity(), nn.LayerNorm(embed_dim, eps=1e-5)])
         self.stages = nn.ModuleList()
+        total_blocks, block_id = sum(depths), 0
         for i, depth in enumerate(depths):
             layers = []
             if i > 0:
                 layers.append(PatchMerging3D(dims[i - 1], expand_dim, dtype))
             for j in range(depth):
                 shift = tuple(0 if j % 2 == 0 else w // 2 for w in window)
+                rate = stochastic_depth_prob * block_id / max(total_blocks - 1, 1)
                 layers.append(SwinBlock(dims[i], num_heads[i], window, shift,
-                                        mlp_ratio, dtype))
+                                        mlp_ratio, rate, dtype))
+                block_id += 1
             self.stages.append(nn.ModuleList(layers))
         self.fpn_neck = FPN(dims, out_channels, dtype)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, ...]:
+        """``generator`` draws the stochastic-depth masks in train mode."""
         y = patch_embed(x, self.patch_partition[0], self.dtype)
         y = layer_norm(y, self.patch_partition[2], self.dtype)
         features = []
         for stage in self.stages:
             for layer in stage:
-                y = layer(y)
+                y = layer(y, generator) if isinstance(layer, SwinBlock) else layer(y)
             features.append(y)
         return self.fpn_neck(features)
 

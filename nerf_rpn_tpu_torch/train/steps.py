@@ -1,5 +1,12 @@
-"""The anchor-RPN eval step (port of ``make_rpn_eval_step``,
-``nerf_rpn_tpu/train/steps.py:162-253``).
+"""The anchor-RPN train and eval steps (port of ``make_rpn_train_step`` and
+``make_rpn_eval_step``, ``nerf_rpn_tpu/train/steps.py:95-253``).
+
+``train_step(state, batch, generator, drop_generator)`` runs the model in
+train mode, the RPN losses, the backward (kernel K2 inside the attention's
+autograd function on CUDA) and the clipped AdamW update, and returns the
+JAX step's metrics as device tensors.  Anchor sampling and stochastic depth
+draw from separate generators, as the JAX step splits ``key`` and
+``drop_key``.
 
 ``eval_step(grids, ori_sizes)`` returns the same dict as the JAX step:
 boxes / scores / level_idx / valid from ``generate_proposals_levels`` plus
@@ -18,6 +25,7 @@ import torch
 
 from nerf_rpn_tpu_torch.models import rpn as rpn_lib
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
+from nerf_rpn_tpu_torch.train.state import global_norm
 
 
 def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
@@ -25,13 +33,65 @@ def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
     return [tuple(-(-int(m) // s) for m in mesh_shape) for s in strides]
 
 
+def _level_tables(cfg: RPNConfig, mesh_shape, strides):
+    shapes = level_shapes_for(mesh_shape, strides)
+    anchors_np, _, level_strides, counts = rpn_lib.build_level_tables(cfg, mesh_shape, shapes)
+    return shapes, anchors_np, level_strides, counts
+
+
+def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
+                        strides: Sequence[int] = (4, 8, 16, 32),
+                        device: torch.device | str = "cpu"):
+    """Returns ``train_step(state, batch, generator, drop_generator,
+    indices=None) -> metrics``.
+
+    ``batch``: device tensors ``grids`` (B, X, Y, Z, 4), ``ori_sizes``
+    (B, 3), ``gt_boxes`` (B, G, 6), ``gt_mask`` (B, G).  ``indices``
+    (``pos_idx, pos_take, neg_idx, neg_take``) replace the sampled anchors,
+    for tests that feed the JAX package's sample.  Metrics: ``loss``,
+    ``loss_objectness``, ``loss_rpn_box_reg``, ``loss_rpn_box_reg_2d``,
+    ``grad_norm`` (pre-clip) and ``param_norm`` (after the update).
+    """
+    shapes, anchors_np, level_strides, counts = _level_tables(
+        cfg, mesh_shape, strides)
+    anchors = torch.from_numpy(anchors_np).to(device)
+    anchors_per_loc = model.num_anchors
+    max_dim = int(max(mesh_shape))
+    n_levels = len(shapes)
+
+    def train_step(state, batch, generator, drop_generator, indices=None):
+        model.train()
+        grids = batch["grids"]
+        b = grids.shape[0]
+        padding = rpn_lib.dynamic_padding_masks(
+            shapes, level_strides, anchors_per_loc, batch["ori_sizes"])
+        _, logits, deltas = model(grids, drop_generator)
+        obj = torch.cat([l.reshape(b, -1) for l in logits[:n_levels]], dim=1)
+        # deltas stay in the head's native per-level layout; the loss
+        # gathers its K sampled rows level by level
+        losses = rpn_lib.rpn_losses(
+            cfg, generator, obj, list(deltas[:n_levels]), anchors,
+            batch["gt_boxes"], batch["gt_mask"], padding_mask=padding,
+            max_mesh_dim=max_dim, level_counts=counts,
+            anchors_per_loc=anchors_per_loc, indices=indices)
+        total = (losses["loss_objectness"]
+                 + cfg.reg_loss_weight * losses["loss_rpn_box_reg"]
+                 + cfg.reg_loss_weight_2d * losses["loss_rpn_box_reg_2d"])
+        total.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
+                "grad_norm": grad_norm,
+                "param_norm": global_norm(list(model.parameters()))}
+
+    return train_step
+
+
 def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                        strides: Sequence[int] = (4, 8, 16, 32),
                        device: torch.device | str = "cpu"):
     """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict."""
-    shapes = level_shapes_for(mesh_shape, strides)
-    anchors_np, _, level_strides, counts = rpn_lib.build_level_tables(
-        cfg, mesh_shape, shapes)
+    shapes, anchors_np, level_strides, counts = _level_tables(
+        cfg, mesh_shape, strides)
     anchors_per_loc = model.num_anchors
     level_anchors = [torch.from_numpy(a).to(device)
                      for a in np.split(anchors_np, np.cumsum(counts)[:-1])]
@@ -39,6 +99,7 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
 
     @torch.inference_mode()
     def forward(grids: torch.Tensor):
+        model.eval()
         feats, logits, deltas = model(grids)
         b = grids.shape[0]
         obj_l = [l.reshape(b, -1) for l in logits[:n_levels]]

@@ -2,8 +2,9 @@
 
 A subprocess blocks jax / jaxlib / flax / optax / orbax with a meta-path
 hook, imports every module of ``nerf_rpn_tpu_torch`` and runs the CPU slice
-end to end through the CLI (``run_rpn --mode eval`` on a synthetic
-scene), then checks that none of them reached ``sys.modules``.
+end to end through the CLI -- ``run_rpn --mode train`` for one epoch on a
+synthetic 32^3 dataset, then ``--mode eval --checkpoint model_best`` --
+and checks that none of them reached ``sys.modules``.
 """
 
 import os
@@ -33,13 +34,17 @@ from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
 
 data = sys.argv[1]
-write_synthetic_dataset(data, n_train=0, n_val=0, n_test=1, resolution=(32, 32, 32))
-run_rpn.main([
-    "--mode", "eval", "--backbone_type", "swin_t", "--resolution", "32",
-    "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64",
-    "--rpn_post_nms_top_n_test", "32", "--device", "cpu", "--num_workers", "0",
-    "--features_path", data, "--boxes_path", data,
-    "--dataset_split", data + "/split.npz", "--save_path", data + "/out"])
+write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32))
+common = ["--backbone_type", "swin_t", "--resolution", "32",
+          "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64",
+          "--rpn_post_nms_top_n_test", "32", "--device", "cpu", "--num_workers", "0",
+          "--features_path", data, "--boxes_path", data,
+          "--dataset_split", data + "/split.npz"]
+logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                       "--save_path", data + "/run", *common])
+assert len(logged) == 2 and all(m["loss"] > 0 for m in logged), logged
+run_rpn.main(["--mode", "eval", "--checkpoint", data + "/run/model_best",
+              "--save_path", data + "/out", *common])
 import os
 assert os.path.exists(data + "/out/eval.json")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -1,4 +1,4 @@
-"""CUDA kernels K1 and K3 against their plain PyTorch twins, on the GPU.
+"""CUDA kernels K1, K2 and K3 against their plain PyTorch twins, on the GPU.
 
 Needs a CUDA device and nvcc (the kernels are built from
 ``nerf_rpn_tpu_torch/csrc`` on first use); skips otherwise.  The chip run::
@@ -20,7 +20,10 @@ from nerf_rpn_tpu_torch.ops.nms_graph import (
     aabb_suppression_graph_reference,
 )
 from nerf_rpn_tpu_torch.ops.window_attention import (
+    WindowAttention,
     window_attention,
+    window_attention_backward,
+    window_attention_backward_reference,
     window_attention_reference,
 )
 
@@ -88,6 +91,53 @@ def test_window_attention_kernel_rejects_bad_shapes(cuda):
         window_attention(qkv, bias, torch.zeros(3, 64, 64, device=cuda), 3)
     with pytest.raises(TypeError):
         window_attention(qkv.half(), bias, None, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,h,c,n_w", [
+    (37, 3, 96, 0),     # stage-0 widths, no shift
+    (48, 6, 192, 12),   # stage-1 widths, mask broadcast over 4 scenes
+    (2000, 3, 96, 0),   # stage 0 at 160^3, batch 2: several windows per group
+    (20, 3, 24, 5),     # D = 8
+])
+def test_window_attention_backward_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
+    qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
+    dout = torch.randn((w, 64, c), generator=torch.Generator(cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    before = kernels.counts()["window_attention_bwd"]
+    dqkv, dbias = window_attention_backward(qkv, dout, bias, mask, h)
+    torch.cuda.synchronize()
+    assert kernels.counts()["window_attention_bwd"] == before + 1
+    ref_q, ref_b = window_attention_backward_reference(qkv, dout, bias, mask, h)
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    assert dbias.dtype == torch.float32 and dbias.shape == (h, 64, 64)
+    scale = ref_q.float().abs().max().item()
+    # f32: products summed in other orders; bf16: a probability or ds
+    # rounding to the neighbouring bf16 value moves an output by <= 2 ulps
+    lim = 1e-5 * (1 + scale) if dtype == torch.float32 else 2.0 ** (np.floor(np.log2(scale)) - 6)
+    assert (dqkv.float() - ref_q.float()).abs().max().item() <= lim
+    # dbias: f32 sums of the unrounded ds over windows in another order
+    torch.testing.assert_close(dbias, ref_b, rtol=0,
+                               atol=2e-5 * (1 + ref_b.abs().max().item()))
+    # the fixed-order reduction: a second run gives the same bits
+    again = window_attention_backward(qkv, dout, bias, mask, h)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+def test_window_attention_autograd_kernels_match_twin_autograd(cuda):
+    """K1 forward + K2 backward against autograd through K1's twin (f32)."""
+    mask = torch.from_numpy(shift_attn_mask((8, 8, 12), (4, 4, 4), (2, 2, 2))).to(cuda)
+    qkv, bias, _ = _attn_inputs(mask.shape[0] * 2, 6, 192, torch.float32, 0, cuda)
+    cot = torch.randn((qkv.shape[0], 64, 192), device=cuda)
+    grads = []
+    for fn in (WindowAttention.apply, window_attention_reference):
+        q, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        (fn(q, b, mask, 6) * cot).sum().backward()
+        grads.append((q.grad, b.grad))
+    for got, want in zip(*grads):
+        # f32 products in other orders, 1e-5 of the gradient's scale
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * (1 + want.abs().max().item()))
 
 
 def _nms_boxes(p, n, n_pad, seed=0):
