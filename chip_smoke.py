@@ -20,21 +20,37 @@ nonzero before the result lines:
    (K1 forward, K2 backward) against autograd through K1's twin;
 5. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
    4 x 2560 boxes (dense overlaps plus zero-volume padding, IoU 0.3);
-6. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
+6. kernels K4 (window attention with the shift-mask pattern table), K5
+   (LayerNorm + pad + shift + partition + qkv) and K6 (the MLP half of a
+   block) against their twins at the four stages of the Swin-S eval bench
+   shape (208x208x144: tokens 52x52x36, 26x26x18, 13x13x9, 7x7x5, the last
+   three padded, every shift on), f32 and bf16, with times;
+7. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
-7. a small train step (swin_t, 64^3, f32, batch 2) on the GPU against the
+8. a small train step (swin_t, 64^3, f32, batch 2) on the GPU against the
    CPU: same weights, the same injected anchor sample, drop-path off;
    loss terms and every gradient leaf;
-8. the eval path: 3 synthetic Hypersim-layout scenes at 200x200x130
+9. the eval path: 3 synthetic Hypersim-layout scenes at 200x200x130
    through ``run_rpn --mode eval`` (Swin-S, bf16), then
-   ``--mode benchmark``, with K1's and K3's launch counts read around them;
-9. the train path: 4 train and 2 validation synthetic scenes at 160^3
+   ``--mode benchmark``, with the launch counts read around each: K1, K3,
+   K4, K5 and K6 must run, K5 and K6 once per block, K4 and K1 once per
+   shifted and unshifted block, K3 once per scene;
+10. the train path: 4 train and 2 validation synthetic scenes at 160^3
    through ``run_rpn --mode train`` (Swin-S, bf16, batch 2, one epoch,
    validation eval, checkpoints), with every kernel's launch count read
    around it; ``--mode eval --checkpoint <save>/model_best``; then 20
    timed train steps at that shape (ms/step with CUDA events, peak device
    memory).
+
+Times are CUDA events, 20 calls per turn in turns plain, kernel, kernel,
+plain; ``library_ms`` is one PyTorch call computing the same function
+(``F.scaled_dot_product_attention`` with the additive bias and mask for
+K1 and K4, its autograd backward for K2), timed as a yardstick only.
+``bound_ms`` is the least time of the same work on an H100 SXM (3.35 TB/s,
+989 TFLOP/s bf16, 67 TFLOP/s f32): the larger of the bytes moved (each
+input read once, each output written once) over the memory rate and the
+operations over the peak rate for their type.
 
 The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Imports no jax.
@@ -43,11 +59,19 @@ and ``{"ok": true, "device": {...}}``.  Imports no jax.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+
+# one H100 SXM (NVIDIA data sheet): HBM rate and dense peaks by operand type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# Swin-S eval bench shape 208x208x144: (stage, token grid, heads, C)
+EVAL_STAGES = [("stage0", (52, 52, 36), 3, 96), ("stage1", (26, 26, 18), 6, 192),
+               ("stage2", (13, 13, 9), 12, 384), ("stage3", (7, 7, 5), 24, 768)]
 
 
 def fail(msg: str) -> None:
@@ -60,27 +84,70 @@ def phase_done(torch, name: str, t0: float) -> None:
     print(f"[phase] {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def time_pair(torch, plain, kernel, reps=20, warmup=3):
+def time_one(torch, fn, reps=20, warmup=3):
+    """Device ms per call of ``fn`` over ``reps`` calls, with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_pair(torch, plain, kernel):
     """Device ms per call of each, measured in turns plain, kernel, kernel,
     plain with CUDA events."""
-    def one(fn):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-    p1, k1, k2, p2 = one(plain), one(kernel), one(kernel), one(plain)
+    p1, k1, k2, p2 = (time_one(torch, f) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved: int, ops: float, dtype: str) -> dict:
+    """The least time of the work on the card: bytes over the memory rate
+    or operations over the peak rate for their type, whichever is larger."""
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def close_enough(torch, got, want, dtype):
+    """(max |got - want|, whether it is within the tolerance): f32 1e-5 of
+    the output's scale (f32 sums in other orders); bf16 2 ulps of each
+    row's largest magnitude (the same rounding points; a neighbouring-value
+    rounding of an intermediate moves an output by a share of its row's
+    scale where the row's terms cancel)."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        ok = err <= 1e-5 * (1.0 + want.float().abs().max().item())
+    else:
+        scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0 ** -100)
+        ok = (diff / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max().item() <= 2.0
+    return err, ok and math.isfinite(err)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def sdpa_views(qkv, heads):
+    """q, k, v as (W, H, 64, D) views of a packed (W, 64, 3C) qkv."""
+    w, n, c3 = qkv.shape
+    return qkv.view(w, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
 
 
 def check_window_attention(torch, dev):
     import numpy as np
+    import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
     from nerf_rpn_tpu_torch.ops.window_attention import (
@@ -114,8 +181,16 @@ def check_window_attention(torch, dev):
                 ms, plain_ms = time_pair(
                     torch, lambda: window_attention_reference(qkv, bias, mask, heads),
                     lambda: window_attention(qkv, bias, mask, heads))
-                row = dict(stage=name, W=w, H=heads, C=c, dtype=str(dtype).split(".")[-1],
-                           mask=masked, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                q, k, v = sdpa_views(qkv, heads)
+                am = bias[None] if mask is None else bias[None] + mask[:, None]
+                am = am.to(dtype)
+                library_ms = time_one(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+                row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
+                           mask=masked, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           **bound(nbytes(qkv, bias, mask, out),
+                                   4 * w * heads * 64 * 64 * (c // heads), dtype_name(dtype)))
                 rows.append(row)
                 print("K1", json.dumps(row), flush=True)
                 if name == "stage0" and dtype == torch.bfloat16 and masked:
@@ -128,6 +203,8 @@ def check_window_attention_backward(torch, dev):
     with the real shift masks; dbias bit-equal over two runs; the autograd
     function (K1 + K2) against autograd through K1's twin."""
     import numpy as np
+
+    import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
     from nerf_rpn_tpu_torch.ops.window_attention import (
@@ -179,9 +256,23 @@ def check_window_attention_backward(torch, dev):
                     torch,
                     lambda: window_attention_backward_reference(qkv, dout, bias, mask, heads),
                     lambda: window_attention_backward(qkv, dout, bias, mask, heads))
-                row = dict(stage=name, W=w, H=heads, C=c, dtype=str(dtype).split(".")[-1],
+                # the library yardstick: SDPA's autograd backward to qkv and bias
+                lq = qkv.detach().requires_grad_()
+                lb = bias.detach().requires_grad_()
+                am = lb[None] if mask is None else lb[None] + mask.repeat(
+                    w // mask.shape[0], 1, 1)[:, None]
+                lo = F.scaled_dot_product_attention(*sdpa_views(lq, heads),
+                                                    attn_mask=am.to(dtype))
+                lo = lo.transpose(1, 2).reshape(w, 64, c)
+                library_ms = time_one(torch, lambda: torch.autograd.grad(
+                    lo, (lq, lb), dout, retain_graph=True))
+                del lq, lb, am, lo
+                d = c // heads
+                row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
                            mask=masked, max_abs_err=err, dbias_max_abs_err=b_err,
-                           ms=ms, plain_ms=plain_ms)
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           **bound(nbytes(qkv, dout, bias, mask, dqkv, dbias),
+                                   10 * w * heads * 64 * 64 * d, dtype_name(dtype)))
                 rows.append(row)
                 print("K2", json.dumps(row), flush=True)
                 if name == "stage0" and dtype == torch.bfloat16 and masked:
@@ -229,11 +320,135 @@ def check_suppression_graph(torch, dev):
         fail("K3 graph is empty: the check would prove nothing")
     ms, plain_ms = time_pair(torch, lambda: aabb_suppression_graph_reference(boxes, 0.3),
                              lambda: aabb_suppression_graph(boxes, 0.3))
-    row = dict(P=p, Np=n, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+    # per box its volume (8 f32 ops); per pair i < j the intersection
+    # (12 ops + 2 products), union (2), IoU (1) and the threshold test (1)
+    ops = p * (8 * n + 18 * n * (n - 1) // 2)
+    row = dict(P=p, Np=n, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(nbytes(boxes, out), ops, "float32"),
                set_bits=int(sum(bin(v & 0xffffffff).count("1")
                                 for v in out.flatten().tolist())))
     print("K3", json.dumps(row), flush=True)
     return row
+
+
+def check_fused_window_attention(torch, dev):
+    """K4 against its twin at the four eval stages, the mask table and ids
+    from the real shift mask, q/k/v as strided views of a packed qkv (as
+    the eval route passes them)."""
+    import torch.nn.functional as F
+
+    from nerf_rpn_tpu_torch.models.swin import shift_mask_patterns
+    from nerf_rpn_tpu_torch.ops.window_attention import (
+        fused_window_attention,
+        fused_window_attention_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, main = [], None
+    for name, size, heads, c in EVAL_STAGES:
+        pad = tuple(-(-s // 4) * 4 for s in size)
+        table_np, ids_np = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
+        table = torch.from_numpy(table_np).to(dev)
+        ids = torch.from_numpy(ids_np).to(dev)
+        w, d = len(ids_np), c // heads
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((w, 64, 3 * c), generator=gen, device=dev).to(dtype)
+            bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=dev)
+            q, k, v = sdpa_views(qkv, heads)
+            out = fused_window_attention(q, k, v, bias, table, ids)
+            ref = fused_window_attention_reference(q, k, v, bias, table, ids)
+            err, ok = close_enough(torch, out, ref, dtype)
+            if not ok:
+                fail(f"K4 {name} {dtype}: max|err| {err} outside the tolerance")
+            ms, plain_ms = time_pair(
+                torch, lambda: fused_window_attention_reference(q, k, v, bias, table, ids),
+                lambda: fused_window_attention(q, k, v, bias, table, ids))
+            am = (bias[None] + table[ids.long()][:, None]).to(dtype)
+            library_ms = time_one(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+            row = dict(stage=name, W=w, H=heads, C=c, P=len(table_np), dtype=dtype_name(dtype),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound(nbytes(q, k, v, bias, table, ids, out),
+                               4 * w * heads * 64 * 64 * d, dtype_name(dtype)))
+            rows.append(row)
+            print("K4", json.dumps(row), flush=True)
+            if name == "stage0" and dtype == torch.bfloat16:
+                main = row
+    return rows, main
+
+
+def check_ln_partition_qkv(torch, dev):
+    """K5 against its twin at the four eval stages (the pad inside, shift
+    2 as on every odd block)."""
+    from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
+        ln_partition_qkv,
+        ln_partition_qkv_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows, main = [], None
+    for name, size, _, c in EVAL_STAGES:
+        pad = tuple(-(-s // 4) * 4 for s in size)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((1, *size, c), generator=gen, device=dev).to(dtype)
+            s = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
+            t = 0.2 * torch.randn(c, generator=gen, device=dev)
+            wq = (torch.randn((c, 3 * c), generator=gen, device=dev) * c ** -0.5).to(dtype)
+            b = 0.5 * torch.randn(3 * c, generator=gen, device=dev)
+            args = (x, s, t, wq, b, (4, 4, 4), pad, (2, 2, 2))
+            out = ln_partition_qkv(*args)
+            ref = ln_partition_qkv_reference(*args)
+            err, ok = close_enough(torch, out, ref, dtype)
+            if not ok:
+                fail(f"K5 {name} {dtype}: max|err| {err} outside the tolerance")
+            ms, plain_ms = time_pair(torch, lambda: ln_partition_qkv_reference(*args),
+                                     lambda: ln_partition_qkv(*args))
+            tokens = math.prod(size)
+            row = dict(stage=name, grid=list(size), pad=list(pad), C=c, dtype=dtype_name(dtype),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                       **bound(nbytes(x, s, t, wq, b, out), 2 * tokens * c * 3 * c,
+                               dtype_name(dtype)))
+            rows.append(row)
+            print("K5", json.dumps(row), flush=True)
+            if name == "stage0" and dtype == torch.bfloat16:
+                main = row
+    return rows, main
+
+
+def check_fused_mlp(torch, dev):
+    """K6 against its twin on the tokens of the four eval stages."""
+    from nerf_rpn_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, main = [], None
+    for name, size, _, c in EVAL_STAGES:
+        tokens, hd = math.prod(size), 4 * c
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((tokens, c), generator=gen, device=dev).to(dtype)
+            args = (x, 1 + 0.2 * torch.randn(c, generator=gen, device=dev),
+                    0.2 * torch.randn(c, generator=gen, device=dev),
+                    (torch.randn((c, hd), generator=gen, device=dev) * c ** -0.5).to(dtype),
+                    (0.3 * torch.randn(hd, generator=gen, device=dev)).to(dtype),
+                    (torch.randn((hd, c), generator=gen, device=dev) * hd ** -0.5).to(dtype),
+                    (0.3 * torch.randn(c, generator=gen, device=dev)).to(dtype))
+            out = fused_mlp_block(*args)
+            ref = fused_mlp_block_reference(*args)
+            err, ok = close_enough(torch, out, ref, dtype)
+            if not ok:
+                fail(f"K6 {name} {dtype}: max|err| {err} outside the tolerance")
+            ms, plain_ms = time_pair(torch, lambda: fused_mlp_block_reference(*args),
+                                     lambda: fused_mlp_block(*args))
+            row = dict(stage=name, T=tokens, C=c, dtype=dtype_name(dtype), max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       **bound(nbytes(*args, out), 4 * tokens * c * hd, dtype_name(dtype)))
+            rows.append(row)
+            print("K6", json.dumps(row), flush=True)
+            if name == "stage0" and dtype == torch.bfloat16:
+                main = row
+    return rows, main
 
 
 def check_small_slice(torch, dev):
@@ -283,7 +498,7 @@ def check_small_slice(torch, dev):
 def run_eval_path(torch, workdir):
     import numpy as np
 
-    from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
+    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_rpn
 
@@ -299,9 +514,12 @@ def run_eval_path(torch, workdir):
         "--dataset_split", os.path.join(data, "split.npz"), "--save_path", out_dir,
         "--output_proposals"])
     torch.cuda.synchronize()
+    eval_launches = kernels.counts()
+    kernels.reset_counts()
     bench = run_rpn.main(["--mode", "benchmark", *common])
     torch.cuda.synchronize()
-    launches = kernels.counts()
+    bench_launches = kernels.counts()
+    launches = {k: eval_launches[k] + bench_launches[k] for k in eval_launches}
 
     if not os.path.exists(os.path.join(out_dir, "eval.json")):
         fail("eval.json was not written")
@@ -336,6 +554,15 @@ def run_eval_path(torch, workdir):
           f"ms/scene (median {bench['total_median_ms']:.3f}, "
           f"p{bench['tail_percentile']:.1f} {bench['total_tail_ms']:.3f})", flush=True)
     require_launches(launches, EVAL_KERNELS, "eval")
+    # every benchmark scene runs the same kernels: per scene, Swin-S's 24
+    # blocks each run K5 and K6, its 12 shifted blocks K4 (every stage grid
+    # of the bench shape is wider than a window) and the 12 others K1; K3
+    # runs once in propose
+    scenes = bench["reps"] + bench["warmup"]
+    per_scene = {k: v / scenes for k, v in bench_launches.items() if v}
+    if per_scene != EVAL_LAUNCHES_PER_SCENE:
+        fail(f"eval path: launches per scene {per_scene}, expected {EVAL_LAUNCHES_PER_SCENE}")
+    print(f"[eval path] launches per benchmark scene {json.dumps(per_scene)}", flush=True)
     return launches, bench
 
 
@@ -420,8 +647,14 @@ def check_small_train_step(torch, dev):
           flush=True)
 
 
-TRAIN_KERNELS = ("window_attention_fwd", "window_attention_bwd", "aabb_suppression_graph")
-EVAL_KERNELS = ("window_attention_fwd", "aabb_suppression_graph")
+EVAL_KERNELS = ("window_attention_fwd", "aabb_suppression_graph", "fused_window_attention",
+                "ln_partition_qkv", "fused_mlp_block")
+# the train steps run K1 forward and K2 backward; the validation eval runs
+# the eval kernels
+TRAIN_KERNELS = ("window_attention_bwd", *EVAL_KERNELS)
+EVAL_LAUNCHES_PER_SCENE = {"ln_partition_qkv": 24.0, "fused_mlp_block": 24.0,
+                           "fused_window_attention": 12.0, "window_attention_fwd": 12.0,
+                           "aabb_suppression_graph": 1.0}
 
 
 def require_launches(launches, names, path):
@@ -437,7 +670,7 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     keywords shrink the run for a rehearsal on the CPU."""
     import numpy as np
 
-    from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
+    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_rpn
 
@@ -496,7 +729,7 @@ def time_train_steps(torch, data, common, steps=20, warmup=3):
     peak device memory, at the train path's shape on its first batch."""
     import numpy as np
 
-    from nerf_rpn_tpu.data.datasets import batch_iterator
+    from nerf_rpn_tpu_torch.data.datasets import batch_iterator
     from nerf_rpn_tpu_torch.cli import run_rpn
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
@@ -577,6 +810,18 @@ def main() -> None:
     phase_done(torch, "K3 vs twin", t0)
 
     t0 = time.perf_counter()
+    _, k4 = check_fused_window_attention(torch, dev)
+    phase_done(torch, "K4 vs twin", t0)
+
+    t0 = time.perf_counter()
+    _, k5 = check_ln_partition_qkv(torch, dev)
+    phase_done(torch, "K5 vs twin", t0)
+
+    t0 = time.perf_counter()
+    _, k6 = check_fused_mlp(torch, dev)
+    phase_done(torch, "K6 vs twin", t0)
+
+    t0 = time.perf_counter()
     check_small_slice(torch, dev)
     phase_done(torch, "small slice vs CPU", t0)
 
@@ -586,35 +831,34 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
-        run_eval_path(torch, work)
+        eval_launches, _ = run_eval_path(torch, work)
         phase_done(torch, "eval path", t0)
 
         t0 = time.perf_counter()
-        launches, data, common = run_train_path(torch, work)
+        train_launches, data, common = run_train_path(torch, work)
         phase_done(torch, "train path", t0)
 
         t0 = time.perf_counter()
         time_train_steps(torch, data, common)
         phase_done(torch, "timed train steps", t0)
 
-    # launches: the train path's run (train steps + validation eval)
+    # launches: K2 from the train path's run (train steps + validation
+    # eval), the others from the eval path's run (eval + benchmark)
+    entries = [
+        ("window_attention_fwd", "window_attention.cu", "window_attention.py:80", k1),
+        ("window_attention_bwd", "window_attention_bwd.cu", "window_attention.py:313", k2),
+        ("aabb_suppression_graph", "nms_graph.cu", "nms_graph.py:47", k3),
+        ("fused_window_attention", "window_attention.cu", "window_attention.py:208", k4),
+        ("ln_partition_qkv", "fused_ln_qkv.cu", "fused_ln_qkv.py:81", k5),
+        ("fused_mlp_block", "fused_mlp.cu", "fused_mlp.py:62", k6),
+    ]
     record = {"kernels": [
-        {"name": "window_attention_fwd", "route": "cuda",
-         "source": "nerf_rpn_tpu_torch/csrc/window_attention.cu",
-         "replaces": "nerf_rpn_tpu/ops/window_attention.py:80",
-         "launches": launches["window_attention_fwd"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "window_attention_bwd", "route": "cuda",
-         "source": "nerf_rpn_tpu_torch/csrc/window_attention_bwd.cu",
-         "replaces": "nerf_rpn_tpu/ops/window_attention.py:313",
-         "launches": launches["window_attention_bwd"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "aabb_suppression_graph", "route": "cuda",
-         "source": "nerf_rpn_tpu_torch/csrc/nms_graph.cu",
-         "replaces": "nerf_rpn_tpu/ops/nms_graph.py:47",
-         "launches": launches["aabb_suppression_graph"],
-         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
-    ]}
+        {"name": name, "route": "cuda", "source": f"nerf_rpn_tpu_torch/csrc/{src}",
+         "replaces": f"nerf_rpn_tpu/ops/{tpu}",
+         "launches": (train_launches if name == "window_attention_bwd" else eval_launches)[name],
+         **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+        for name, src, tpu, row in entries]}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,23 @@
 The JAX package ``nerf_rpn_tpu`` is the reference; this package mirrors its
 module layout so each part has an obvious counterpart:
 
-- ``ops``     box algebra, coders, top-k, NMS (kernel K3: the packed AABB
-              suppression graph), erf-GELU and window attention (kernel K1).
-- ``models``  Swin FPN backbone, FPN neck, anchor RPN head, proposal
-              generation.
-- ``train``   the eval step (``forward`` + ``propose``).
-- ``cli``     ``run_rpn --mode eval|benchmark``.
-- ``weights`` flax parameter tree <-> torch ``state_dict``.
-- ``kernels`` builds ``csrc/*.cu`` with ``nvcc`` at first use and binds
-              them with ``ctypes``.
+- ``ops``        box algebra, coders, top-k, NMS (kernel K3: the packed AABB
+                 suppression graph), erf-GELU, window attention (kernels K1,
+                 K2 and K4), the fused LayerNorm + partition + qkv (kernel
+                 K5) and the fused MLP half of a Swin block (kernel K6).
+- ``models``     Swin FPN backbone, FPN neck, anchors, anchor RPN head,
+                 proposal generation.
+- ``train``      the train and eval steps, optimizer state, checkpoints.
+- ``cli``        ``run_rpn --mode train|eval|benchmark`` and its plumbing.
+- ``data``       datasets, augmentation, batching, synthetic scenes.
+- ``evaluation`` AABB Recall / AP.
+- ``weights``    flax parameter tree <-> torch ``state_dict``.
+- ``kernels``    builds ``csrc/*.cu`` with ``nvcc`` at first use and binds
+                 them with ``ctypes``.
 
-Host-side code that is already free of jax (anchors, datasets, loader,
-synthetic data, the AABB metrics, ``cli/common.py``) is imported from
-``nerf_rpn_tpu`` rather than copied.  Nothing here imports jax.
+The host-side numpy modules (anchors, ``data``, the AABB metrics, the CLI
+plumbing) are copies of the JAX package's: nothing here imports jax or
+``nerf_rpn_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,8 @@ device.  The flags are the JAX CLI's flags that these modes read, plus:
   (``nerf_rpn_tpu_torch.weights.save_npz``); without it (and without
   ``--checkpoint``) the weights are drawn from ``--seed`` through a
   ``torch.Generator``;
-- ``--device``: ``cuda`` (default when a GPU is present) or ``cpu``.
-  Asking for ``cuda`` without a GPU is an error.
+- ``--device``: ``cuda`` (the default) or ``cpu``.  Without a GPU the
+  default raises; the CPU runs only when asked for with ``--device cpu``.
 
 ``--mode train`` is ``Trainer.train_loop`` of the JAX CLI: shuffled,
 augmented batches (``drop_last``), AdamW with optax's one-cycle schedule
@@ -20,7 +20,8 @@ the reference layout), pruned to ``--keep_checkpoints``.  ``--checkpoint``
 (with ``--load_backbone_only``) loads such a file for train and eval.
 
 Datasets, ``unmask_proposals``, the proposals npz and the Recall/AP report
-with its ``eval.json`` are the JAX package's host code (``cli/common.py``).
+with its ``eval.json`` are the port's copies of the JAX package's host code
+(``cli/common.py``, ``data/``, ``evaluation/metrics.py``).
 Not ported yet: ``--rotated_bbox``, ``--reg_loss_type`` other than
 ``smooth_l1``, multi-GPU training (``--gpus``), ``--wandb``,
 ``--check_arch``, ``--save_results`` and ``--output_all``; orbax and
@@ -43,10 +44,10 @@ import time
 import numpy as np
 import torch
 
-from nerf_rpn_tpu.cli import common
-from nerf_rpn_tpu.data.datasets import batch_iterator, round_up
-from nerf_rpn_tpu.data.loader import prefetch_iterator
 from nerf_rpn_tpu_torch import weights as weights_lib
+from nerf_rpn_tpu_torch.cli import common
+from nerf_rpn_tpu_torch.data.datasets import batch_iterator, round_up
+from nerf_rpn_tpu_torch.data.loader import prefetch_iterator
 from nerf_rpn_tpu_torch.device import resolve_device
 from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
@@ -127,8 +128,8 @@ def parse_args(argv=None):
     p.add_argument("--weights", default="",
                    help="npz of the flax params tree (a/b/c keys); "
                         "default: random weights from --seed.")
-    p.add_argument("--device", default=None,
-                   help="cuda | cpu (default: cuda when available).")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) | cpu.")
     args = p.parse_args(argv)
     if args.rotated_bbox:
         raise NotImplementedError(
@@ -147,8 +148,7 @@ class Trainer:
         self.args = args
         self.logger = common.setup_logger(args.save_path, args.log_to_file,
                                           "run_rpn_torch")
-        self.device = resolve_device(
-            args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(args.device)
         self.dtype = torch.bfloat16 if args.bf16 else torch.float32
         if self.device.type == "cuda" and not args.bf16:
             # f32 means f32: no TF32 in cuDNN convolutions or matmuls
@@ -343,7 +343,7 @@ class Trainer:
                 "total_median_ms": float(np.median(total)),
                 "tail_percentile": pct,
                 "total_tail_ms": float(np.percentile(total, pct)),
-                "shape": shape, "reps": reps,
+                "shape": shape, "reps": reps, "warmup": warmup,
                 "valid_proposals": int(out["valid"].sum())}
 
 

@@ -25,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
@@ -36,7 +38,13 @@ KERNEL_FLAGS = {
     "window_attention": ["-O3"],
     "window_attention_bwd": ["-O3"],
     "nms_graph": ["-O3", "--fmad=false"],
+    "fused_ln_qkv": ["-O3"],
+    "fused_mlp": ["-O3"],
 }
+
+# dtype codes of the C entry points (csrc/common.cuh DtypeCode); the
+# kernels take f32 and bf16 tensors
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # C signatures: name -> (library, argtypes); every entry returns int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,6 +62,21 @@ SIGNATURES = {
         "nms_graph",
         # boxes, out, P, Np, thresh, stream
         [_P, _P, _I, _I, _F, _P]),
+    "fused_window_attention": (
+        "window_attention",
+        # q, k, v, strides (host int64[12]), bias, table, ids, out, W, H, D,
+        # P, dtype_code, scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "ln_partition_qkv": (
+        "fused_ln_qkv",
+        # x, ln_scale, ln_bias, w, b, out, B, SX, SY, SZ, C, PX, PY, PZ,
+        # shift x/y/z, window x/y/z, dtype_code, stream
+        [_P, _P, _P, _P, _P, _P, *[_I] * 15, _P]),
+    "fused_mlp_block": (
+        "fused_mlp",
+        # x, ln_scale, ln_bias, w1, b1, w2, b2, out, part|NULL, T, C, Hd,
+        # splits, dtype_code, eps, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 

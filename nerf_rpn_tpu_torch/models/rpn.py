@@ -7,7 +7,8 @@ losses are ``rpn_losses`` split in three steps -- ``assign_anchors``
 (matching, per scene), ``sample_anchors`` (balanced sampling) and
 ``rpn_losses_at`` (the loss terms at the sampled rows) -- so that a test
 can feed the JAX package's sampled indices to the last one.  The anchor
-tables come from ``nerf_rpn_tpu.models.anchors`` (numpy, free of jax).
+tables come from ``models/anchors.py``, the port's copy of the JAX package's
+numpy module.
 The AABB path with the smooth-L1 regression only: OBB boxes and the IoU
 losses come with the rotated-geometry slice.
 """
@@ -20,7 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from nerf_rpn_tpu.models import anchors as anchor_lib
+from nerf_rpn_tpu_torch.models import anchors as anchor_lib
 from nerf_rpn_tpu_torch.ops import coders
 from nerf_rpn_tpu_torch.ops.aabb import clip_boxes_to_grid, pairwise_iou_aabb, small_box_mask
 from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask

@@ -8,11 +8,22 @@ merging of stages i > 0), ``attn.qkv``, ``attn.proj``,
 ``attn.relative_position_bias_table``, ``mlp.0`` / ``mlp.3`` and
 ``fpn_neck.{lateral_convs,fpn_convs}.{i}``.
 
-The window attention goes through ``ops.window_attention.WindowAttention``
-on every block: kernel K1 forward and kernel K2 backward on CUDA.  In train
-mode (``module.train()``) each block drops its residual branches per
-sample (stochastic depth) with a keep mask drawn from the generator passed
-to ``forward``; in eval it is the identity.
+A block follows ``self.training``:
+
+- train mode (``module.train()``): the plain chain -- LayerNorm, pad, roll,
+  partition, qkv dense, ``ops.window_attention.WindowAttention`` (kernel K1
+  forward, kernel K2 backward on CUDA), proj, reverse, and the MLP with
+  ``erf_gelu`` -- and each block drops its residual branches per sample
+  (stochastic depth) with a keep mask drawn from the generator passed to
+  ``forward``;
+- eval mode: the fused route, where stochastic depth is the identity.
+  Kernel K5 (``ops.fused_ln_qkv``) builds the windowed qkv from the raw
+  block input with the pad and roll inside; the attention is kernel K1 where
+  the block's shift is off and kernel K4 (``fused_window_attention``, the
+  shift mask as a pattern table) where it is on; then proj, reverse, roll
+  back, crop and the residual; kernel K6 (``ops.fused_mlp``) computes the
+  MLP half.  None of K4-K6 has a backward: a gradient asked through the
+  eval route raises.  On CPU tensors every kernel is its plain twin.
 """
 
 from __future__ import annotations
@@ -28,7 +39,13 @@ from torch import nn
 from nerf_rpn_tpu_torch.models.fpn import FPN
 from nerf_rpn_tpu_torch.models.layers import dense, layer_norm
 from nerf_rpn_tpu_torch.ops.activations import erf_gelu
-from nerf_rpn_tpu_torch.ops.window_attention import WindowAttention
+from nerf_rpn_tpu_torch.ops.fused_ln_qkv import ln_partition_qkv
+from nerf_rpn_tpu_torch.ops.fused_mlp import fused_mlp_block
+from nerf_rpn_tpu_torch.ops.window_attention import (
+    WindowAttention,
+    fused_window_attention,
+    window_attention,
+)
 
 SWIN_VARIANTS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24)),
@@ -78,6 +95,33 @@ def shift_attn_mask(pad_size: tuple[int, int, int], window: tuple[int, int, int]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def shift_mask_patterns(pad_size: tuple[int, int, int], window: tuple[int, int, int],
+                        shift: tuple[int, int, int]) -> tuple[np.ndarray, np.ndarray]:
+    """The shift mask as kernel K4 takes it: ``(P, N, N)`` distinct patterns
+    and the ``(nW,)`` int32 pattern id of each window (P <= 8 for a 3D
+    shift).  Requires an active shift."""
+    m = shift_attn_mask(pad_size, window, shift)
+    table, ids = np.unique(m.reshape(m.shape[0], -1), axis=0, return_inverse=True)
+    return table.reshape(-1, *m.shape[1:]), ids.reshape(-1).astype(np.int32)
+
+
+class _EvalOnly(torch.autograd.Function):
+    """``apply(name, fn, *args)`` runs ``fn(*args)``, an eval kernel with no
+    backward; asking for its gradient raises instead of dropping it."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name} is an eval kernel without a backward; gradients flow "
+            "through the train-mode chain (module.train())")
+
+
 def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
     """(B, X, Y, Z, C) -> (B * nW, N, C), windows batch-major."""
     b, px, py, pz, c = x.shape
@@ -117,7 +161,10 @@ class ShiftedWindowAttention3D(nn.Module):
             "relative_position_index",
             torch.from_numpy(relative_position_index(self.window)),
             persistent=False)
-        self._masks: dict = {}  # (pad_size, shift, device) -> (nW, N, N) f32
+        # (pad_size, shift, device) -> (nW, N, N) f32 mask or None;
+        # (pad_size, shift, device, batch) -> K4's (table, ids)
+        self._masks: dict = {}
+        self._patterns: dict = {}
 
     def _mask(self, pad_size, shift, device) -> torch.Tensor | None:
         key = (pad_size, shift, device)
@@ -126,27 +173,70 @@ class ShiftedWindowAttention3D(nn.Module):
             self._masks[key] = None if m is None else torch.from_numpy(m).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, sx, sy, sz, c = x.shape
-        pad = tuple((w - s % w) % w for s, w in zip((sx, sy, sz), self.window))
-        if any(pad):
-            x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
-        pad_size = tuple(x.shape[1:4])
+    def _pattern_table(self, pad_size, shift, device, batch):
+        """K4's mask table and the pattern ids tiled over the batch."""
+        key = (pad_size, shift, device, batch)
+        if key not in self._patterns:
+            table, ids = shift_mask_patterns(pad_size, self.window, shift)
+            self._patterns[key] = (torch.from_numpy(table).to(device),
+                                   torch.from_numpy(np.tile(ids, batch)).to(device))
+        return self._patterns[key]
+
+    def _geometry(self, size) -> tuple[tuple[int, ...], tuple[int, ...]]:
+        """Padded grid size and the shift (off along an axis that one
+        window covers)."""
+        pad_size = tuple(-(-s // w) * w for s, w in zip(size, self.window))
         shift = tuple(0 if w >= p else s
                       for s, w, p in zip(self.shift, self.window, pad_size))
-        if sum(shift):
-            x = torch.roll(x, (-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
+        return pad_size, shift
+
+    def _bias(self) -> torch.Tensor:
         n = int(np.prod(self.window))
-        qkv = dense(window_partition(x, self.window), self.qkv, self.dtype)
         bias = self.relative_position_bias_table[self.relative_position_index]
-        bias = bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
-        y = WindowAttention.apply(qkv, bias, self._mask(pad_size, shift, x.device),
-                                  self.num_heads)
+        return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
+
+    def _output(self, y: torch.Tensor, b: int, size, pad_size, shift) -> torch.Tensor:
+        """proj, window reverse, roll back, crop."""
         y = dense(y, self.proj, self.dtype)
         y = window_reverse(y, self.window, b, pad_size)
         if sum(shift):
             y = torch.roll(y, shift, dims=(1, 2, 3))
-        return y[:, :sx, :sy, :sz]
+        return y[:, :size[0], :size[1], :size[2]]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode chain on the LayerNorm'd block input."""
+        b, sx, sy, sz, c = x.shape
+        pad_size, shift = self._geometry((sx, sy, sz))
+        pad = [p - s for p, s in zip(pad_size, (sx, sy, sz))]
+        if any(pad):
+            x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        if sum(shift):
+            x = torch.roll(x, (-shift[0], -shift[1], -shift[2]), dims=(1, 2, 3))
+        qkv = dense(window_partition(x, self.window), self.qkv, self.dtype)
+        y = WindowAttention.apply(qkv, self._bias(), self._mask(pad_size, shift, x.device),
+                                  self.num_heads)
+        return self._output(y, b, (sx, sy, sz), pad_size, shift)
+
+    def forward_eval(self, x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+        """Eval route on the raw block input: K5 (LN ``norm`` + pad + roll
+        + partition + qkv), then K1 (no shift) or K4 (shift)."""
+        b, sx, sy, sz, c = x.shape
+        pad_size, shift = self._geometry((sx, sy, sz))
+        qkv = _EvalOnly.apply(
+            "K5 ln_partition_qkv", ln_partition_qkv, x, norm.weight,
+            norm.bias, self.qkv.weight.t(), self.qkv.bias, self.window, pad_size, shift)
+        if not sum(shift):
+            y = _EvalOnly.apply("K1 window_attention", window_attention, qkv,
+                                self._bias(), None, self.num_heads)
+        else:
+            w, n = qkv.shape[:2]
+            q, k, v = qkv.view(w, n, 3, self.num_heads, c // self.num_heads).permute(
+                2, 0, 3, 1, 4)
+            table, ids = self._pattern_table(pad_size, shift, x.device, b)
+            y = _EvalOnly.apply("K4 fused_window_attention", fused_window_attention,
+                                q, k, v, self._bias(), table, ids)
+            y = y.transpose(1, 2).reshape(w, n, c)
+        return self._output(y, b, (sx, sy, sz), pad_size, shift)
 
 
 def stochastic_depth(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -178,8 +268,11 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training:
+            return self.forward_eval(x)
+
         def drop(y):
-            if not self.training or self.drop_path == 0.0:
+            if self.drop_path == 0.0:
                 return y
             if generator is None:
                 raise ValueError("train mode needs a generator for stochastic depth")
@@ -189,6 +282,16 @@ class SwinBlock(nn.Module):
         h = dense(layer_norm(x, self.norm2, self.dtype), self.mlp[0], self.dtype)
         h = dense(erf_gelu(h), self.mlp[3], self.dtype)
         return x + drop(h)
+
+    def forward_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval route: K5 + K1/K4 attention half, then K6 for the MLP half."""
+        x = x + self.attn.forward_eval(x, self.norm1)
+        fc1, fc2 = self.mlp[0], self.mlp[3]
+        y = _EvalOnly.apply(
+            "K6 fused_mlp_block", fused_mlp_block, x.reshape(-1, x.shape[-1]),
+            self.norm2.weight, self.norm2.bias, fc1.weight.t(), fc1.bias,
+            fc2.weight.t(), fc2.bias)
+        return y.reshape(x.shape)
 
 
 class PatchMerging3D(nn.Module):

@@ -1,8 +1,9 @@
-"""Window attention from the packed qkv projection: kernels K1 and K2.
+"""Window attention: kernels K1, K2 and K4.
 
 Port of ``fused_qkv_window_attention`` (``nerf_rpn_tpu/ops/window_attention.py
-:132-187``) and of the backward of ``flash_window_attention`` (``:313-478``).
-Per window w and head h::
+:132-187``), of the backward of ``flash_window_attention`` (``:313-478``) and
+of ``fused_window_attention`` (``:240-283``).  K1 and K2, per window w and
+head h::
 
     out[w, :, hD:(h+1)D] = softmax(q k^T * D^-1/2 + bias[h] (+ mask[w % nW])) v
 
@@ -16,11 +17,18 @@ on CUDA tensors and the plain twin ``window_attention_reference`` on CPU
 tensors; ``window_attention_backward`` does the same with kernel K2
 (``csrc/window_attention_bwd.cu``) and ``window_attention_backward_reference``.
 ``WindowAttention`` ties them together as one autograd function (K1 forward,
-K2 backward; the mask is a constant and gets no gradient).  Nothing falls
+K2 backward; the mask is a constant and gets no gradient).
+
+``fused_window_attention`` (kernel K4, the same source as K1) takes q, k, v
+as ``(W, H, 64, D)`` views with any strides but a contiguous D axis, and the
+shift mask as a ``(P, 64, 64)`` table of distinct patterns with a pattern id
+per window; its twin is ``fused_window_attention_reference``.  Nothing falls
 back from a kernel to its twin.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,7 +36,6 @@ from nerf_rpn_tpu_torch import kernels
 
 N_TOKENS = 64
 MAX_HEAD_DIM = 64
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
@@ -80,7 +87,7 @@ def _kernel_args(qkv: torch.Tensor, bias: torch.Tensor,
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     w, c, nw = _check(qkv, bias, mask, num_heads)
-    if qkv.dtype not in _DTYPE_CODES:
+    if qkv.dtype not in kernels.DTYPE_CODES:
         raise TypeError(f"window attention kernels take f32 or bf16, got {qkv.dtype}")
     if c // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
@@ -106,7 +113,7 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
         "window_attention_fwd",
         qkv.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        w, num_heads, c, nw, _DTYPE_CODES[qkv.dtype],
+        w, num_heads, c, nw, kernels.DTYPE_CODES[qkv.dtype],
         (c // num_heads) ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     return out
@@ -192,7 +199,7 @@ def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
         qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None,
         dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        w, num_heads, c, nw, per, _DTYPE_CODES[qkv.dtype],
+        w, num_heads, c, nw, per, kernels.DTYPE_CODES[qkv.dtype],
         (c // num_heads) ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     return dqkv, dbias
@@ -217,3 +224,73 @@ class WindowAttention(torch.autograd.Function):
         qkv, bias, mask = ctx.saved_tensors
         dqkv, dbias = window_attention_backward(qkv, dout, bias, mask, ctx.num_heads)
         return dqkv, dbias, None, None
+
+
+def _check_k4(q, k, v, bias, mask_table, pattern_ids) -> tuple[int, int, int]:
+    if q.dim() != 4 or q.shape[2] != N_TOKENS:
+        raise ValueError(f"q must be (W, H, {N_TOKENS}, D), got {tuple(q.shape)}")
+    w, h, n, _ = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if tuple(bias.shape) != (h, n, n):
+        raise ValueError(f"bias must be ({h}, {n}, {n}), got {tuple(bias.shape)}")
+    if mask_table.dim() != 3 or tuple(mask_table.shape[1:]) != (n, n):
+        raise ValueError(f"mask_table must be (P, {n}, {n}), got {tuple(mask_table.shape)}")
+    if tuple(pattern_ids.shape) != (w,):
+        raise ValueError(f"pattern_ids must be ({w},), got {tuple(pattern_ids.shape)}")
+    return w, h, mask_table.shape[0]
+
+
+def fused_window_attention_reference(q, k, v, bias, mask_table, pattern_ids):
+    """Plain PyTorch twin of kernel K4, in the arithmetic of the TPU kernel
+    ``_kernel``: q, k, v upcast to f32, q scaled in f32, logits + bias +
+    ``mask_table[pattern_ids[w]]`` and the softmax in f32, P kept in f32,
+    the output cast to the input dtype.  Returns (W, H, 64, D)."""
+    _check_k4(q, k, v, bias, mask_table, pattern_ids)
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    s = s + bias.float()[None]
+    s = s + mask_table.float()[pattern_ids.long()][:, None]
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, mask_table: torch.Tensor,
+                           pattern_ids: torch.Tensor) -> torch.Tensor:
+    """(W, H, 64, D) q, k, v views (contiguous D axis), (H, 64, 64) bias,
+    (P, 64, 64) mask table, (W,) pattern ids -> (W, H, 64, D) in q's dtype.
+
+    The result is a (W, H, 64, D) view of a (W, 64, H, D) tensor, so that
+    ``out.transpose(1, 2).reshape(W, 64, H * D)`` makes no copy.  CPU
+    tensors take the plain twin; CUDA tensors launch kernel K4 or raise.
+    """
+    if q.device.type == "cpu":
+        return fused_window_attention_reference(q, k, v, bias, mask_table, pattern_ids)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    w, h, n_pat = _check_k4(q, k, v, bias, mask_table, pattern_ids)
+    if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K4 takes f32 or bf16 q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    d = q.shape[-1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head width {d} > {MAX_HEAD_DIM}")
+    for t in (q, k, v):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError("q, k, v must lie on one device with a contiguous last axis")
+    bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
+    table = mask_table.to(device=q.device, dtype=torch.float32).contiguous()
+    ids = pattern_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((w, N_TOKENS, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*[st for t in (q, k, v, out) for st in t.stride()[:3]])
+    kernels.launch(
+        "fused_window_attention",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, bias.data_ptr(),
+        table.data_ptr(), ids.data_ptr(), out.data_ptr(), w, h, d, n_pat,
+        kernels.DTYPE_CODES[q.dtype], d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out

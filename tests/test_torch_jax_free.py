@@ -1,22 +1,29 @@
-"""The torch port never imports jax, directly or through the JAX package.
+"""The torch port imports neither jax nor the JAX package ``nerf_rpn_tpu``.
 
-A subprocess blocks jax / jaxlib / flax / optax / orbax with a meta-path
-hook, imports every module of ``nerf_rpn_tpu_torch`` and runs the CPU slice
-end to end through the CLI -- ``run_rpn --mode train`` for one epoch on a
-synthetic 32^3 dataset, then ``--mode eval --checkpoint model_best`` --
-and checks that none of them reached ``sys.modules``.
+A subprocess blocks jax / jaxlib / flax / optax / orbax and ``nerf_rpn_tpu``
+with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch``,
+writes a synthetic 32^3 dataset with the port's own writer and runs the CPU
+slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
+then ``--mode eval --checkpoint model_best`` -- and checks that none of
+them reached ``sys.modules``.  An AST scan shows that no file of the port,
+and not ``chip_smoke.py``, names them in an import statement.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf_rpn_tpu")
 
 SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf_rpn_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -30,7 +37,7 @@ import nerf_rpn_tpu_torch
 for mod in pkgutil.walk_packages(nerf_rpn_tpu_torch.__path__, "nerf_rpn_tpu_torch."):
     importlib.import_module(mod.name)
 
-from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
+from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
 
 data = sys.argv[1]
@@ -59,3 +66,34 @@ def test_port_runs_the_cpu_slice_without_jax(tmp_path):
                          env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert "JAX_FREE_OK" in res.stdout
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = sorted(Path(REPO, "nerf_rpn_tpu_torch").rglob("*.py")) + [
+        Path(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in BLOCKED]
+    assert not bad, bad
+
+
+def test_run_rpn_without_device_raises_without_a_gpu():
+    import torch
+
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    assert run_rpn.parse_args(["--mode", "eval"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_rpn.main(["--mode", "eval", "--backbone_type", "swin_t"])

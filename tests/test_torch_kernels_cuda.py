@@ -1,4 +1,4 @@
-"""CUDA kernels K1, K2 and K3 against their plain PyTorch twins, on the GPU.
+"""CUDA kernels K1 to K6 against their plain PyTorch twins, on the GPU.
 
 Needs a CUDA device and nvcc (the kernels are built from
 ``nerf_rpn_tpu_torch/csrc`` on first use); skips otherwise.  The chip run::
@@ -14,13 +14,17 @@ import pytest
 import torch
 
 from nerf_rpn_tpu_torch import kernels
-from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
+from nerf_rpn_tpu_torch.models.swin import shift_attn_mask, shift_mask_patterns
+from nerf_rpn_tpu_torch.ops.fused_ln_qkv import ln_partition_qkv, ln_partition_qkv_reference
+from nerf_rpn_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_reference
 from nerf_rpn_tpu_torch.ops.nms_graph import (
     aabb_suppression_graph,
     aabb_suppression_graph_reference,
 )
 from nerf_rpn_tpu_torch.ops.window_attention import (
     WindowAttention,
+    fused_window_attention,
+    fused_window_attention_reference,
     window_attention,
     window_attention_backward,
     window_attention_backward_reference,
@@ -165,3 +169,107 @@ def test_suppression_graph_kernel_rejects_bad_shapes(cuda):
         aabb_suppression_graph(boxes[:, :40], 0.3)
     with pytest.raises(TypeError):
         aabb_suppression_graph(boxes.double(), 0.3)
+
+
+def row_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 ulps of the largest |want| of its row
+    (last axis): a neighbouring-value rounding of an intermediate moves an
+    output by a share of its row's scale, not of its own magnitude, where
+    the row's terms cancel."""
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def check_close(got, want, dtype):
+    """f32: 1e-5 of the output's scale (f32 sums in other orders); bf16:
+    2 ulps of each row's scale (the same rounding points, f32 sums in other
+    orders)."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * (1 + want.abs().max().item()))
+    else:
+        assert row_ulps(got, want) <= 2.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad,b,h,d", [((8, 8, 12), 2, 3, 32),    # stage-0 heads
+                                       ((16, 16, 12), 1, 12, 32),  # stage 2
+                                       ((8, 8, 8), 1, 4, 8)])      # D = 8
+def test_fused_window_attention_kernel_matches_twin(cuda, pad, b, h, d, dtype):
+    table, ids = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
+    table = torch.from_numpy(table).to(cuda)
+    ids = torch.from_numpy(np.tile(ids, b)).to(cuda)
+    w = ids.shape[0]
+    gen = torch.Generator(cuda).manual_seed(5)
+    qkv = torch.randn((w, 64, 3 * h * d), generator=gen, device=cuda).to(dtype)
+    bias = 0.5 * torch.randn((h, 64, 64), generator=gen, device=cuda)
+    # strided views of a packed qkv, as the eval route passes them
+    q, k, v = qkv.view(w, 64, 3, h, d).permute(2, 0, 3, 1, 4)
+    before = kernels.counts()["fused_window_attention"]
+    out = fused_window_attention(q, k, v, bias, table, ids)
+    torch.cuda.synchronize()
+    assert kernels.counts()["fused_window_attention"] == before + 1
+    ref = fused_window_attention_reference(q, k, v, bias, table, ids)
+    check_close(out, ref, dtype)
+
+
+def _ln_qkv_inputs(c, dtype, device, seed=6):
+    gen = torch.Generator(device).manual_seed(seed)
+    s = 1 + 0.2 * torch.randn(c, generator=gen, device=device)
+    t = 0.2 * torch.randn(c, generator=gen, device=device)
+    w = torch.randn((c, 3 * c), generator=gen, device=device) * c ** -0.5
+    b = 0.5 * torch.randn(3 * c, generator=gen, device=device)
+    return s, t, w.to(dtype), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size,c,shift", [((12, 12, 8), 96, (0, 0, 0)),
+                                          ((13, 13, 9), 192, (2, 2, 2)),  # padded
+                                          ((7, 7, 5), 768, (2, 2, 2))])   # stage 3
+def test_ln_partition_qkv_kernel_matches_twin(cuda, size, c, shift, dtype):
+    x = torch.randn((2, *size, c), generator=torch.Generator(cuda).manual_seed(7),
+                    device=cuda).to(dtype)
+    params = _ln_qkv_inputs(c, dtype, cuda)
+    pad = tuple(-(-s // 4) * 4 for s in size)
+    before = kernels.counts()["ln_partition_qkv"]
+    out = ln_partition_qkv(x, *params, (4, 4, 4), pad, shift)
+    torch.cuda.synchronize()
+    assert kernels.counts()["ln_partition_qkv"] == before + 1
+    check_close(out, ln_partition_qkv_reference(x, *params, (4, 4, 4), pad, shift), dtype)
+
+
+def _mlp_inputs(t, c, dtype, device, seed=8):
+    gen = torch.Generator(device).manual_seed(seed)
+    hd = 4 * c
+    x = torch.randn((t, c), generator=gen, device=device).to(dtype)
+    return (x, 1 + 0.2 * torch.randn(c, generator=gen, device=device),
+            0.2 * torch.randn(c, generator=gen, device=device),
+            torch.randn((c, hd), generator=gen, device=device) * c ** -0.5,
+            0.3 * torch.randn(hd, generator=gen, device=device),
+            torch.randn((hd, c), generator=gen, device=device) * hd ** -0.5,
+            0.3 * torch.randn(c, generator=gen, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c", [(20000, 96), (1000, 96), (301, 384), (245, 768),
+                                 (40, 1536)])
+def test_fused_mlp_kernel_matches_twin(cuda, t, c, dtype):
+    args = _mlp_inputs(t, c, dtype, cuda)
+    before = kernels.counts()["fused_mlp_block"]
+    out = fused_mlp_block(*args)
+    torch.cuda.synchronize()
+    assert kernels.counts()["fused_mlp_block"] == before + 1
+    check_close(out, fused_mlp_block_reference(*args), dtype)
+
+
+def test_eval_kernels_reject_bad_shapes(cuda):
+    x = torch.zeros((1, 8, 8, 8, 24), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ln_partition_qkv(x, *_ln_qkv_inputs(24, torch.float32, cuda), (4, 4, 4))
+    args = _mlp_inputs(8, 24, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_mlp_block(*args)
+    with pytest.raises(TypeError):
+        fused_mlp_block(args[0].half(), *args[1:])
