@@ -10,10 +10,14 @@ Phases, each ending in ``torch.cuda.synchronize()``; any failure exits
 nonzero before the result lines:
 
 1. require CUDA, print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed);
-3. kernel K1 (window attention) against its plain twin at the Swin-S bench
-   shapes -- stage 0 (W=1521, H=3) and stage 1 (W=245, H=6), with and
-   without the real shift mask, f32 (TF32 off) and bf16 -- with times;
+2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed), with
+   ``nvcc -Xptxas -v``'s registers, static shared memory and spills of the
+   K1/K4 kernels printed beside the build;
+3. kernel K1 (window attention) against its plain twin at the shapes the
+   main path runs it -- the four stages of the Swin-S eval bench shape
+   without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
+   0 with the real shift mask (2000x3, mask (1000, 64, 64)), f32 (TF32
+   off) and bf16 -- with times and each row's head group G;
 4. kernel K2 (window-attention backward) against its twin at the four
    Swin-S train shapes (160^3, batch 2), f32 and bf16, masked and not,
    with times and bit-equal results over two runs; the autograd function
@@ -24,7 +28,8 @@ nonzero before the result lines:
    (LayerNorm + pad + shift + partition + qkv) and K6 (the MLP half of a
    block) against their twins at the four stages of the Swin-S eval bench
    shape (208x208x144: tokens 52x52x36, 26x26x18, 13x13x9, 7x7x5, the last
-   three padded, every shift on), f32 and bf16, with times;
+   three padded, every shift on), f32 and bf16, with times (K4 with its
+   head group G);
 7. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
@@ -43,8 +48,10 @@ nonzero before the result lines:
    timed train steps at that shape (ms/step with CUDA events, peak device
    memory).
 
-Times are CUDA events, 20 calls per turn in turns plain, kernel, kernel,
-plain; ``library_ms`` is one PyTorch call computing the same function
+Times are device ms per call from CUDA events around 20 back-to-back
+calls queued behind a sleep kernel (so the host's launch gaps do not
+count), in turns plain, kernel, kernel, plain; ``library_ms`` is one
+PyTorch call computing the same function
 (``F.scaled_dot_product_attention`` with the additive bias and mask for
 K1 and K4, its autograd backward for K2), timed as a yardstick only.
 ``bound_ms`` is the least time of the same work on an H100 SXM (3.35 TB/s,
@@ -84,13 +91,38 @@ def phase_done(torch, name: str, t0: float) -> None:
     print(f"[phase] {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` per device ms, measured once."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
 def time_one(torch, fn, reps=20, warmup=3):
-    """Device ms per call of ``fn`` over ``reps`` calls, with CUDA events."""
+    """Device ms per call of ``fn`` over ``reps`` back-to-back calls, with
+    CUDA events.  The calls are queued behind a sleep kernel that lasts
+    longer than the host takes to launch them, so the host's launch
+    overhead between calls does not count (it does for a ``fn`` that
+    synchronises)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    launch_ms = (time.perf_counter() - t0) * 1e3 / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms(torch) * (1.5 * reps * launch_ms + 0.1)))
     start.record()
     for _ in range(reps):
         fn()
@@ -145,56 +177,101 @@ def sdpa_views(qkv, heads):
     return qkv.view(w, n, 3, heads, c3 // 3 // heads).permute(2, 0, 3, 1, 4)
 
 
+def start_ptxas_report(kernels, lib, workdir):
+    """Start ``nvcc -Xptxas -v`` on ``csrc/<lib>.cu`` with the build's
+    flags (a cubin into ``workdir``), beside the build."""
+    cmd = [kernels.nvcc(), *kernels.nvcc_flags(lib), "-cubin", "-Xptxas", "-v",
+           "-I", str(kernels.CSRC), "-o", os.path.join(workdir, f"{lib}.cubin"),
+           str(kernels.CSRC / f"{lib}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def print_ptxas_report(proc, lib):
+    """One line per kernel of the source: registers, static shared memory
+    and spills, as ptxas reports them."""
+    import re
+    import shutil
+
+    text = proc.communicate()[0]
+    if proc.returncode != 0:
+        fail(f"nvcc -Xptxas -v on {lib}.cu failed:\n{text}")
+    entries, cur = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = entries.setdefault(m.group(1), {})
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(s.group(1)) if s else 0
+    names = list(entries)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True).stdout.splitlines()
+    for name, info in zip(names, entries.values()):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        print("[ptxas]", json.dumps({"source": f"{lib}.cu", "kernel": name.split("(")[0],
+                                     **info}), flush=True)
+
+
 def check_window_attention(torch, dev):
-    import numpy as np
+    """K1 against its twin at the shapes the main path runs it: the four
+    eval stages without a mask (the unshifted eval blocks) and the train
+    stage 0 with the real shift mask (160^3, batch 2: 2000 windows over a
+    (1000, 64, 64) mask)."""
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
     from nerf_rpn_tpu_torch.ops.window_attention import (
+        head_group,
+        tile_bytes,
         window_attention,
         window_attention_reference,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    # bench grid 208x208x144 -> stage 0 tokens 52x52x36, stage 1 26x26x18
-    # (padded to 28x28x20 for 4^3 windows)
-    stages = [("stage0", (52, 52, 36), 3, 96), ("stage1", (28, 28, 20), 6, 192)]
-    # f32: f32 accumulation in other orders; bf16: a probability rounding
-    # to a neighbouring bf16 value moves an output by <= 2 bf16 ulps
-    tol = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    cases = [(name, -(-s[0] // 4) * -(-s[1] // 4) * -(-s[2] // 4), heads, c, None)
+             for name, s, heads, c in EVAL_STAGES]
+    cases.append(("train stage0", 2000, 3, 96,
+                  shift_attn_mask((40, 40, 40), (4, 4, 4), (2, 2, 2))))
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, main = [], None
-    for name, pad, heads, c in stages:
-        mask_np = shift_attn_mask(pad, (4, 4, 4), (2, 2, 2))
-        w = mask_np.shape[0]
+    for name, w, heads, c, mask_np in cases:
+        mask = None if mask_np is None else torch.from_numpy(mask_np).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn((w, 64, 3 * c), generator=gen, device=dev).to(dtype)
             bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=dev)
-            for masked in (False, True):
-                mask = torch.from_numpy(mask_np).to(dev) if masked else None
-                out = window_attention(qkv, bias, mask, heads)
-                ref = window_attention_reference(qkv, bias, mask, heads)
-                err = (out.float() - ref.float()).abs().max().item()
-                lim = tol[dtype] * (1.0 + ref.float().abs().max().item())
-                if not np.isfinite(err) or err > lim:
-                    fail(f"K1 {name} {dtype} mask={masked}: max|err| {err} > {lim}")
-                ms, plain_ms = time_pair(
-                    torch, lambda: window_attention_reference(qkv, bias, mask, heads),
-                    lambda: window_attention(qkv, bias, mask, heads))
-                q, k, v = sdpa_views(qkv, heads)
-                am = bias[None] if mask is None else bias[None] + mask[:, None]
-                am = am.to(dtype)
-                library_ms = time_one(
-                    torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
-                row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
-                           mask=masked, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
-                           **bound(nbytes(qkv, bias, mask, out),
-                                   4 * w * heads * 64 * 64 * (c // heads), dtype_name(dtype)))
-                rows.append(row)
-                print("K1", json.dumps(row), flush=True)
-                if name == "stage0" and dtype == torch.bfloat16 and masked:
-                    main = row
+            out = window_attention(qkv, bias, mask, heads)
+            ref = window_attention_reference(qkv, bias, mask, heads)
+            err, ok = close_enough(torch, out, ref, dtype)
+            if not ok:
+                fail(f"K1 {name} {dtype} mask={mask is not None}: max|err| {err} "
+                     f"outside the tolerance")
+            ms, plain_ms = time_pair(
+                torch, lambda: window_attention_reference(qkv, bias, mask, heads),
+                lambda: window_attention(qkv, bias, mask, heads))
+            q, k, v = sdpa_views(qkv, heads)
+            am = bias[None] if mask is None else bias[None] + mask.repeat(
+                w // mask.shape[0], 1, 1)[:, None]
+            am = am.to(dtype)
+            library_ms = time_one(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+            del am
+            d = c // heads
+            group = head_group(w, heads, d, dtype)
+            row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
+                       mask=mask is not None, G=group, smem_bytes=group * tile_bytes(d, dtype),
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound(nbytes(qkv, bias, mask, out), 4 * w * heads * 64 * 64 * d,
+                               dtype_name(dtype)))
+            rows.append(row)
+            print("K1", json.dumps(row), flush=True)
+            if name == "train stage0" and dtype == torch.bfloat16:
+                main = row
     return rows, main
 
 
@@ -341,6 +418,8 @@ def check_fused_window_attention(torch, dev):
     from nerf_rpn_tpu_torch.ops.window_attention import (
         fused_window_attention,
         fused_window_attention_reference,
+        head_group,
+        tile_bytes,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,7 +446,9 @@ def check_fused_window_attention(torch, dev):
             am = (bias[None] + table[ids.long()][:, None]).to(dtype)
             library_ms = time_one(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+            group = head_group(w, heads, d, dtype)
             row = dict(stage=name, W=w, H=heads, C=c, P=len(table_np), dtype=dtype_name(dtype),
+                       G=group, smem_bytes=group * tile_bytes(d, dtype),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        **bound(nbytes(q, k, v, bias, table, ids, out),
                                4 * w * heads * 64 * 64 * d, dtype_name(dtype)))
@@ -793,7 +874,10 @@ def main() -> None:
     print(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    build_s = kernels.build_all()
+    with tempfile.TemporaryDirectory() as cubins:
+        ptxas = start_ptxas_report(kernels, "window_attention", cubins)
+        build_s = kernels.build_all()
+        print_ptxas_report(ptxas, "window_attention")
     print(f"[build] kernels built and loaded in {build_s:.2f} s", flush=True)
     phase_done(torch, "build", t0)
 

@@ -51,8 +51,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "window_attention_fwd": (
         "window_attention",
-        # qkv, bias, mask|NULL, out, W, H, C, nW, dtype_code, scale, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+        # qkv, bias, mask|NULL, out, W, H, C, nW, head group, dtype_code,
+        # scale, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "window_attention_bwd": (
         "window_attention_bwd",
         # qkv, dout, bias, mask|NULL, dqkv, dbias_part, dbias, W, H, C, nW,
@@ -65,8 +66,8 @@ SIGNATURES = {
     "fused_window_attention": (
         "window_attention",
         # q, k, v, strides (host int64[12]), bias, table, ids, out, W, H, D,
-        # P, dtype_code, scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+        # P, head group, dtype_code, scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "ln_partition_qkv": (
         "fused_ln_qkv",
         # x, ln_scale, ln_bias, w, b, out, B, SX, SY, SZ, C, PX, PY, PZ,
@@ -106,10 +107,14 @@ def nvcc() -> str:
     return path
 
 
+def nvcc_flags(lib: str) -> list[str]:
+    """Target and code-generation flags of ``csrc/<lib>.cu``."""
+    return [*_ARCH, "-std=c++17", *KERNEL_FLAGS[lib]]
+
+
 def _library_path(lib: str) -> tuple[Path, list[str]]:
     src = CSRC / f"{lib}.cu"
-    flags = [*_ARCH, "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-             *KERNEL_FLAGS[lib]]
+    flags = [*nvcc_flags(lib), "-shared", "-Xcompiler", "-fPIC"]
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(f.read_bytes())

@@ -24,6 +24,11 @@ as ``(W, H, 64, D)`` views with any strides but a contiguous D axis, and the
 shift mask as a ``(P, 64, 64)`` table of distinct patterns with a pattern id
 per window; its twin is ``fused_window_attention_reference``.  Nothing falls
 back from a kernel to its twin.
+
+The K1/K4 kernel runs one block per (window, group of G heads), block b
+taking window ``b // (H / G)`` and heads from ``(b % (H / G)) * G``;
+:func:`head_group` picks G.  Its 16-byte copies need a head width of a
+multiple of 16 bytes and, for K4, 16-byte-aligned views.
 """
 
 from __future__ import annotations
@@ -36,6 +41,39 @@ from nerf_rpn_tpu_torch import kernels
 
 N_TOKENS = 64
 MAX_HEAD_DIM = 64
+
+# the K1/K4 head-group planner (csrc/window_attention.cu)
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+MAX_HEAD_GROUP = 8            # copy groups a block can wait on
+TILE_SMEM_BUDGET = 64 * 1024  # a block's q/k/v tiles: three blocks or more an SM
+
+
+def tile_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Shared memory of one head's q, k and v tiles in the K1/K4 kernel:
+    64 rows of the head width rounded up to 16, plus 16 bytes of row pad
+    (``tile_ld`` in the CUDA source)."""
+    ld = -(-head_dim // 16) * 16 + 16 // dtype.itemsize
+    return 3 * N_TOKENS * ld * dtype.itemsize
+
+
+def head_group(w: int, num_heads: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Heads per block of the K1/K4 grid for W windows: the largest G that
+    divides H, keeps G heads' tiles within ``TILE_SMEM_BUDGET`` and leaves
+    at least two blocks per SM (``W * H / G >= 2 * SMS``); 1 where no
+    larger G does."""
+    per = tile_bytes(head_dim, dtype)
+    best = 1
+    for g in range(2, min(num_heads, MAX_HEAD_GROUP) + 1):
+        if (num_heads % g == 0 and g * per <= TILE_SMEM_BUDGET
+                and w * (num_heads // g) >= 2 * SMS):
+            best = g
+    return best
+
+
+def _check_vector_width(head_dim: int, dtype: torch.dtype) -> None:
+    if head_dim * dtype.itemsize % 16:
+        raise ValueError(f"head width {head_dim} in {dtype} is not a multiple of "
+                         f"16 bytes, which the kernel's 16-byte copies need")
 
 
 def _check(qkv: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
@@ -107,14 +145,18 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, bias, mask, num_heads)
     w, c, nw, bias, mask = _kernel_args(qkv, bias, mask, num_heads)
+    d = c // num_heads
+    _check_vector_width(d, qkv.dtype)
     qkv = qkv.contiguous()
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must start on a 16-byte boundary")
     out = torch.empty((w, qkv.shape[1], c), dtype=qkv.dtype, device=qkv.device)
     kernels.launch(
         "window_attention_fwd",
         qkv.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        w, num_heads, c, nw, kernels.DTYPE_CODES[qkv.dtype],
-        (c // num_heads) ** -0.5,
+        w, num_heads, c, nw, head_group(w, num_heads, d, qkv.dtype),
+        kernels.DTYPE_CODES[qkv.dtype], d ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     return out
 
@@ -279,9 +321,14 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = q.shape[-1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head width {d} > {MAX_HEAD_DIM}")
+    _check_vector_width(d, q.dtype)
+    vec = 16 // q.element_size()
     for t in (q, k, v):
         if t.device != q.device or t.stride(-1) != 1:
             raise ValueError("q, k, v must lie on one device with a contiguous last axis")
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError("q, k, v must start on 16-byte boundaries with strides "
+                             "of a multiple of 16 bytes")
     bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
     table = mask_table.to(device=q.device, dtype=torch.float32).contiguous()
     ids = pattern_ids.to(device=q.device, dtype=torch.int32).contiguous()
@@ -291,6 +338,6 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "fused_window_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, bias.data_ptr(),
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), w, h, d, n_pat,
-        kernels.DTYPE_CODES[q.dtype], d ** -0.5,
+        head_group(w, h, d, q.dtype), kernels.DTYPE_CODES[q.dtype], d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     return out

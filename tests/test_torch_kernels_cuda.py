@@ -53,19 +53,33 @@ def _attn_inputs(w, h, c, dtype, n_w, device, seed=0):
     return qkv.to(device, dtype), bias.to(device), mask
 
 
-# f32: both sides accumulate in f32 in different orders -> 1e-5;
-# bf16: P and the output round to bf16, so an ulp flip of a probability
-# can move an output by up to 2 bf16 ulps (2 * 2^-8 relative)
-TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
-       torch.bfloat16: dict(atol=1.6e-2, rtol=1.6e-2)}
+# f32: both sides accumulate in f32 in different orders -> 1e-5; bf16:
+# the per-row 2-ulp rule of check_close (below), as for K4-K6
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+def check_k1(out, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **F32_TOL)
+    else:
+        check_close(out, ref, dtype)
+
+
+# the K1/K4 grid runs one block per (window, group of G heads); the cases
+# reach the planner's edges (ops.window_attention.head_group)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w,h,c,n_w", [
-    (37, 3, 96, 0),     # stage-0 widths, no shift
+    (37, 3, 96, 0),     # stage-0 widths, no shift; W < 132: G = 1
     (37, 3, 96, 37),    # stage-0 widths, shift mask
     (48, 6, 192, 12),   # stage-1 widths, mask broadcast over 4 scenes
     (20, 3, 24, 5),     # D = 8
+    (600, 3, 96, 100),  # stage-0 widths, G = 3 in bf16
+    (300, 6, 192, 0),   # stage-1 widths, G = 3 in bf16
+    (8, 24, 768, 0),    # stage 3 (W = 8): G = 1 at H = 24, D = 32
+    (300, 7, 224, 0),   # H = 7: no larger G divides it
+    (300, 4, 64, 50),   # D = 16
+    (300, 2, 128, 0),   # D = 64
+    (40, 48, 384, 0),   # H = 48, D = 8: G = 6 in bf16
 ])
 def test_window_attention_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
@@ -75,7 +89,7 @@ def test_window_attention_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     assert kernels.counts()["window_attention_fwd"] == before + 1
     ref = window_attention_reference(qkv, bias, mask, h)
     assert out.dtype == dtype and out.shape == (w, 64, c)
-    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    check_k1(out, ref, dtype)
 
 
 def test_window_attention_kernel_swin_shift_mask(cuda):
@@ -84,7 +98,7 @@ def test_window_attention_kernel_swin_shift_mask(cuda):
     qkv, bias, _ = _attn_inputs(mask.shape[0] * 2, 6, 192, torch.float32, 0, cuda)
     out = window_attention(qkv, bias, mask, 6)
     ref = window_attention_reference(qkv, bias, mask, 6)
-    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+    torch.testing.assert_close(out, ref, **F32_TOL)
 
 
 def test_window_attention_kernel_rejects_bad_shapes(cuda):
@@ -95,6 +109,10 @@ def test_window_attention_kernel_rejects_bad_shapes(cuda):
         window_attention(qkv, bias, torch.zeros(3, 64, 64, device=cuda), 3)
     with pytest.raises(TypeError):
         window_attention(qkv.half(), bias, None, 3)
+    # D = 12 in bf16 is 24 bytes: no 16-byte copies
+    with pytest.raises(ValueError, match="16 bytes"):
+        window_attention(torch.zeros((4, 64, 108), device=cuda, dtype=torch.bfloat16),
+                         bias, None, 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -196,7 +214,12 @@ def check_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pad,b,h,d", [((8, 8, 12), 2, 3, 32),    # stage-0 heads
                                        ((16, 16, 12), 1, 12, 32),  # stage 2
-                                       ((8, 8, 8), 1, 4, 8)])      # D = 8
+                                       ((8, 8, 8), 1, 4, 8),       # D = 8
+                                       ((52, 52, 36), 1, 3, 32),   # stage 0: G = 3 in bf16
+                                       ((8, 8, 8), 1, 24, 32),     # stage 3: G = 1, H = 24
+                                       ((24, 24, 20), 1, 7, 32),   # H = 7
+                                       ((24, 24, 20), 1, 4, 16),   # D = 16
+                                       ((24, 24, 20), 1, 2, 64)])  # D = 64
 def test_fused_window_attention_kernel_matches_twin(cuda, pad, b, h, d, dtype):
     table, ids = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
     table = torch.from_numpy(table).to(cuda)
@@ -213,6 +236,20 @@ def test_fused_window_attention_kernel_matches_twin(cuda, pad, b, h, d, dtype):
     assert kernels.counts()["fused_window_attention"] == before + 1
     ref = fused_window_attention_reference(q, k, v, bias, table, ids)
     check_close(out, ref, dtype)
+
+
+def test_fused_window_attention_kernel_rejects_unaligned_views(cuda):
+    table, ids = shift_mask_patterns((8, 8, 8), (4, 4, 4), (2, 2, 2))
+    table, ids = torch.from_numpy(table).to(cuda), torch.from_numpy(ids).to(cuda)
+    bias = torch.zeros((2, 64, 64), device=cuda)
+    # rows 3 * 2 * 32 + 4 bf16 apart: 8-byte steps, no 16-byte copies
+    qkv = torch.zeros((8, 64, 196), device=cuda, dtype=torch.bfloat16)[..., :192]
+    q, k, v = qkv.view(8, 64, 3, 2, 32).permute(2, 0, 3, 1, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_window_attention(q, k, v, bias, table, ids)
+    strided_d = torch.zeros((8, 2, 32, 64), device=cuda, dtype=torch.bfloat16).transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        fused_window_attention(strided_d, k, v, bias, table, ids)
 
 
 def _ln_qkv_inputs(c, dtype, device, seed=6):
