@@ -12,16 +12,21 @@ nonzero before the result lines:
 1. require CUDA, print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed), with
    ``nvcc -Xptxas -v``'s registers, static shared memory and spills of the
-   K1/K4 kernels printed beside the build;
+   K1/K4 and K2 kernels printed beside the build;
 3. kernel K1 (window attention) against its plain twin at the shapes the
    main path runs it -- the four stages of the Swin-S eval bench shape
    without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
    0 with the real shift mask (2000x3, mask (1000, 64, 64)), f32 (TF32
    off) and bf16 -- with times and each row's head group G;
-4. kernel K2 (window-attention backward) against its twin at the four
-   Swin-S train shapes (160^3, batch 2), f32 and bf16, masked and not,
-   with times and bit-equal results over two runs; the autograd function
-   (K1 forward, K2 backward) against autograd through K1's twin;
+4. kernel K2 (window-attention backward: a block of 4 warps per (run of
+   windows, head) walking its run in order with the next window's
+   16-byte cp.async copies in flight, the five products on bf16
+   ``mma.sync`` (3xTF32 for f32), dbias kept per block and summed over
+   runs in a fixed order) against its twin at the four Swin-S train
+   shapes (160^3, batch 2), f32 and bf16, masked and not, with times,
+   each row's number of runs and bit-equal results over two runs; the
+   autograd function (K1 forward, K2 backward) against autograd through
+   K1's twin;
 5. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
    4 x 2560 boxes (dense overlaps plus zero-volume padding, IoU 0.3);
 6. kernels K4 (window attention with the shift-mask pattern table), K5
@@ -44,7 +49,8 @@ nonzero before the result lines:
 10. the train path: 4 train and 2 validation synthetic scenes at 160^3
    through ``run_rpn --mode train`` (Swin-S, bf16, batch 2, one epoch,
    validation eval, checkpoints), with every kernel's launch count read
-   around it; ``--mode eval --checkpoint <save>/model_best``; then 20
+   around it (K2 once per block and step: 24 a step);
+   ``--mode eval --checkpoint <save>/model_best``; then 20
    timed train steps at that shape (ms/step with CUDA events, peak device
    memory).
 
@@ -167,6 +173,25 @@ def close_enough(torch, got, want, dtype):
     return err, ok and math.isfinite(err)
 
 
+def k2_close_enough(torch, dqkv, dbias, ref_q, ref_b, dtype):
+    """(dqkv max|err|, dbias max|err|, whether both are within the
+    tolerance) of a K2 result against its twin: dqkv f32 1e-5 of the
+    output's scale (products summed in other orders), bf16 2 ulps of it (a
+    probability or ds rounding to the neighbouring bf16 value moves an
+    output by less); dbias 2e-5 of its scale (f32 sums over W windows in
+    another order)."""
+    scale = ref_q.float().abs().max().item()
+    err = (dqkv.float() - ref_q.float()).abs().max().item()
+    if dtype == torch.float32:
+        lim = 1e-5 * (1.0 + scale)
+    else:
+        lim = 2.0 ** (math.floor(math.log2(scale)) - 6)
+    b_err = (dbias - ref_b).abs().max().item()
+    b_lim = 2e-5 * (1.0 + ref_b.abs().max().item())
+    ok = math.isfinite(err) and err <= lim and math.isfinite(b_err) and b_err <= b_lim
+    return err, b_err, ok
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -279,13 +304,13 @@ def check_window_attention_backward(torch, dev):
     """K2 against its twin at the Swin-S train shapes (160^3, batch 2),
     with the real shift masks; dbias bit-equal over two runs; the autograd
     function (K1 + K2) against autograd through K1's twin."""
-    import numpy as np
-
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
     from nerf_rpn_tpu_torch.ops.window_attention import (
         WindowAttention,
+        backward_groups,
+        backward_smem_bytes,
         window_attention_backward,
         window_attention_backward_reference,
         window_attention_reference,
@@ -312,23 +337,10 @@ def check_window_attention_backward(torch, dev):
                     fail(f"K2 {name} {dtype} mask={masked}: two runs differ")
                 ref_q, ref_b = window_attention_backward_reference(
                     qkv, dout, bias, mask, heads)
-                scale = ref_q.float().abs().max().item()
-                err = (dqkv.float() - ref_q.float()).abs().max().item()
-                if dtype == torch.float32:
-                    # f32 products summed in other orders
-                    lim = 1e-5 * (1.0 + scale)
-                else:
-                    # a probability or ds rounding to the neighbouring bf16
-                    # value moves an output by <= 2 bf16 ulps of its scale
-                    lim = 2.0 ** (np.floor(np.log2(scale)) - 6)
-                b_scale = ref_b.abs().max().item()
-                b_err = (dbias - ref_b).abs().max().item()
-                # dbias: f32 sums over W windows in another order
-                b_lim = 2e-5 * (1.0 + b_scale)
-                if not (np.isfinite(err) and err <= lim and np.isfinite(b_err)
-                        and b_err <= b_lim):
-                    fail(f"K2 {name} {dtype} mask={masked}: dqkv max|err| {err} "
-                         f"(limit {lim}), dbias {b_err} (limit {b_lim})")
+                err, b_err, ok = k2_close_enough(torch, dqkv, dbias, ref_q, ref_b, dtype)
+                if not ok:
+                    fail(f"K2 {name} {dtype} mask={masked}: dqkv max|err| {err}, "
+                         f"dbias {b_err}: outside the tolerance")
                 ms, plain_ms = time_pair(
                     torch,
                     lambda: window_attention_backward_reference(qkv, dout, bias, mask, heads),
@@ -346,7 +358,9 @@ def check_window_attention_backward(torch, dev):
                 del lq, lb, am, lo
                 d = c // heads
                 row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
-                           mask=masked, max_abs_err=err, dbias_max_abs_err=b_err,
+                           mask=masked, runs=backward_groups(w, heads, d, dtype),
+                           smem_bytes=backward_smem_bytes(d, dtype),
+                           max_abs_err=err, dbias_max_abs_err=b_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            **bound(nbytes(qkv, dout, bias, mask, dqkv, dbias),
                                    10 * w * heads * 64 * 64 * d, dtype_name(dtype)))
@@ -745,24 +759,34 @@ def require_launches(launches, names, path):
     print(f"[{path} path] launches {json.dumps(launches)}", flush=True)
 
 
-def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda"):
-    """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
-    batch 2), then ``--mode eval --checkpoint <save>/model_best``.  The
-    keywords shrink the run for a rehearsal on the CPU."""
-    import numpy as np
-
+def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda"):
+    """4 train, 2 validation and 2 test synthetic scenes at ``resolution``^3
+    under ``workdir``, and the ``run_rpn`` arguments of the train path
+    (bf16, batch 2) that read them: ``(data dir, arguments)``."""
     from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
-    from nerf_rpn_tpu_torch import kernels
-    from nerf_rpn_tpu_torch.cli import run_rpn
 
     data = os.path.join(workdir, "data160")
-    save = os.path.join(workdir, "train")
     write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2,
                             resolution=(resolution,) * 3, seed=1,
                             box_size=(resolution / 10, resolution / 4))
     common = ["--backbone_type", backbone, "--bf16", "--resolution", str(resolution),
               "--batch_size", "2", "--device", device, "--features_path", data,
               "--boxes_path", data, "--dataset_split", os.path.join(data, "split.npz")]
+    return data, common
+
+
+def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda"):
+    """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
+    batch 2), then ``--mode eval --checkpoint <save>/model_best``.  The
+    keywords shrink the run for a rehearsal on the CPU."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
+
+    data, common = write_train_data(workdir, resolution, backbone, device)
+    save = os.path.join(workdir, "train")
     t0 = time.perf_counter()
     kernels.reset_counts()
     logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
@@ -783,6 +807,11 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     print(f"[train path] 1 epoch, 2 steps + validation eval in {train_s:.1f} s; losses "
           + ", ".join(f"{m['loss']:.4f}" for m in logged), flush=True)
     require_launches(launches, TRAIN_KERNELS, "train")
+    # the backward runs once per Swin block and train step
+    want = len(logged) * sum(SWIN_VARIANTS[backbone]["depths"])
+    if launches["window_attention_bwd"] != want:
+        fail(f"train path: window_attention_bwd launched {launches['window_attention_bwd']} "
+             f"times over {len(logged)} steps, expected {want}")
 
     kernels.reset_counts()
     out = os.path.join(workdir, "eval_ckpt")
@@ -875,9 +904,11 @@ def main() -> None:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as cubins:
-        ptxas = start_ptxas_report(kernels, "window_attention", cubins)
+        reports = [(lib, start_ptxas_report(kernels, lib, cubins))
+                   for lib in ("window_attention", "window_attention_bwd")]
         build_s = kernels.build_all()
-        print_ptxas_report(ptxas, "window_attention")
+        for lib, proc in reports:
+            print_ptxas_report(proc, lib)
     print(f"[build] kernels built and loaded in {build_s:.2f} s", flush=True)
     phase_done(torch, "build", t0)
 

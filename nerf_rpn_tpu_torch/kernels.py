@@ -57,7 +57,7 @@ SIGNATURES = {
     "window_attention_bwd": (
         "window_attention_bwd",
         # qkv, dout, bias, mask|NULL, dqkv, dbias_part, dbias, W, H, C, nW,
-        # group, dtype_code, scale, stream
+        # window runs, dtype_code, scale, stream
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "aabb_suppression_graph": (
         "nms_graph",

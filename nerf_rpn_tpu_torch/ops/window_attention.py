@@ -27,7 +27,10 @@ back from a kernel to its twin.
 
 The K1/K4 kernel runs one block per (window, group of G heads), block b
 taking window ``b // (H / G)`` and heads from ``(b % (H / G)) * G``;
-:func:`head_group` picks G.  Its 16-byte copies need a head width of a
+:func:`head_group` picks G.  The K2 kernel runs one block per (run of
+windows, head), block b taking head ``b % H`` and the windows
+:func:`backward_windows` gives run ``b // H``; :func:`backward_groups`
+picks the number of runs.  Their 16-byte copies need a head width of a
 multiple of 16 bytes and, for K4, 16-byte-aligned views.
 """
 
@@ -202,16 +205,43 @@ def window_attention_backward_reference(
     return dqkv, ds.sum(dim=0)
 
 
-# blocks of the K2 grid to aim for: enough (window group, head) blocks to
-# fill 132 SMs several times over, few enough that the f32 dbias partials
-# (one (64, 64) tile per block) stay small
-_BWD_BLOCKS = 1024
+# the K2 planner (csrc/window_attention_bwd.cu)
+BWD_SMEM_PER_SM = 233472  # an H100 SM's 228 KB of shared memory (1 KB more a block)
+BWD_MAX_RESIDENT = 3      # blocks an SM holds by registers (__launch_bounds__)
 
 
-def backward_groups(w: int, num_heads: int) -> tuple[int, int]:
-    """(windows per group, number of groups) of the K2 grid for W windows."""
-    per = -(-w // min(w, max(1, _BWD_BLOCKS // num_heads)))
-    return per, -(-w // per)
+def backward_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Shared memory of a K2 block: two buffers of the q, k, v and dout
+    tiles (64 rows of the head width rounded up to 16, plus 16 bytes of
+    row pad) and the staged ``round(p)`` and ``round(ds)`` (64 x 72), in
+    the qkv dtype, and for bf16 the f32 bias (64 x 64) in per-thread
+    slices (``smem_bytes`` in the CUDA source)."""
+    ld = -(-head_dim // 16) * 16 + 16 // dtype.itemsize
+    bias = N_TOKENS * N_TOKENS * 4 if dtype == torch.bfloat16 else 0
+    return (8 * N_TOKENS * ld + 2 * N_TOKENS * (N_TOKENS + 8)) * dtype.itemsize + bias
+
+
+def backward_resident(head_dim: int, dtype: torch.dtype) -> int:
+    """K2 blocks an SM holds at once (``min_blocks`` in the CUDA source)."""
+    per_sm = BWD_SMEM_PER_SM // (backward_smem_bytes(head_dim, dtype) + 1024)
+    return max(1, min(BWD_MAX_RESIDENT, per_sm))
+
+
+def backward_groups(w: int, num_heads: int, head_dim: int, dtype: torch.dtype) -> int:
+    """Number of window runs of the K2 grid (one block per (run, head)).
+
+    The grid fills the SMs' resident slots in one wave, with two blocks per
+    SM at least (``2 * SMS``) where the work allows (``W * H`` blocks when
+    that is fewer).  The dbias partials are one (64, 64) f32 tile per
+    block, so the grid stays at about one wave."""
+    slots = SMS * backward_resident(head_dim, dtype)
+    return min(w, max(-(-2 * SMS // num_heads), slots // num_heads))
+
+
+def backward_windows(run: int, n_groups: int, w: int) -> range:
+    """Windows of run ``run`` of ``n_groups`` over W windows, in the order
+    the K2 block walks them: runs differ by one window at most."""
+    return range(run * w // n_groups, (run + 1) * w // n_groups)
 
 
 def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
@@ -220,8 +250,10 @@ def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
     """(W, 64, 3C) qkv, (W, 64, C) dout in the qkv dtype, (H, 64, 64)
     bias, (nW, 64, 64) mask or None -> (dqkv in the qkv dtype, dbias f32).
 
-    CPU tensors take the plain twin; CUDA tensors launch kernel K2 (the
-    per-group kernel and its fixed-order dbias reduction) or raise.
+    CPU tensors take the plain twin; CUDA tensors launch kernel K2 (one
+    block per (window run, head), then the fixed-order sum of the dbias
+    partials over runs) or raise.  The kernel's 16-byte copies need a head
+    width of a multiple of 16 bytes.
     """
     if qkv.device.type == "cpu":
         return window_attention_backward_reference(qkv, dout, bias, mask, num_heads)
@@ -229,9 +261,13 @@ def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
     if tuple(dout.shape) != (w, qkv.shape[1], c) or dout.device != qkv.device:
         raise ValueError(f"dout must be ({w}, {qkv.shape[1]}, {c}) on {qkv.device}, "
                          f"got {tuple(dout.shape)} on {dout.device}")
+    d = c // num_heads
+    _check_vector_width(d, qkv.dtype)
     qkv = qkv.contiguous()
     dout = dout.to(qkv.dtype).contiguous()
-    per, n_groups = backward_groups(w, num_heads)
+    if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("qkv and dout must start on a 16-byte boundary")
+    n_groups = backward_groups(w, num_heads, d, qkv.dtype)
     n = qkv.shape[1]
     dqkv = torch.empty_like(qkv)
     part = torch.empty((n_groups, num_heads, n, n), dtype=torch.float32, device=qkv.device)
@@ -241,8 +277,7 @@ def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
         qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(),
         mask.data_ptr() if mask is not None else None,
         dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(),
-        w, num_heads, c, nw, per, kernels.DTYPE_CODES[qkv.dtype],
-        (c // num_heads) ** -0.5,
+        w, num_heads, c, nw, n_groups, kernels.DTYPE_CODES[qkv.dtype], d ** -0.5,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     return dqkv, dbias
 

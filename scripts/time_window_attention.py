@@ -1,4 +1,4 @@
-"""Time kernels K1 and K4 of one tree's torch port at the main path's shapes.
+"""Time kernels K1, K2 and K4 of one tree's torch port at the main path's shapes.
 
 Run on a GPU from the repository root::
 
@@ -8,12 +8,14 @@ It imports ``nerf_rpn_tpu_torch`` from DIR (default: this repository),
 builds its kernels, and times K4 (``fused_window_attention``) at the four
 Swin-S eval stages, K1 (``window_attention``) at the four eval stages
 without a mask and at the four train stages (160^3, batch 2) with and
-without the real shift mask, in f32 and bf16.  Each row is the device ms
-per call of ``chip_smoke.time_one`` (back-to-back calls queued behind a
-sleep kernel) and whether the output holds ``chip_smoke.close_enough``
-against the tree's plain twin.  The last line sums the bf16 rows into K1 +
-K4 device ms per eval scene and K1 ms per train step (Swin-S depths 2, 2,
-18, 2: half the blocks of a stage shifted).
+without the real shift mask, and K2 (``window_attention_backward``) at the
+four train stages with and without the mask, in f32 and bf16.  Each row is
+the device ms per call of ``chip_smoke.time_one`` (back-to-back calls
+queued behind a sleep kernel) and whether the output holds
+``chip_smoke.close_enough`` (K2: ``chip_smoke.k2_close_enough``) against
+the tree's plain twin.  The last line sums the bf16 rows into K1 + K4
+device ms per eval scene, and K1 and K2 ms per train step (Swin-S depths
+2, 2, 18, 2: half the blocks of a stage shifted).
 
 Inputs come from a fixed seed per row, so two trees get the same inputs:
 to compare a parent commit, unpack it with ``git archive`` into a directory
@@ -69,6 +71,10 @@ def main(argv=None) -> dict:
         mask = torch.from_numpy(shift_attn_mask(pad, (4, 4, 4), (2, 2, 2))).to(dev)
         cases.append(("K1", i, "train", w, heads, c, None))
         cases.append(("K1", i, "train", w, heads, c, mask))
+    for i, (w, heads, c, pad) in enumerate(TRAIN_STAGES):
+        mask = torch.from_numpy(shift_attn_mask(pad, (4, 4, 4), (2, 2, 2))).to(dev)
+        cases.append(("K2", i, "train", w, heads, c, None))
+        cases.append(("K2", i, "train", w, heads, c, mask))
 
     rows = []
     for seed, (kern, stage, route, w, heads, c, extra) in enumerate(cases):
@@ -80,10 +86,16 @@ def main(argv=None) -> dict:
                 q, k, v = cs.sdpa_views(qkv, heads)
                 fn = lambda: wa.fused_window_attention(q, k, v, bias, *extra)  # noqa: E731
                 ref = wa.fused_window_attention_reference(q, k, v, bias, *extra)
+                err, ok = cs.close_enough(torch, fn(), ref, dtype)
+            elif kern == "K2":
+                dout = torch.randn((w, 64, c), generator=gen, device=dev).to(dtype)
+                fn = lambda: wa.window_attention_backward(qkv, dout, bias, extra, heads)  # noqa: E731
+                ref = wa.window_attention_backward_reference(qkv, dout, bias, extra, heads)
+                err, _, ok = cs.k2_close_enough(torch, *fn(), *ref, dtype)
             else:
                 fn = lambda: wa.window_attention(qkv, bias, extra, heads)  # noqa: E731
                 ref = wa.window_attention_reference(qkv, bias, extra, heads)
-            err, ok = cs.close_enough(torch, fn(), ref, dtype)
+                err, ok = cs.close_enough(torch, fn(), ref, dtype)
             row = dict(label=args.label, kernel=kern, route=route, stage=stage, W=w, H=heads,
                        C=c, mask=kern == "K4" or extra is not None, dtype=cs.dtype_name(dtype),
                        ms=cs.time_one(torch, fn), max_abs_err=err, ok=ok)
@@ -100,6 +112,8 @@ def main(argv=None) -> dict:
         k1_k4_eval_scene_bf16_ms=sum(d / 2 * (ms("K1", "eval", s, False) + ms("K4", "eval", s, True))
                                      for s, d in enumerate(DEPTHS)),
         k1_train_step_bf16_ms=sum(d / 2 * (ms("K1", "train", s, False) + ms("K1", "train", s, True))
+                                  for s, d in enumerate(DEPTHS)),
+        k2_train_step_bf16_ms=sum(d / 2 * (ms("K2", "train", s, False) + ms("K2", "train", s, True))
                                   for s, d in enumerate(DEPTHS)),
         all_ok=all(r["ok"] for r in rows))
     print("[summary]", json.dumps(summary), flush=True)

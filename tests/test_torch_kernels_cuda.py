@@ -119,8 +119,16 @@ def test_window_attention_kernel_rejects_bad_shapes(cuda):
 @pytest.mark.parametrize("w,h,c,n_w", [
     (37, 3, 96, 0),     # stage-0 widths, no shift
     (48, 6, 192, 12),   # stage-1 widths, mask broadcast over 4 scenes
-    (2000, 3, 96, 0),   # stage 0 at 160^3, batch 2: several windows per group
+    (2000, 3, 96, 0),   # stage 0 at 160^3, batch 2: several windows per run
     (20, 3, 24, 5),     # D = 8
+    # the K2 planner's edges (ops.window_attention.backward_groups)
+    (1, 3, 96, 1),      # W = 1: one window, one block per head
+    (401, 3, 96, 0),    # prime W: runs of 3 and 4 windows
+    (300, 1, 32, 0),    # H = 1
+    (40, 48, 384, 0),   # H = 48, D = 8
+    (300, 4, 64, 50),   # D = 16
+    (300, 2, 128, 0),   # D = 64
+    (54, 12, 384, 27),  # stage 2 at 160^3, batch 2, with a 27-window mask
 ])
 def test_window_attention_backward_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
@@ -144,6 +152,20 @@ def test_window_attention_backward_kernel_matches_twin(cuda, w, h, c, n_w, dtype
     # the fixed-order reduction: a second run gives the same bits
     again = window_attention_backward(qkv, dout, bias, mask, h)
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+def test_window_attention_backward_kernel_rejects_bad_shapes(cuda):
+    qkv, bias, _ = _attn_inputs(4, 3, 96, torch.float32, 0, cuda)
+    dout = torch.zeros((4, 64, 96), device=cuda)
+    with pytest.raises(ValueError):
+        window_attention_backward(qkv, dout[:, :, :48], bias, None, 3)
+    with pytest.raises(ValueError):
+        window_attention_backward(qkv, dout, bias, torch.zeros(3, 64, 64, device=cuda), 3)
+    # D = 12 in bf16 is 24 bytes: no 16-byte copies
+    with pytest.raises(ValueError, match="16 bytes"):
+        window_attention_backward(torch.zeros((4, 64, 108), device=cuda, dtype=torch.bfloat16),
+                                  torch.zeros((4, 64, 36), device=cuda, dtype=torch.bfloat16),
+                                  bias, None, 3)
 
 
 def test_window_attention_autograd_kernels_match_twin_autograd(cuda):

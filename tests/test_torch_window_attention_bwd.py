@@ -18,6 +18,7 @@ from nerf_rpn_tpu_torch import kernels
 from nerf_rpn_tpu_torch.ops.window_attention import (
     WindowAttention,
     backward_groups,
+    backward_windows,
     window_attention_backward,
     window_attention_backward_reference,
     window_attention_reference,
@@ -121,9 +122,13 @@ def test_cpu_tensors_take_the_twin_and_launch_nothing():
 
 @pytest.mark.parametrize("w,h", [(2000, 3), (250, 6), (54, 12), (16, 24), (1, 48), (7, 1)])
 def test_backward_groups_cover_every_window_once(w, h):
-    per, n_groups = backward_groups(w, h)
-    assert per >= 1 and (n_groups - 1) * per < w <= n_groups * per
-    assert n_groups * h <= max(1024, h)
+    n_groups = backward_groups(w, h, 32, torch.bfloat16)
+    assert 1 <= n_groups <= w
+    runs = [backward_windows(r, n_groups, w) for r in range(n_groups)]
+    assert [i for run in runs for i in run] == list(range(w))
+    assert all(len(run) >= 1 for run in runs)
+    # one (64, 64) f32 dbias partial per block: about one wave of blocks
+    assert n_groups * h <= max(3 * 132, h)
 
 
 def test_backward_shape_checks():
