@@ -3,7 +3,7 @@
 //
 // Replaces nerf_rpn_tpu/ops/fused_ln_qkv.py : _kernel (the Pallas TPU kernel
 // behind ln_partition_qkv).  For window w and its token p:
-//   out[w, p, :] = round(LN(x)[src(w, p)] . Wqkv + b)
+//   out[w, p, :] = round(LN(x)[src(w, p)] . Wqkv^T + b)
 // LN over C with two-pass f32 statistics, eps 1e-5, affine in f32, rounded
 // to the input type; the product accumulated in f32, the bias added in f32,
 // one rounding at the end.  The JAX kernel takes an already padded and
@@ -15,182 +15,383 @@
 //
 // What bounds it on the H100: at the Swin-S bench shape, stage 0 reads
 // 18.7 MB of x and writes 56 MB of qkv (bf16) for 5.4 GFLOP of products:
-// bytes bound it (~22 us at 3.35 TB/s).  The design reads each token once
-// per column split, keeps the LN'd (rows x C) tile in shared memory (never
-// in device memory: no LN output, no padded or rolled copy, no partition
-// transpose), and runs the bf16 product on the tensor cores (wmma
-// 16x16x16, f32 accumulation) with the weight read from L2; f32 runs true
-// f32 FMA (tile_mma.cuh).  A block owns `rows` tokens of one window and a
-// split of the 3C output columns; splits are added when there are too few
-// windows to fill 132 SMs.  cp.async/TMA staging of the weight and wgmma
-// are later work.
+// bytes bound it (~22 us at 3.35 TB/s); at stage 2 (48 windows, C = 384)
+// the bound is ~3 us and the work must spread over the 132 SMs to get near
+// it.  The design:
+//
+// - Grid: one block of 4 warps per (R tokens of one window, a tile of BN
+//   of the 3C output columns); a window's column tiles are neighbours in
+//   blockIdx, so its x rows come from device memory once and then from L2.
+//   The wrapper's planner (ops/fused_ln_qkv.py : ln_qkv_plan) picks R in
+//   {64, 32, 16} (the LN'd tile must fit at C up to 1536), BN (a multiple
+//   of 16 dividing 3C) and the weight k-chunk BK, for at least 2 x 132
+//   blocks and two blocks an SM by shared memory where the shape allows.
+// - The weight is read in nn.Linear's layout (3C, C), K contiguous, which
+//   is mma.sync's "col" B operand: the model's stored weight, no transposed
+//   copy.  Its (BN x BK) k-chunks go through a ring of three padded shared
+//   tiles by 16-byte cp.async (gemm_sm90.cuh); the first two are issued
+//   before the LayerNorm and land behind it, and each chunk's products run
+//   with the next two chunks in flight.
+// - LayerNorm: each warp copies its own x rows by 16-byte cp.async into
+//   the A tile (one copy group, first of all), then normalises them in
+//   place, a group of lanes per row: two-pass f32 statistics (the mean,
+//   then the variance about it), the affine in f32 and one rounding to T.
+//   Nothing of LN(x) reaches device memory: no padded or rolled copy, no
+//   partition transpose.
+// - Products: each warp owns 16 rows x 8 NT columns of the block tile;
+//   bf16 on mma.sync m16n8k16 from ldmatrix A and B fragments, f32 as
+//   3xTF32 m16n8k8 (hi.hi + hi.lo + lo.hi, ~f32 parity).
+// - Epilogue: bias in f32, one rounding, staged in the then dead A tile and
+//   ring, and written as 16-byte stores along each row's BN columns.
 #include <algorithm>
 
-#include "tile_mma.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRing = 3;         // weight k-chunk buffers
+constexpr int kMaxC = 1536;      // widest LayerNorm (Swin-L's last stage)
+constexpr int kMaxSmem = 232448;
 constexpr float kEps = 1e-5f;
 
+struct Geometry {
+  int SX, SY, SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz;
+};
+
+// row pad of every shared tile: 16 bytes (see gemm_sm90.cuh)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int pad_elems() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+size_t smem_bytes(int C, int R, int BN, int BK) {
+  constexpr int kPad = pad_elems<T>();
+  const size_t tiles = static_cast<size_t>(R) * (C + kPad) +
+                       static_cast<size_t>(kRing) * BN * (BK + kPad);
+  const size_t stage = static_cast<size_t>(R) * (BN + kPad);
+  return std::max(tiles, stage) * sizeof(T);
+}
+
+// a 16-byte vector as f32 values, and back (bf16: round to nearest even)
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = unpack_bf16(w[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
+// element offset in x of window `win`'s token p, or -1 for a pad voxel
+__device__ __forceinline__ long long token_source(const Geometry& g, int win,
+                                                  int p) {
+  const int nx = g.PX / g.wx, ny = g.PY / g.wy, nz = g.PZ / g.wz;
+  const int iz = win % nz, iy = (win / nz) % ny, ix = (win / nz / ny) % nx;
+  const int b = win / (nx * ny * nz);
+  int X = ix * g.wx + p / (g.wy * g.wz) + g.shx;
+  int Y = iy * g.wy + (p / g.wz) % g.wy + g.shy;
+  int Z = iz * g.wz + p % g.wz + g.shz;
+  X -= X >= g.PX ? g.PX : 0;
+  Y -= Y >= g.PY ? g.PY : 0;
+  Z -= Z >= g.PZ ? g.PZ : 0;
+  if (X >= g.SX || Y >= g.SY || Z >= g.SZ) return -1;
+  return (((static_cast<long long>(b) * g.SX + X) * g.SY + Y) * g.SZ + Z) *
+         g.C;
+}
+
+// The rows of one warp (R / 4 of the block's tokens) in the LayerNorm's
+// lane map: a group of `lanes` lanes per row (the 16-byte vectors of a row
+// spread over the group), 32 / lanes rows a pass.
+struct RowMap {
+  int lanes, slot, gl, per_pass, rows, first;
+  __device__ RowMap(int nv, int R, int warp, int lane) {
+    lanes = 1;
+    while (lanes < nv && lanes < 32) lanes <<= 1;
+    slot = lane / lanes;
+    gl = lane % lanes;
+    per_pass = 32 / lanes;
+    rows = R / kWarps;
+    first = warp * rows;
+  }
+};
+
+// each warp copies its own x rows into the A tile (zero-volume pad rows
+// are skipped); src is this lane's row's offset for lanes < rows
+template <typename T>
+__device__ __forceinline__ void copy_rows_async(T* a, int lda,
+                                                const T* __restrict__ x,
+                                                const RowMap& m, int nv,
+                                                long long src) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  for (int r0 = 0; r0 < m.rows; r0 += m.per_pass) {
+    const int r = r0 + m.slot;
+    const long long s = __shfl_sync(0xffffffffu, src, r & 31);
+    if (r < m.rows && s >= 0)
+      for (int v = m.gl; v < nv; v += m.lanes)
+        cp_async16(a + (m.first + r) * lda + v * kVec, x + s + v * kVec);
+  }
+}
+
+// LayerNorm of the warp's rows in place in the A tile: the mean, then the
+// variance about it (f32, as the twin), then (x - mean) * rstd * scale +
+// bias in f32, rounded once to T; a pad row becomes zeros
+template <typename T>
+__device__ __forceinline__ void layer_norm_rows(
+    T* a, int lda, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, const RowMap& m, int C, int nv,
+    long long src) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  for (int r0 = 0; r0 < m.rows; r0 += m.per_pass) {
+    const int r = r0 + m.slot;
+    const long long s = __shfl_sync(0xffffffffu, src, r & 31);
+    const bool live = r < m.rows && s >= 0;
+    T* arow = a + (m.first + r) * lda;
+    float sum = 0.f;
+    if (live)
+      for (int v = m.gl; v < nv; v += m.lanes) {
+        float f[kVec];
+        unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) sum += f[e];
+      }
+    for (int o = m.lanes / 2; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum / C;
+    float sq = 0.f;
+    if (live)
+      for (int v = m.gl; v < nv; v += m.lanes) {
+        float f[kVec];
+        unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float d = f[e] - mean;
+          sq += d * d;
+        }
+      }
+    for (int o = m.lanes / 2; o > 0; o >>= 1)
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float rstd = 1.f / sqrtf(sq / C + kEps);
+    if (r < m.rows)
+      for (int v = m.gl; v < nv; v += m.lanes) {
+        float f[kVec];
+        if (live) {
+          unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
+          const float4* sc = reinterpret_cast<const float4*>(ln_scale + v * kVec);
+          const float4* bi = reinterpret_cast<const float4*>(ln_bias + v * kVec);
+#pragma unroll
+          for (int q = 0; q < kVec / 4; ++q) {
+            const float4 s4 = __ldg(sc + q), b4 = __ldg(bi + q);
+            f[4 * q] = (f[4 * q] - mean) * rstd * s4.x + b4.x;
+            f[4 * q + 1] = (f[4 * q + 1] - mean) * rstd * s4.y + b4.y;
+            f[4 * q + 2] = (f[4 * q + 2] - mean) * rstd * s4.z + b4.z;
+            f[4 * q + 3] = (f[4 * q + 3] - mean) * rstd * s4.w + b4.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) f[e] = 0.f;
+        }
+        *reinterpret_cast<uint4*>(arow + v * kVec) = pack(f);
+      }
+  }
+}
+
+// Block b: column tile b % n_ct, token part (b / n_ct) % parts, window
+// b / n_ct / parts.  Warp w: rows 16 (w % (R / 16)), columns
+// 8 NT (w / (R / 16)) of the block tile (R * BN = 512 NT).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, 4)
     ln_partition_qkv_kernel(const T* __restrict__ x,
                             const float* __restrict__ ln_scale,
                             const float* __restrict__ ln_bias,
                             const T* __restrict__ w,
                             const float* __restrict__ bias,
-                            T* __restrict__ out, int SX, int SY, int SZ, int C,
-                            int PX, int PY, int PZ, int shx, int shy, int shz,
-                            int wx, int wy, int wz, int rows, int splits) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lda = C + row_pad<T>();
-  T* a = reinterpret_cast<T*>(smem_raw);  // (rows, lda) LN'd tokens
-  float* stage = reinterpret_cast<float*>(a + rows * lda);  // (warps, 256)
-  long long* src = reinterpret_cast<long long*>(stage + kWarps * 256);
-
-  const int n_tok = wx * wy * wz;
-  const int parts = n_tok / rows;
-  const int win = blockIdx.x / parts;
-  const int tok0 = (blockIdx.x % parts) * rows;
-  const int nx = PX / wx, ny = PY / wy, nz = PZ / wz;
-  const int iz = win % nz, iy = (win / nz) % ny, ix = (win / nz / ny) % nx;
-  const int b = win / (nx * ny * nz);
+                            T* __restrict__ out, Geometry geo, int R, int BN,
+                            int BK) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kPad = pad_elems<T>();
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  const int C = geo.C, N3 = 3 * C;
+  const int lda = C + kPad, ldb = BK + kPad;
+  T* a = reinterpret_cast<T*>(smem_raw);  // (R, lda): x, then LN(x)
+  T* ring = a + R * lda;                  // kRing x (BN, ldb) weight chunks
+  const int n_tok = geo.wx * geo.wy * geo.wz;
+  const int n_ct = N3 / BN, parts = n_tok / R;
+  const int ct = blockIdx.x % n_ct;
+  const int part = (blockIdx.x / n_ct) % parts;
+  const int win = blockIdx.x / n_ct / parts;
+  const int n0 = ct * BN, tok0 = part * R;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int N3 = 3 * C;
+  const int nk = C / BK, nv = C / kVec;
+  const T* wblk = w + static_cast<size_t>(n0) * C;
 
-  for (int i = tid; i < rows; i += kThreads) {
-    const int p = tok0 + i;
-    int X = ix * wx + p / (wy * wz) + shx;
-    int Y = iy * wy + (p / wz) % wy + shy;
-    int Z = iz * wz + p % wz + shz;
-    X -= X >= PX ? PX : 0;
-    Y -= Y >= PY ? PY : 0;
-    Z -= Z >= PZ ? PZ : 0;
-    src[i] = (X < SX && Y < SY && Z < SZ)
-                 ? (((static_cast<long long>(b) * SX + X) * SY + Y) * SZ + Z) * C
-                 : -1;
+  // copy group 0: this warp's x rows; groups 1, 2: weight chunks 0, 1
+  const RowMap rows(nv, R, warp, lane);
+  const long long src =
+      lane < rows.rows ? token_source(geo, win, tok0 + rows.first + lane) : -1;
+  copy_rows_async(a, lda, x, rows, nv, src);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < nk)
+      copy_tile_async(ring + s * BN * ldb, ldb, wblk + s * BK, C, BN, BK, tid,
+                      kThreads);
+    cp_async_commit();
+  }
+  cp_async_wait<kRing - 1>();
+  __syncwarp();
+  layer_norm_rows(a, lda, ln_scale, ln_bias, rows, C, nv, src);
+
+  const int wm = R / 16;
+  const int wr = (warp % wm) * 16, wc = (warp / wm) * 8 * NT;
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    // chunk kc landed; every warp is past chunk kc - 1 (its buffer is
+    // free) and, the first time, past its LayerNorm
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    const int next = kc + kRing - 1;
+    if (next < nk)
+      copy_tile_async(ring + (next % kRing) * BN * ldb, ldb, wblk + next * BK,
+                      C, BN, BK, tid, kThreads);
+    cp_async_commit();
+    warp_chunk_mma<NT>(acc, a + wr * lda + kc * BK, lda,
+                       ring + (kc % kRing) * BN * ldb + wc * ldb, ldb, BK,
+                       lane);
+  }
+  __syncthreads();  // the A tile and the ring are dead: stage the tile there
+
+  const int lds = BN + kPad;
+  T* st = reinterpret_cast<T*>(smem_raw);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = wc + nt * 8 + 2 * t;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + n0 + c));
+    store_pair(st + (wr + g) * lds + c, acc[nt][0] + bb.x, acc[nt][1] + bb.y);
+    store_pair(st + (wr + g + 8) * lds + c, acc[nt][2] + bb.x,
+               acc[nt][3] + bb.y);
   }
   __syncthreads();
-
-  // LayerNorm, one warp per token: mean, then the variance about it
-  for (int i = warp; i < rows; i += kWarps) {
-    T* arow = a + i * lda;
-    if (src[i] < 0) {
-      for (int c = lane; c < C; c += 32) arow[c] = from_f32<T>(0.f);
-      continue;
-    }
-    const T* xr = x + src[i];
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += to_f32(xr[c]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = to_f32(xr[c]) - mean;
-      sq += d * d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float rstd = 1.f / sqrtf(sq / C + kEps);
-    for (int c = lane; c < C; c += 32)
-      arow[c] = from_f32<T>((to_f32(xr[c]) - mean) * rstd * ln_scale[c] +
-                            ln_bias[c]);
-  }
-  __syncthreads();
-
-  // (rows x 3C) = A (rows x C) . W (C x 3C): this block's column tiles
-  const int n_ct = N3 / 16;
-  const int per = (n_ct + splits - 1) / splits;
-  const int ct0 = blockIdx.y * per;
-  const int ct1 = min(n_ct, ct0 + per);
-  const int n_rt = rows / 16;
-  float* st = stage + warp * 256;
-  for (int tile = warp; tile < n_rt * (ct1 - ct0); tile += kWarps) {
-    const int rt = tile % n_rt;
-    const int col0 = (ct0 + tile / n_rt) * 16;
-    Tile16<T> acc;
-    acc.zero();
-    for (int k = 0; k < C; k += 16)
-      acc.mma(a + rt * 16 * lda + k, lda, w + static_cast<size_t>(k) * N3 + col0,
-              N3);
-    acc.store(st, 16);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      const size_t row = static_cast<size_t>(win) * n_tok + tok0 + rt * 16 + r;
-      out[row * N3 + col0 + c] = from_f32<T>(st[e] + bias[col0 + c]);
-    }
-    __syncwarp();
+  const int per_row = BN / kVec;
+  T* dst = out + (static_cast<size_t>(win) * n_tok + tok0) * N3 + n0;
+  for (int i = tid; i < R * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * kVec;
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * N3 + c) =
+        *reinterpret_cast<const uint4*>(st + r * lds + c);
   }
 }
 
-template <typename T>
-size_t smem_bytes(int C, int rows) {
-  return static_cast<size_t>(rows) * (C + row_pad<T>()) * sizeof(T) +
-         kWarps * 256 * sizeof(float) + rows * sizeof(long long);
+template <typename T, int NT>
+int launch_nt(const T* x, const float* s, const float* t, const T* w,
+              const float* b, T* out, const Geometry& geo, int R, int BN,
+              int BK, long long blocks, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_partition_qkv_kernel<T, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ln_partition_qkv_kernel<T, NT>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+          x, s, t, w, b, out, geo, R, BN, BK);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* s, const void* t, const void* w,
-           const void* b, void* out, int B, int SX, int SY, int SZ, int C,
-           int PX, int PY, int PZ, int shx, int shy, int shz, int wx, int wy,
-           int wz, cudaStream_t stream) {
-  constexpr size_t kMaxSmem = 232448;
-  const int n_tok = wx * wy * wz;
-  int rows = n_tok;  // a whole window per block where its tile fits
-  while (rows > 16 && (smem_bytes<T>(C, rows) > kMaxSmem || n_tok % rows))
-    rows /= 2;
-  if (smem_bytes<T>(C, rows) > kMaxSmem || n_tok % rows || rows % 16)
+           const void* b, void* out, int B, const Geometry& geo, int R, int BN,
+           int BK, cudaStream_t stream) {
+  const int C = geo.C, n_tok = geo.wx * geo.wy * geo.wz;
+  if ((R != 16 && R != 32 && R != 64) || n_tok % R || BN <= 0 || BN % 16 ||
+      (3 * C) % BN || (BK != 16 && BK != 32) || C % BK ||
+      (R * BN) % 512)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long windows =
-      static_cast<long long>(B) * (PX / wx) * (PY / wy) * (PZ / wz);
-  const long long blocks = windows * (n_tok / rows);
-  // split the 3C columns until ~2 blocks per SM are in flight
-  const int n_ct = 3 * C / 16;
-  const int splits = static_cast<int>(std::min<long long>(
-      n_ct, std::max<long long>(1, (264 + blocks - 1) / blocks)));
-  const size_t smem = smem_bytes<T>(C, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_partition_qkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_partition_qkv_kernel<T><<<dim3(static_cast<unsigned>(blocks), splits),
-                               kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(s),
-      static_cast<const float*>(t), static_cast<const T*>(w),
-      static_cast<const float*>(b), static_cast<T*>(out), SX, SY, SZ, C, PX,
-      PY, PZ, shx, shy, shz, wx, wy, wz, rows, splits);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = smem_bytes<T>(C, R, BN, BK);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(B) * (geo.PX / geo.wx) *
+                           (geo.PY / geo.wy) * (geo.PZ / geo.wz) *
+                           (n_tok / R) * (3 * C / BN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const float* st = static_cast<const float*>(s);
+  const float* tt = static_cast<const float*>(t);
+  const float* bt = static_cast<const float*>(b);
+  T* ot = static_cast<T*>(out);
+  switch (R * BN / 512) {  // n8 column tiles a warp holds
+    case 2:
+      return launch_nt<T, 2>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+                             smem, stream);
+    case 4:
+      return launch_nt<T, 4>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+                             smem, stream);
+    case 6:
+      return launch_nt<T, 6>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+                             smem, stream);
+    case 8:
+      return launch_nt<T, 8>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+                             smem, stream);
+    case 12:
+      return launch_nt<T, 12>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+                              smem, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// x (B, SX, SY, SZ, C) f32|bf16, ln scale / bias (C,) f32, w (C, 3C) of x's
-// type, b (3C,) f32, out (B * nW, wx*wy*wz, 3C) of x's type with
-// nW = (PX/wx)(PY/wy)(PZ/wz); all contiguous.  P >= S and divisible by the
-// window, 0 <= shift < P, C a multiple of 16.  Returns the CUDA error code
-// of the launch (0 on success).
+// x (B, SX, SY, SZ, C) f32|bf16, ln scale / bias (C,) f32, w (3C, C) of x's
+// type (nn.Linear's layout), b (3C,) f32, out (B * nW, wx*wy*wz, 3C) of x's
+// type with nW = (PX/wx)(PY/wy)(PZ/wz); all contiguous and 16-byte aligned.
+// P >= S and divisible by the window, 0 <= shift < P, C a multiple of 16
+// and at most 1536.  The plan: `rows` (R) tokens of a window and `cols`
+// (BN) output columns a block, weight k-chunks of `k_chunk` (BK): R in
+// {16, 32, 64} dividing the window volume, BN a multiple of 16 dividing
+// 3C, BK in {16, 32} dividing C, R * BN / 512 in {2, 4, 6, 8, 12}, shared
+// memory within a block's 227 KB.  Returns the CUDA error code of the
+// launch (0 on success; cudaErrorInvalidValue for arguments it does not
+// take).
 extern "C" int ln_partition_qkv(const void* x, const void* ln_scale,
                                 const void* ln_bias, const void* w,
                                 const void* b, void* out, int B, int SX,
                                 int SY, int SZ, int C, int PX, int PY, int PZ,
                                 int shx, int shy, int shz, int wx, int wy,
-                                int wz, int dtype_code, void* stream) {
-  if (B <= 0 || C <= 0 || C % 16 || wx <= 0 || wy <= 0 || wz <= 0 ||
-      PX % wx || PY % wy || PZ % wz || SX > PX || SY > PY || SZ > PZ ||
-      SX <= 0 || SY <= 0 || SZ <= 0 || shx < 0 || shy < 0 || shz < 0 ||
-      shx >= PX || shy >= PY || shz >= PZ)
+                                int wz, int rows, int cols, int k_chunk,
+                                int dtype_code, void* stream) {
+  if (B <= 0 || C <= 0 || C % 16 || C > kMaxC || wx <= 0 || wy <= 0 ||
+      wz <= 0 || PX % wx || PY % wy || PZ % wz || SX > PX || SY > PY ||
+      SZ > PZ || SX <= 0 || SY <= 0 || SZ <= 0 || shx < 0 || shy < 0 ||
+      shz < 0 || shx >= PX || shy >= PY || shz >= PZ)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry geo{SX, SY, SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == kFloat32)
-    return launch<float>(x, ln_scale, ln_bias, w, b, out, B, SX, SY, SZ, C, PX,
-                         PY, PZ, shx, shy, shz, wx, wy, wz, s);
+    return launch<float>(x, ln_scale, ln_bias, w, b, out, B, geo, rows, cols,
+                         k_chunk, s);
   if (dtype_code == kBFloat16)
-    return launch<__nv_bfloat16>(x, ln_scale, ln_bias, w, b, out, B, SX, SY,
-                                 SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz,
-                                 s);
+    return launch<__nv_bfloat16>(x, ln_scale, ln_bias, w, b, out, B, geo, rows,
+                                 cols, k_chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

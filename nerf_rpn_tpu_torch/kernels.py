@@ -70,9 +70,10 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     "ln_partition_qkv": (
         "fused_ln_qkv",
-        # x, ln_scale, ln_bias, w, b, out, B, SX, SY, SZ, C, PX, PY, PZ,
-        # shift x/y/z, window x/y/z, dtype_code, stream
-        [_P, _P, _P, _P, _P, _P, *[_I] * 15, _P]),
+        # x, ln_scale, ln_bias, w (3C, C), b, out, B, SX, SY, SZ, C, PX, PY,
+        # PZ, shift x/y/z, window x/y/z, plan rows / cols / k_chunk,
+        # dtype_code, stream
+        [_P, _P, _P, _P, _P, _P, *[_I] * 18, _P]),
     "fused_mlp_block": (
         "fused_mlp",
         # x, ln_scale, ln_bias, w1, b1, w2, b2, out, part|NULL, T, C, Hd,

@@ -17,11 +17,18 @@ LayerNorm.  With shift 0 and a divisible grid it is the JAX function.
 ``ln_partition_qkv`` launches the CUDA kernel (``csrc/fused_ln_qkv.cu``) on
 CUDA tensors and takes the plain twin ``ln_partition_qkv_reference`` on CPU
 tensors; nothing falls back from the kernel to the twin.
+
+The kernel runs one block per (R tokens of one window, BN of the 3C output
+columns), block b taking column tile ``b % n_ct``, token part
+``(b // n_ct) % parts`` and window ``b // n_ct // parts``
+(:func:`block_tile`), and reads the weight in nn.Linear's ``(3C, C)``
+layout in k-chunks of BK; :func:`ln_qkv_plan` picks (R, BN, BK).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from fractions import Fraction
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +36,76 @@ import torch.nn.functional as F
 from nerf_rpn_tpu_torch import kernels
 
 EPS = 1e-5
+
+# the K5 planner (csrc/fused_ln_qkv.cu)
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+SMEM_PER_SM = 233472        # an H100 SM's 228 KB of shared memory (1 KB more a block)
+MAX_BLOCK_SMEM = 232448     # dynamic shared memory of one block
+MAX_C = 1536                # widest LayerNorm the kernel takes (Swin-L's last stage)
+RING = 3                    # weight k-chunk buffers of a block
+ROWS = (64, 32, 16)         # R: tokens of one window a block takes
+K_CHUNKS = (32, 16)         # BK: weight k-chunk
+WARP_TILES = (2, 4, 6, 8, 12)  # n8 column tiles a warp holds (R * BN / 512), as built
+
+
+class Plan(NamedTuple):
+    rows: int     # R
+    cols: int     # BN
+    k_chunk: int  # BK
+
+
+def plan_smem_bytes(c: int, plan: Plan, dtype: torch.dtype) -> int:
+    """Shared memory of a K5 block (``smem_bytes`` in the CUDA source): the
+    (R, C) A tile and RING (BN, BK) weight chunks, each row padded by 16
+    bytes, or the (R, BN) output stage that reuses them if it is larger."""
+    pad = 16 // dtype.itemsize
+    tiles = plan.rows * (c + pad) + RING * plan.cols * (plan.k_chunk + pad)
+    return max(tiles, plan.rows * (plan.cols + pad)) * dtype.itemsize
+
+
+def plan_blocks(n_windows: int, n_tok: int, c: int, plan: Plan) -> int:
+    """Blocks of the K5 grid."""
+    return n_windows * (n_tok // plan.rows) * (3 * c // plan.cols)
+
+
+def block_tile(block: int, n_tok: int, c: int, plan: Plan) -> tuple[int, int, int]:
+    """(window, first token, first column) of block ``block``, as
+    ``ln_partition_qkv_kernel`` maps ``blockIdx.x``."""
+    n_ct, parts = 3 * c // plan.cols, n_tok // plan.rows
+    return (block // n_ct // parts, (block // n_ct) % parts * plan.rows,
+            block % n_ct * plan.cols)
+
+
+def ln_qkv_plan(n_windows: int, c: int, dtype: torch.dtype, n_tok: int = 64) -> Plan:
+    """(R, BN, BK) of the K5 grid for ``n_windows`` windows of ``n_tok``
+    tokens at width C.
+
+    A plan takes R in ROWS dividing the window volume, BK in K_CHUNKS
+    dividing C, BN a multiple of 16 dividing 3C with ``R * BN / 512`` in
+    WARP_TILES, and fits a block's shared memory.  Of the plans that let
+    two blocks share an SM (all plans where none does), those with at least
+    ``2 * SMS`` blocks read the least per window from L2 (the window's x
+    rows once per column tile, the weight once per token part: the
+    smallest ``1/R + 1/BN``, then the larger R and BK); where none reaches
+    ``2 * SMS`` blocks, the plan with the most blocks, ties broken the same
+    way.  Raises ValueError where no plan exists."""
+    plans = [Plan(r, bn, bk) for r in ROWS if n_tok % r == 0
+             for bk in K_CHUNKS if c % bk == 0
+             for bn in range(16, 3 * c + 1, 16)
+             if 3 * c % bn == 0 and r * bn % 512 == 0 and r * bn // 512 in WARP_TILES]
+    plans = [p for p in plans if plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM]
+    if not plans:
+        raise ValueError(f"K5 has no plan for C={c}, {n_tok} tokens a window in {dtype}")
+    two = [p for p in plans if 2 * (plan_smem_bytes(c, p, dtype) + 1024) <= SMEM_PER_SM]
+    plans = two or plans
+
+    def cost(p):
+        return Fraction(1, p.rows) + Fraction(1, p.cols), -p.rows, -p.k_chunk
+
+    full = [p for p in plans if plan_blocks(n_windows, n_tok, c, p) >= 2 * SMS]
+    if full:
+        return min(full, key=cost)
+    return min(plans, key=lambda p: (-plan_blocks(n_windows, n_tok, c, p), *cost(p)))
 
 
 def _geometry(x: torch.Tensor, window: Sequence[int], pad_size, shift):
@@ -80,6 +157,9 @@ def ln_partition_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
     ``pad_size`` (default: the grid) is the window-divisible size the grid is
     zero-padded to after the LayerNorm, ``shift`` the cyclic shift.  CPU
     tensors take the plain twin; CUDA tensors launch kernel K5 or raise.
+    The kernel reads ``w.t()``, so a weight passed as ``Linear.weight.t()``
+    (as the model passes it) is read where it lies, cast to x's dtype if
+    needed, and never transposed.
     """
     if x.device.type == "cpu":
         return ln_partition_qkv_reference(x, ln_scale, ln_bias, w, b, window,
@@ -91,24 +171,28 @@ def ln_partition_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
         raise TypeError(f"K5 takes f32 or bf16, got {x.dtype}")
     bsz, sx, sy, sz, c = x.shape
     n = int(window[0] * window[1] * window[2])
-    if c % 16 or n % 16:
-        raise ValueError(f"K5 needs C and the window volume to be multiples of 16, "
-                         f"got C={c}, window {tuple(window)}")
+    if c % 16 or n % 16 or c > MAX_C:
+        raise ValueError(f"K5 needs C and the window volume to be multiples of 16 "
+                         f"and C <= {MAX_C}, got C={c}, window {tuple(window)}")
     if tuple(w.shape) != (c, 3 * c) or tuple(b.shape) != (3 * c,) or \
             tuple(ln_scale.shape) != (c,) or tuple(ln_bias.shape) != (c,):
         raise ValueError(f"w must be ({c}, {3 * c}), b ({3 * c},), LN params ({c},)")
     dev = x.device
     x = x.contiguous()
-    w = w.to(device=dev, dtype=x.dtype).contiguous()
+    wt = w.t().to(device=dev, dtype=x.dtype).contiguous()  # (3C, C)
     b = b.to(device=dev, dtype=torch.float32).contiguous()
     s = ln_scale.to(device=dev, dtype=torch.float32).contiguous()
     t = ln_bias.to(device=dev, dtype=torch.float32).contiguous()
     n_win = bsz * (pad_size[0] // window[0]) * (pad_size[1] // window[1]) * \
         (pad_size[2] // window[2])
     out = torch.empty((n_win, n, 3 * c), dtype=x.dtype, device=dev)
+    if any(v.data_ptr() % 16 for v in (x, wt, b, s, t)):
+        raise ValueError("K5's 16-byte loads need x, w, b and the LN params to "
+                         "start on 16-byte boundaries")
     kernels.launch(
         "ln_partition_qkv",
-        x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(), b.data_ptr(),
+        x.data_ptr(), s.data_ptr(), t.data_ptr(), wt.data_ptr(), b.data_ptr(),
         out.data_ptr(), bsz, sx, sy, sz, c, *pad_size, *shift, *window,
-        kernels.DTYPE_CODES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        *ln_qkv_plan(n_win, c, x.dtype, n), kernels.DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     return out

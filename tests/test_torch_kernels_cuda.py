@@ -299,6 +299,80 @@ def test_ln_partition_qkv_kernel_matches_twin(cuda, size, c, shift, dtype):
     check_close(out, ln_partition_qkv_reference(x, *params, (4, 4, 4), pad, shift), dtype)
 
 
+def _linear_weight_view(c, dtype, device, seed=9):
+    """A (C, 3C) qkv weight as the model passes it: ``Linear.weight.t()``."""
+    gen = torch.Generator(device).manual_seed(seed)
+    w = torch.randn((3 * c, c), generator=gen, device=device) * c ** -0.5
+    return w.to(dtype).t()
+
+
+# the K5 grid runs one block per (R tokens of a window, BN output columns)
+# with weight k-chunks of BK; the cases reach the planner's edges
+# (ops.fused_ln_qkv.ln_qkv_plan)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,size,c,shift", [
+    (1, (8, 8, 8), 16, (0, 0, 0)),       # C = 16: 3C = 48, BK = 16, 8 windows
+    (1, (4, 4, 8), 1536, (0, 0, 0)),     # C = 1536: R = 32 (bf16), 16 (f32)
+    (2, (9, 8, 11), 96, (2, 2, 2)),      # B = 2, pad and shift, 3C = 288
+    (2, (9, 8, 11), 192, (2, 0, 2)),     # 3C = 576
+    (1, (7, 7, 5), 768, (2, 2, 2)),      # stage 3: 8 windows, BN = 64
+    (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, BN = 96
+])
+def test_ln_partition_qkv_kernel_at_the_planner_edges(cuda, b, size, c, shift, dtype):
+    x = torch.randn((b, *size, c), generator=torch.Generator(cuda).manual_seed(10),
+                    device=cuda).to(dtype)
+    s, t, _, bias = _ln_qkv_inputs(c, dtype, cuda)
+    w = _linear_weight_view(c, dtype, cuda)
+    pad = tuple(-(-q // 4) * 4 for q in size)
+    before = kernels.counts()["ln_partition_qkv"]
+    out = ln_partition_qkv(x, s, t, w, bias, (4, 4, 4), pad, shift)
+    torch.cuda.synchronize()
+    assert kernels.counts()["ln_partition_qkv"] == before + 1
+    check_close(out, ln_partition_qkv_reference(x, s, t, w, bias, (4, 4, 4), pad, shift),
+                dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_partition_qkv_weight_view_matches_contiguous(cuda, dtype):
+    x = torch.randn((1, 9, 8, 11, 96), generator=torch.Generator(cuda).manual_seed(11),
+                    device=cuda).to(dtype)
+    s, t, _, bias = _ln_qkv_inputs(96, dtype, cuda)
+    w = _linear_weight_view(96, dtype, cuda)
+    args = ((4, 4, 4), (12, 8, 12), (2, 2, 2))
+    assert torch.equal(ln_partition_qkv(x, s, t, w, bias, *args),
+                       ln_partition_qkv(x, s, t, w.contiguous(), bias, *args))
+
+
+def test_ln_partition_qkv_entry_rejects_plans_it_does_not_take(cuda):
+    c = 160
+    x = torch.zeros((1, 4, 4, 4, c), device=cuda)
+    w = torch.zeros((3 * c, c), device=cuda)
+    b = torch.zeros(3 * c, device=cuda)
+    s, out = torch.ones(c, device=cuda), torch.empty((1, 64, 3 * c), device=cuda)
+
+    def launch(rows, cols, k_chunk):
+        kernels.launch("ln_partition_qkv", x.data_ptr(), s.data_ptr(), s.data_ptr(),
+                       w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 4, 4, 4, c,
+                       4, 4, 4, 0, 0, 0, 4, 4, 4, rows, cols, k_chunk,
+                       kernels.DTYPE_CODES[torch.float32],
+                       torch.cuda.current_stream(cuda).cuda_stream)
+
+    launch(64, 96, 32)  # a plan it takes
+    torch.cuda.synchronize()
+    for rows, cols, k_chunk in [(48, 96, 32),   # R not in {16, 32, 64}
+                                (64, 100, 32),  # BN not a multiple of 16
+                                (64, 80, 32),   # 8 x 10 column tiles a warp: not built
+                                (64, 96, 64),   # BK not in {16, 32}
+                                (64, 96, 48)]:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(rows, cols, k_chunk)
+    wide = torch.zeros((1, 4, 4, 4, 1552), device=cuda)
+    with pytest.raises(ValueError, match="C <= 1536"):
+        ln_partition_qkv(wide, torch.ones(1552, device=cuda), torch.zeros(1552, device=cuda),
+                         torch.zeros((1552, 3 * 1552), device=cuda),
+                         torch.zeros(3 * 1552, device=cuda), (4, 4, 4))
+
+
 def _mlp_inputs(t, c, dtype, device, seed=8):
     gen = torch.Generator(device).manual_seed(seed)
     hd = 4 * c
