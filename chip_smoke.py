@@ -12,7 +12,7 @@ nonzero before the result lines:
 1. require CUDA, print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed), with
    ``nvcc -Xptxas -v``'s registers, static shared memory and spills of the
-   K1/K4 and K2 kernels printed beside the build;
+   K1/K4, K2 and K5 kernels printed beside the build;
 3. kernel K1 (window attention) against its plain twin at the shapes the
    main path runs it -- the four stages of the Swin-S eval bench shape
    without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
@@ -34,7 +34,9 @@ nonzero before the result lines:
    block) against their twins at the four stages of the Swin-S eval bench
    shape (208x208x144: tokens 52x52x36, 26x26x18, 13x13x9, 7x7x5, the last
    three padded, every shift on), f32 and bf16, with times (K4 with its
-   head group G);
+   head group G; K5, given its weight as the model gives it,
+   ``Linear.weight.t()``, with its plan: R tokens and BN columns a block,
+   weight k-chunk BK, blocks);
 7. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
@@ -475,10 +477,12 @@ def check_fused_window_attention(torch, dev):
 
 def check_ln_partition_qkv(torch, dev):
     """K5 against its twin at the four eval stages (the pad inside, shift
-    2 as on every odd block)."""
+    2 as on every odd block), the qkv weight as ``Linear.weight.t()``."""
     from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
         ln_partition_qkv,
         ln_partition_qkv_reference,
+        ln_qkv_plan,
+        plan_blocks,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -490,7 +494,7 @@ def check_ln_partition_qkv(torch, dev):
             x = torch.randn((1, *size, c), generator=gen, device=dev).to(dtype)
             s = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
             t = 0.2 * torch.randn(c, generator=gen, device=dev)
-            wq = (torch.randn((c, 3 * c), generator=gen, device=dev) * c ** -0.5).to(dtype)
+            wq = (torch.randn((3 * c, c), generator=gen, device=dev) * c ** -0.5).to(dtype).t()
             b = 0.5 * torch.randn(3 * c, generator=gen, device=dev)
             args = (x, s, t, wq, b, (4, 4, 4), pad, (2, 2, 2))
             out = ln_partition_qkv(*args)
@@ -501,7 +505,10 @@ def check_ln_partition_qkv(torch, dev):
             ms, plain_ms = time_pair(torch, lambda: ln_partition_qkv_reference(*args),
                                      lambda: ln_partition_qkv(*args))
             tokens = math.prod(size)
+            plan = ln_qkv_plan(out.shape[0], c, dtype)
             row = dict(stage=name, grid=list(size), pad=list(pad), C=c, dtype=dtype_name(dtype),
+                       plan=dict(zip(("R", "BN", "BK"), plan)),
+                       blocks=plan_blocks(out.shape[0], 64, c, plan),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                        **bound(nbytes(x, s, t, wq, b, out), 2 * tokens * c * 3 * c,
                                dtype_name(dtype)))
@@ -905,7 +912,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as cubins:
         reports = [(lib, start_ptxas_report(kernels, lib, cubins))
-                   for lib in ("window_attention", "window_attention_bwd")]
+                   for lib in ("window_attention", "window_attention_bwd", "fused_ln_qkv")]
         build_s = kernels.build_all()
         for lib, proc in reports:
             print_ptxas_report(proc, lib)

@@ -1,5 +1,6 @@
 // One warp's 16 x 16 f32 accumulator tile, for the matrix products of
-// kernels K5 (fused_ln_qkv.cu) and K6 (fused_mlp.cu).
+// kernel K6 (fused_mlp.cu); K5 moved to the staged-weight mma.sync pieces
+// of gemm_sm90.cuh, which K6's redesign is to take as well.
 //
 //   Tile16<T> acc;  acc.zero();
 //   acc.mma(a, lda, b, ldb);   // acc += A[16 x 16] . B[16 x 16], row-major
