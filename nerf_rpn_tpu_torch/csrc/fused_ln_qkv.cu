@@ -16,34 +16,37 @@
 // What bounds it on the H100: at the Swin-S bench shape, stage 0 reads
 // 18.7 MB of x and writes 56 MB of qkv (bf16) for 5.4 GFLOP of products:
 // bytes bound it (~22 us at 3.35 TB/s); at stage 2 (48 windows, C = 384)
-// the bound is ~3 us and the work must spread over the 132 SMs to get near
-// it.  The design:
+// the bound is ~3 us, and the work has to spread over the 132 SMs with
+// short serial chains to get anywhere near it.  The design:
 //
-// - Grid: one block of 4 warps per (R tokens of one window, a tile of BN
-//   of the 3C output columns); a window's column tiles are neighbours in
-//   blockIdx, so its x rows come from device memory once and then from L2.
+// - Grid: one block of 4 warps per (R tokens of one window, a group of G
+//   tiles of BN of the 3C output columns).  The block normalises its rows
+//   once and then streams the weight chunks of its G tiles through one
+//   ring without a break, storing each tile when its last chunk is done.
 //   The wrapper's planner (ops/fused_ln_qkv.py : ln_qkv_plan) picks R in
 //   {64, 32, 16} (the LN'd tile must fit at C up to 1536), BN (a multiple
-//   of 16 dividing 3C) and the weight k-chunk BK, for at least 2 x 132
-//   blocks and two blocks an SM by shared memory where the shape allows.
+//   of 16 dividing 3C), G and the weight k-chunk BK from a cost model of
+//   the block's serial chain and the waves of resident blocks.
 // - The weight is read in nn.Linear's layout (3C, C), K contiguous, which
 //   is mma.sync's "col" B operand: the model's stored weight, no transposed
-//   copy.  Its (BN x BK) k-chunks go through a ring of three padded shared
-//   tiles by 16-byte cp.async (gemm_sm90.cuh); the first two are issued
+//   copy.  Its (BN x BK) k-chunks go through a ring of four padded shared
+//   tiles by 16-byte cp.async (gemm_sm90.cuh); the first three are issued
 //   before the LayerNorm and land behind it, and each chunk's products run
-//   with the next two chunks in flight.
+//   with the next three in flight.
 // - LayerNorm: each warp copies its own x rows by 16-byte cp.async into
 //   the A tile (one copy group, first of all), then normalises them in
-//   place, a group of lanes per row: two-pass f32 statistics (the mean,
-//   then the variance about it), the affine in f32 and one rounding to T.
-//   Nothing of LN(x) reaches device memory: no padded or rolled copy, no
-//   partition transpose.
-// - Products: each warp owns 16 rows x 8 NT columns of the block tile;
-//   bf16 on mma.sync m16n8k16 from ldmatrix A and B fragments, f32 as
-//   3xTF32 m16n8k8 (hi.hi + hi.lo + lo.hi, ~f32 parity).
-// - Epilogue: bias in f32, one rounding, staged in the then dead A tile and
-//   ring, and written as 16-byte stores along each row's BN columns.
-#include <algorithm>
+//   place, up to 8 rows a pass with a group of 4 or 8 lanes per row (a row
+//   a pass, as first written, left the LayerNorm half of the kernel's time
+//   at stages 0-3): two-pass f32 statistics (the mean, then the variance
+//   about it), the affine in f32 and one rounding to T.  Nothing of LN(x)
+//   reaches device memory: no padded or rolled copy, no partition
+//   transpose.
+// - Products: each warp owns 16 rows x 8 NT columns of a tile; bf16 on
+//   mma.sync m16n8k16 from ldmatrix A and B fragments, f32 as 3xTF32
+//   m16n8k8 (hi.hi + hi.lo + lo.hi, ~f32 parity).
+// - Epilogue: bias in f32, one rounding, stored from the accumulator
+//   fragments so that each row's four lanes fill whole 32-byte sectors
+//   (bf16 lanes swap halves with their neighbour first).
 
 #include "gemm_sm90.cuh"
 
@@ -51,7 +54,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRing = 3;         // weight k-chunk buffers
+constexpr int kRing = 4;         // weight k-chunk buffers
 constexpr int kMaxC = 1536;      // widest LayerNorm (Swin-L's last stage)
 constexpr int kMaxSmem = 232448;
 constexpr float kEps = 1e-5f;
@@ -69,10 +72,9 @@ __host__ __device__ constexpr int pad_elems() {
 template <typename T>
 size_t smem_bytes(int C, int R, int BN, int BK) {
   constexpr int kPad = pad_elems<T>();
-  const size_t tiles = static_cast<size_t>(R) * (C + kPad) +
-                       static_cast<size_t>(kRing) * BN * (BK + kPad);
-  const size_t stage = static_cast<size_t>(R) * (BN + kPad);
-  return std::max(tiles, stage) * sizeof(T);
+  return (static_cast<size_t>(R) * (C + kPad) +
+          static_cast<size_t>(kRing) * BN * (BK + kPad)) *
+         sizeof(T);
 }
 
 // a 16-byte vector as f32 values, and back (bf16: round to nearest even)
@@ -118,17 +120,17 @@ __device__ __forceinline__ long long token_source(const Geometry& g, int win,
 }
 
 // The rows of one warp (R / 4 of the block's tokens) in the LayerNorm's
-// lane map: a group of `lanes` lanes per row (the 16-byte vectors of a row
-// spread over the group), 32 / lanes rows a pass.
+// lane map: up to 8 rows a pass, each row's 16-byte vectors spread over a
+// group of 32 / (rows a pass) lanes, so that a pass has several rows' loads
+// and short reductions in flight.
 struct RowMap {
   int lanes, slot, gl, per_pass, rows, first;
-  __device__ RowMap(int nv, int R, int warp, int lane) {
-    lanes = 1;
-    while (lanes < nv && lanes < 32) lanes <<= 1;
+  __device__ RowMap(int R, int warp, int lane) {
+    rows = R / kWarps;
+    per_pass = rows < 8 ? rows : 8;
+    lanes = 32 / per_pass;
     slot = lane / lanes;
     gl = lane % lanes;
-    per_pass = 32 / lanes;
-    rows = R / kWarps;
     first = warp * rows;
   }
 };
@@ -150,6 +152,19 @@ __device__ __forceinline__ void copy_rows_async(T* a, int lda,
   }
 }
 
+// the sum of a 16-byte vector's values, as a pairwise tree
+template <int N>
+__device__ __forceinline__ float tree_sum(const float (&f)[N]) {
+  float h[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) h[e] = f[2 * e] + f[2 * e + 1];
+  if constexpr (N / 2 == 1) {
+    return h[0];
+  } else {
+    return tree_sum<N / 2>(h);
+  }
+}
+
 // LayerNorm of the warp's rows in place in the A tile: the mean, then the
 // variance about it (f32, as the twin), then (x - mean) * rstd * scale +
 // bias in f32, rounded once to T; a pad row becomes zeros
@@ -165,31 +180,36 @@ __device__ __forceinline__ void layer_norm_rows(
     const bool live = r < m.rows && s >= 0;
     T* arow = a + (m.first + r) * lda;
     float sum = 0.f;
-    if (live)
+    if (live) {
+#pragma unroll 4
       for (int v = m.gl; v < nv; v += m.lanes) {
         float f[kVec];
         unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) sum += f[e];
+        sum += tree_sum(f);
       }
+    }
     for (int o = m.lanes / 2; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     const float mean = sum / C;
     float sq = 0.f;
-    if (live)
+    if (live) {
+#pragma unroll 4
       for (int v = m.gl; v < nv; v += m.lanes) {
         float f[kVec];
         unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           const float d = f[e] - mean;
-          sq += d * d;
+          f[e] = d * d;
         }
+        sq += tree_sum(f);
       }
+    }
     for (int o = m.lanes / 2; o > 0; o >>= 1)
       sq += __shfl_xor_sync(0xffffffffu, sq, o);
     const float rstd = 1.f / sqrtf(sq / C + kEps);
-    if (r < m.rows)
+    if (r < m.rows) {
+#pragma unroll 2
       for (int v = m.gl; v < nv; v += m.lanes) {
         float f[kVec];
         if (live) {
@@ -210,12 +230,64 @@ __device__ __forceinline__ void layer_norm_rows(
         }
         *reinterpret_cast<uint4*>(arow + v * kVec) = pack(f);
       }
+    }
   }
 }
 
-// Block b: column tile b % n_ct, token part (b / n_ct) % parts, window
-// b / n_ct / parts.  Warp w: rows 16 (w % (R / 16)), columns
-// 8 NT (w / (R / 16)) of the block tile (R * BN = 512 NT).
+// One warp's 16 x 8 NT output tile plus the bias, rounded once, stored from
+// the accumulator fragments: f32 as 8-byte pairs (a row's 4 lanes fill 32
+// bytes); bf16 as 8-byte quads after a swap with the neighbouring lane, so
+// that a row's 4 lanes fill the 32 bytes of two adjacent n8 tiles
+__device__ __forceinline__ void store_tile(float* dst, long long ld,
+                                           const float (&acc)[4], float2 b,
+                                           int nt, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float* p = dst + g * ld + nt * 8 + 2 * t;
+  *reinterpret_cast<float2*>(p) = make_float2(acc[0] + b.x, acc[1] + b.y);
+  *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(acc[2] + b.x, acc[3] + b.y);
+}
+template <int NT>
+__device__ __forceinline__ void store_warp_tile(float* dst, long long ld,
+                                                const float (&acc)[NT][4],
+                                                const float* __restrict__ bias,
+                                                int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + nt * 8 + 2 * (lane & 3)));
+    store_tile(dst, ld, acc[nt], b, nt, lane);
+  }
+}
+template <int NT>
+__device__ __forceinline__ void store_warp_tile(__nv_bfloat16* dst, long long ld,
+                                                const float (&acc)[NT][4],
+                                                const float* __restrict__ bias,
+                                                int lane) {
+  const int g = lane >> 2, t = lane & 3, odd = t & 1;
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + p * 16 + 2 * t));
+    const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + p * 16 + 8 + 2 * t));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows g, g + 8
+      const uint32_t u0 = pack_bf16(acc[2 * p][2 * h] + b0.x, acc[2 * p][2 * h + 1] + b0.y);
+      const uint32_t u1 =
+          pack_bf16(acc[2 * p + 1][2 * h] + b1.x, acc[2 * p + 1][2 * h + 1] + b1.y);
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? u0 : u1, 1);
+      // even t: tile 2p columns 2t .. 2t + 3; odd t: tile 2p + 1 columns
+      // 2t - 2 .. 2t + 1
+      const uint2 q = odd ? make_uint2(got, u1) : make_uint2(u0, got);
+      const int col = odd ? p * 16 + 8 + 2 * t - 2 : p * 16 + 2 * t;
+      *reinterpret_cast<uint2*>(dst + (g + 8 * h) * ld + col) = q;
+    }
+  }
+}
+
+// Block b: column group b % n_grp (G tiles of BN columns from
+// (b % n_grp) G BN), token part (b / n_grp) % parts, window
+// b / n_grp / parts.  Warp w: rows 16 (w % (R / 16)), columns
+// 8 NT (w / (R / 16)) of each tile (R * BN = 512 NT).  The block streams
+// the G x C / BK weight chunks of its tiles through the ring without a
+// break, and stores each tile when its last chunk is done.
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, 4)
     ln_partition_qkv_kernel(const T* __restrict__ x,
@@ -224,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 4)
                             const T* __restrict__ w,
                             const float* __restrict__ bias,
                             T* __restrict__ out, Geometry geo, int R, int BN,
-                            int BK) {
+                            int BK, int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kPad = pad_elems<T>();
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
@@ -233,26 +305,32 @@ __global__ void __launch_bounds__(kThreads, 4)
   T* a = reinterpret_cast<T*>(smem_raw);  // (R, lda): x, then LN(x)
   T* ring = a + R * lda;                  // kRing x (BN, ldb) weight chunks
   const int n_tok = geo.wx * geo.wy * geo.wz;
-  const int n_ct = N3 / BN, parts = n_tok / R;
-  const int ct = blockIdx.x % n_ct;
-  const int part = (blockIdx.x / n_ct) % parts;
-  const int win = blockIdx.x / n_ct / parts;
-  const int n0 = ct * BN, tok0 = part * R;
+  const int n_grp = N3 / (BN * G), parts = n_tok / R;
+  const int grp = blockIdx.x % n_grp;
+  const int part = (blockIdx.x / n_grp) % parts;
+  const int win = blockIdx.x / n_grp / parts;
+  const int n_base = grp * G * BN, tok0 = part * R;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nk = C / BK, nv = C / kVec;
-  const T* wblk = w + static_cast<size_t>(n0) * C;
+  const int nk = C / BK, nv = C / kVec, total = G * nk;
+  const T* wblk = w + static_cast<size_t>(n_base) * C;
+  const size_t tile_step = static_cast<size_t>(BN) * C;
 
-  // copy group 0: this warp's x rows; groups 1, 2: weight chunks 0, 1
-  const RowMap rows(nv, R, warp, lane);
+  // copy group 0: this warp's x rows; groups 1 .. kRing - 1: weight chunks
+  // 0 .. kRing - 2 of the block's stream (chunk q: tile q / nk, k-chunk
+  // q % nk)
+  const RowMap rows(R, warp, lane);
   const long long src =
       lane < rows.rows ? token_source(geo, win, tok0 + rows.first + lane) : -1;
   copy_rows_async(a, lda, x, rows, nv, src);
   cp_async_commit();
+  int fj = 0, fk = 0;  // tile and k-chunk of the next chunk to fetch
 #pragma unroll
   for (int s = 0; s < kRing - 1; ++s) {
-    if (s < nk)
-      copy_tile_async(ring + s * BN * ldb, ldb, wblk + s * BK, C, BN, BK, tid,
-                      kThreads);
+    if (s < total) {
+      copy_tile_async(ring + s * BN * ldb, ldb, wblk + fj * tile_step + fk * BK,
+                      C, BN, BK, tid, kThreads);
+      if (++fk == nk) fk = 0, ++fj;
+    }
     cp_async_commit();
   }
   cp_async_wait<kRing - 1>();
@@ -266,72 +344,65 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int kc = 0; kc < nk; ++kc) {
-    // chunk kc landed; every warp is past chunk kc - 1 (its buffer is
-    // free) and, the first time, past its LayerNorm
+  T* dst = out + (static_cast<size_t>(win) * n_tok + tok0 + wr) * N3 + n_base + wc;
+  int j = 0, kc = 0;  // tile and k-chunk of chunk q
+  for (int q = 0; q < total; ++q) {
+    // chunk q landed; every warp is past chunk q - 1 (its buffer is free)
+    // and, the first time, past its LayerNorm
     cp_async_wait<kRing - 2>();
     __syncthreads();
-    const int next = kc + kRing - 1;
-    if (next < nk)
-      copy_tile_async(ring + (next % kRing) * BN * ldb, ldb, wblk + next * BK,
-                      C, BN, BK, tid, kThreads);
+    if (q + kRing - 1 < total) {
+      copy_tile_async(ring + ((q + kRing - 1) % kRing) * BN * ldb, ldb,
+                      wblk + fj * tile_step + fk * BK, C, BN, BK, tid, kThreads);
+      if (++fk == nk) fk = 0, ++fj;
+    }
     cp_async_commit();
     warp_chunk_mma<NT>(acc, a + wr * lda + kc * BK, lda,
-                       ring + (kc % kRing) * BN * ldb + wc * ldb, ldb, BK,
+                       ring + (q % kRing) * BN * ldb + wc * ldb, ldb, BK,
                        lane);
-  }
-  __syncthreads();  // the A tile and the ring are dead: stage the tile there
-
-  const int lds = BN + kPad;
-  T* st = reinterpret_cast<T*>(smem_raw);
-  const int g = lane >> 2, t = lane & 3;
+    if (++kc == nk) {
+      store_warp_tile<NT>(dst + j * BN, N3, acc, bias + n_base + j * BN + wc,
+                          lane);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = wc + nt * 8 + 2 * t;
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + n0 + c));
-    store_pair(st + (wr + g) * lds + c, acc[nt][0] + bb.x, acc[nt][1] + bb.y);
-    store_pair(st + (wr + g + 8) * lds + c, acc[nt][2] + bb.x,
-               acc[nt][3] + bb.y);
-  }
-  __syncthreads();
-  const int per_row = BN / kVec;
-  T* dst = out + (static_cast<size_t>(win) * n_tok + tok0) * N3 + n0;
-  for (int i = tid; i < R * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * kVec;
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * N3 + c) =
-        *reinterpret_cast<const uint4*>(st + r * lds + c);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      kc = 0;
+      ++j;
+    }
   }
 }
 
 template <typename T, int NT>
 int launch_nt(const T* x, const float* s, const float* t, const T* w,
               const float* b, T* out, const Geometry& geo, int R, int BN,
-              int BK, long long blocks, size_t smem, cudaStream_t stream) {
+              int BK, int G, long long blocks, size_t smem,
+              cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       ln_partition_qkv_kernel<T, NT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   ln_partition_qkv_kernel<T, NT>
       <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          x, s, t, w, b, out, geo, R, BN, BK);
+          x, s, t, w, b, out, geo, R, BN, BK, G);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* s, const void* t, const void* w,
            const void* b, void* out, int B, const Geometry& geo, int R, int BN,
-           int BK, cudaStream_t stream) {
+           int BK, int G, cudaStream_t stream) {
   const int C = geo.C, n_tok = geo.wx * geo.wy * geo.wz;
   if ((R != 16 && R != 32 && R != 64) || n_tok % R || BN <= 0 || BN % 16 ||
-      (3 * C) % BN || (BK != 16 && BK != 32) || C % BK ||
-      (R * BN) % 512)
+      (3 * C) % BN || (BK != 16 && BK != 32 && BK != 64) || C % BK ||
+      (R * BN) % 512 || G <= 0 || (3 * C / BN) % G)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes<T>(C, R, BN, BK);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(B) * (geo.PX / geo.wx) *
                            (geo.PY / geo.wy) * (geo.PZ / geo.wz) *
-                           (n_tok / R) * (3 * C / BN);
+                           (n_tok / R) * (3 * C / BN / G);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
@@ -341,19 +412,19 @@ int launch(const void* x, const void* s, const void* t, const void* w,
   T* ot = static_cast<T*>(out);
   switch (R * BN / 512) {  // n8 column tiles a warp holds
     case 2:
-      return launch_nt<T, 2>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+      return launch_nt<T, 2>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, G, blocks,
                              smem, stream);
     case 4:
-      return launch_nt<T, 4>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+      return launch_nt<T, 4>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, G, blocks,
                              smem, stream);
     case 6:
-      return launch_nt<T, 6>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+      return launch_nt<T, 6>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, G, blocks,
                              smem, stream);
     case 8:
-      return launch_nt<T, 8>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+      return launch_nt<T, 8>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, G, blocks,
                              smem, stream);
     case 12:
-      return launch_nt<T, 12>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, blocks,
+      return launch_nt<T, 12>(xt, st, tt, wt, bt, ot, geo, R, BN, BK, G, blocks,
                               smem, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -366,20 +437,20 @@ int launch(const void* x, const void* s, const void* t, const void* w,
 // type (nn.Linear's layout), b (3C,) f32, out (B * nW, wx*wy*wz, 3C) of x's
 // type with nW = (PX/wx)(PY/wy)(PZ/wz); all contiguous and 16-byte aligned.
 // P >= S and divisible by the window, 0 <= shift < P, C a multiple of 16
-// and at most 1536.  The plan: `rows` (R) tokens of a window and `cols`
-// (BN) output columns a block, weight k-chunks of `k_chunk` (BK): R in
-// {16, 32, 64} dividing the window volume, BN a multiple of 16 dividing
-// 3C, BK in {16, 32} dividing C, R * BN / 512 in {2, 4, 6, 8, 12}, shared
-// memory within a block's 227 KB.  Returns the CUDA error code of the
-// launch (0 on success; cudaErrorInvalidValue for arguments it does not
-// take).
+// and at most 1536.  The plan: `rows` (R) tokens of a window and `group`
+// (G) tiles of `cols` (BN) output columns a block, weight k-chunks of
+// `k_chunk` (BK): R in {16, 32, 64} dividing the window volume, BN a
+// multiple of 16 dividing 3C, G dividing 3C / BN, BK in {16, 32, 64}
+// dividing C, R * BN / 512 in {2, 4, 6, 8, 12}, shared memory within a
+// block's 227 KB.  Returns the CUDA error code of the launch (0 on
+// success; cudaErrorInvalidValue for arguments it does not take).
 extern "C" int ln_partition_qkv(const void* x, const void* ln_scale,
                                 const void* ln_bias, const void* w,
                                 const void* b, void* out, int B, int SX,
                                 int SY, int SZ, int C, int PX, int PY, int PZ,
                                 int shx, int shy, int shz, int wx, int wy,
                                 int wz, int rows, int cols, int k_chunk,
-                                int dtype_code, void* stream) {
+                                int group, int dtype_code, void* stream) {
   if (B <= 0 || C <= 0 || C % 16 || C > kMaxC || wx <= 0 || wy <= 0 ||
       wz <= 0 || PX % wx || PY % wy || PZ % wz || SX > PX || SY > PY ||
       SZ > PZ || SX <= 0 || SY <= 0 || SZ <= 0 || shx < 0 || shy < 0 ||
@@ -389,9 +460,9 @@ extern "C" int ln_partition_qkv(const void* x, const void* ln_scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == kFloat32)
     return launch<float>(x, ln_scale, ln_bias, w, b, out, B, geo, rows, cols,
-                         k_chunk, s);
+                         k_chunk, group, s);
   if (dtype_code == kBFloat16)
     return launch<__nv_bfloat16>(x, ln_scale, ln_bias, w, b, out, B, geo, rows,
-                                 cols, k_chunk, s);
+                                 cols, k_chunk, group, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

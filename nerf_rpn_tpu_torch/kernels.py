@@ -71,9 +71,9 @@ SIGNATURES = {
     "ln_partition_qkv": (
         "fused_ln_qkv",
         # x, ln_scale, ln_bias, w (3C, C), b, out, B, SX, SY, SZ, C, PX, PY,
-        # PZ, shift x/y/z, window x/y/z, plan rows / cols / k_chunk,
-        # dtype_code, stream
-        [_P, _P, _P, _P, _P, _P, *[_I] * 18, _P]),
+        # PZ, shift x/y/z, window x/y/z, plan rows / cols / k_chunk /
+        # group, dtype_code, stream
+        [_P, _P, _P, _P, _P, _P, *[_I] * 19, _P]),
     "fused_mlp_block": (
         "fused_mlp",
         # x, ln_scale, ln_bias, w1, b1, w2, b2, out, part|NULL, T, C, Hd,

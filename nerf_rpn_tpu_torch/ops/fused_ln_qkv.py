@@ -18,94 +18,105 @@ LayerNorm.  With shift 0 and a divisible grid it is the JAX function.
 CUDA tensors and takes the plain twin ``ln_partition_qkv_reference`` on CPU
 tensors; nothing falls back from the kernel to the twin.
 
-The kernel runs one block per (R tokens of one window, BN of the 3C output
-columns), block b taking column tile ``b % n_ct``, token part
-``(b // n_ct) % parts`` and window ``b // n_ct // parts``
-(:func:`block_tile`), and reads the weight in nn.Linear's ``(3C, C)``
-layout in k-chunks of BK; :func:`ln_qkv_plan` picks (R, BN, BK).
+The kernel runs one block per (R tokens of one window, G tiles of BN of the
+3C output columns), block b taking column group ``b % n_grp`` (tiles from
+``(b % n_grp) * G``), token part ``(b // n_grp) % parts`` and window
+``b // n_grp // parts``, and reads the weight in nn.Linear's ``(3C, C)``
+layout in k-chunks of BK; :func:`ln_qkv_plan` picks (R, BN, BK, G).
 """
 
 from __future__ import annotations
 
-from fractions import Fraction
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from nerf_rpn_tpu_torch import kernels
+from nerf_rpn_tpu_torch.ops.window_attention import SMS
 
 EPS = 1e-5
 
 # the K5 planner (csrc/fused_ln_qkv.cu)
-SMS = 132                   # streaming multiprocessors of an H100 SXM
 SMEM_PER_SM = 233472        # an H100 SM's 228 KB of shared memory (1 KB more a block)
 MAX_BLOCK_SMEM = 232448     # dynamic shared memory of one block
+MAX_RESIDENT = 4            # blocks an SM holds by registers (__launch_bounds__)
 MAX_C = 1536                # widest LayerNorm the kernel takes (Swin-L's last stage)
-RING = 3                    # weight k-chunk buffers of a block
+RING = 4                    # weight k-chunk buffers of a block
 ROWS = (64, 32, 16)         # R: tokens of one window a block takes
-K_CHUNKS = (32, 16)         # BK: weight k-chunk
+K_CHUNKS = (64, 32, 16)     # BK: weight k-chunk
 WARP_TILES = (2, 4, 6, 8, 12)  # n8 column tiles a warp holds (R * BN / 512), as built
+# The cost model's weights, in SM cycles (fitted loosely to the H100 runs
+# of PERF.md, PR 8): a LayerNorm pass's dependent chain (loads, two
+# reductions, the square root), the three sweeps per element a lane
+# normalises, a weight chunk's fixed cost (the block's sync, the copies,
+# the wait), the products per 16-deep step of an n8 tile (bf16; 3xTF32
+# costs four times as much) and a tile's epilogue.
+LN_PASS, LN_ELEMENT, CHUNK, MMA_STEP, EPILOGUE = 600, 3, 200, 8, 200
 
 
 class Plan(NamedTuple):
     rows: int     # R
     cols: int     # BN
     k_chunk: int  # BK
+    group: int    # G: column tiles a block takes in turn
 
 
 def plan_smem_bytes(c: int, plan: Plan, dtype: torch.dtype) -> int:
     """Shared memory of a K5 block (``smem_bytes`` in the CUDA source): the
     (R, C) A tile and RING (BN, BK) weight chunks, each row padded by 16
-    bytes, or the (R, BN) output stage that reuses them if it is larger."""
+    bytes."""
     pad = 16 // dtype.itemsize
-    tiles = plan.rows * (c + pad) + RING * plan.cols * (plan.k_chunk + pad)
-    return max(tiles, plan.rows * (plan.cols + pad)) * dtype.itemsize
+    return (plan.rows * (c + pad) + RING * plan.cols * (plan.k_chunk + pad)) * dtype.itemsize
+
+
+def plan_resident(c: int, plan: Plan, dtype: torch.dtype) -> int:
+    """K5 blocks an SM holds at once, by shared memory and registers."""
+    return min(MAX_RESIDENT, SMEM_PER_SM // (plan_smem_bytes(c, plan, dtype) + 1024))
 
 
 def plan_blocks(n_windows: int, n_tok: int, c: int, plan: Plan) -> int:
     """Blocks of the K5 grid."""
-    return n_windows * (n_tok // plan.rows) * (3 * c // plan.cols)
+    return n_windows * (n_tok // plan.rows) * (3 * c // plan.cols // plan.group)
 
 
-def block_tile(block: int, n_tok: int, c: int, plan: Plan) -> tuple[int, int, int]:
-    """(window, first token, first column) of block ``block``, as
-    ``ln_partition_qkv_kernel`` maps ``blockIdx.x``."""
-    n_ct, parts = 3 * c // plan.cols, n_tok // plan.rows
-    return (block // n_ct // parts, (block // n_ct) % parts * plan.rows,
-            block % n_ct * plan.cols)
+def plan_cost(n_windows: int, c: int, dtype: torch.dtype, plan: Plan, n_tok: int = 64) -> float:
+    """The cost model's estimate of a plan, in SM cycles: the waves of
+    resident blocks times a block's serial chain (its LayerNorm passes and
+    sweeps, then G x C / BK weight chunks and G epilogues)."""
+    r, bn, bk, g = plan
+    rows = r // 4                     # a warp's rows
+    passes = -(-rows // min(rows, 8))
+    ln = passes * LN_PASS + r * c / 128 * LN_ELEMENT
+    steps = bk // 16 * (r * bn // 512) * (1 if dtype == torch.bfloat16 else 4)
+    chain = ln + g * (c // bk) * (CHUNK + MMA_STEP * steps) + g * EPILOGUE
+    slots = SMS * plan_resident(c, plan, dtype)
+    return -(-plan_blocks(n_windows, n_tok, c, plan) // slots) * chain
 
 
+@functools.lru_cache(maxsize=64)  # every eval block asks again; the search costs ~1 ms
 def ln_qkv_plan(n_windows: int, c: int, dtype: torch.dtype, n_tok: int = 64) -> Plan:
-    """(R, BN, BK) of the K5 grid for ``n_windows`` windows of ``n_tok``
-    tokens at width C.
+    """(R, BN, BK, G) of the K5 grid for ``n_windows`` windows of
+    ``n_tok`` tokens at width C.
 
     A plan takes R in ROWS dividing the window volume, BK in K_CHUNKS
     dividing C, BN a multiple of 16 dividing 3C with ``R * BN / 512`` in
-    WARP_TILES, and fits a block's shared memory.  Of the plans that let
-    two blocks share an SM (all plans where none does), those with at least
-    ``2 * SMS`` blocks read the least per window from L2 (the window's x
-    rows once per column tile, the weight once per token part: the
-    smallest ``1/R + 1/BN``, then the larger R and BK); where none reaches
-    ``2 * SMS`` blocks, the plan with the most blocks, ties broken the same
-    way.  Raises ValueError where no plan exists."""
-    plans = [Plan(r, bn, bk) for r in ROWS if n_tok % r == 0
+    WARP_TILES, G dividing 3C / BN, and fits a block's shared memory.  Of
+    the plans that let two blocks share an SM (all plans where none does),
+    the one :func:`plan_cost` rates cheapest, then the larger R and BK.
+    Raises ValueError where no plan exists."""
+    plans = [Plan(r, bn, bk, g) for r in ROWS if n_tok % r == 0
              for bk in K_CHUNKS if c % bk == 0
              for bn in range(16, 3 * c + 1, 16)
-             if 3 * c % bn == 0 and r * bn % 512 == 0 and r * bn // 512 in WARP_TILES]
+             if 3 * c % bn == 0 and r * bn % 512 == 0 and r * bn // 512 in WARP_TILES
+             for g in range(1, 3 * c // bn + 1) if 3 * c // bn % g == 0]
     plans = [p for p in plans if plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM]
     if not plans:
         raise ValueError(f"K5 has no plan for C={c}, {n_tok} tokens a window in {dtype}")
-    two = [p for p in plans if 2 * (plan_smem_bytes(c, p, dtype) + 1024) <= SMEM_PER_SM]
-    plans = two or plans
-
-    def cost(p):
-        return Fraction(1, p.rows) + Fraction(1, p.cols), -p.rows, -p.k_chunk
-
-    full = [p for p in plans if plan_blocks(n_windows, n_tok, c, p) >= 2 * SMS]
-    if full:
-        return min(full, key=cost)
-    return min(plans, key=lambda p: (-plan_blocks(n_windows, n_tok, c, p), *cost(p)))
+    plans = [p for p in plans if plan_resident(c, p, dtype) >= 2] or plans
+    return min(plans, key=lambda p: (plan_cost(n_windows, c, dtype, p, n_tok),
+                                     -p.rows, -p.k_chunk))
 
 
 def _geometry(x: torch.Tensor, window: Sequence[int], pad_size, shift):

@@ -4,9 +4,10 @@ The kernel (``csrc/fused_ln_qkv.cu``) runs only on the card; what can be
 checked here is its grid and its numerics:
 
 - the planner (``ln_qkv_plan``) covers every (window, token, output column)
-  exactly once, fits a block's shared memory and keeps two blocks an SM,
-  at the Swin-S eval stages, at two scenes a batch, with fewer windows
-  than SMs and at C from 16 to 1536;
+  exactly once, fits a block's shared memory and keeps two blocks an SM
+  (f32 at C = 1536 excepted, where no plan can), at the Swin-S eval stages,
+  at two scenes a batch, with fewer windows than SMs and at C from 16 to
+  1536, and it takes the plan its cost model rates cheapest;
 - the bf16 form (LN rounded to bf16, bf16 products summed in f32 over the
   plan's weight k-chunks in order, the f32 bias, one rounding) and the f32
   form's 3xTF32 products, emulated in plain torch, stay within the
@@ -27,15 +28,15 @@ from nerf_rpn_tpu_torch.models import swin
 from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
     EPS,
     MAX_BLOCK_SMEM,
-    SMEM_PER_SM,
     SMS,
     WARP_TILES,
     Plan,
-    block_tile,
     ln_partition_qkv,
     ln_partition_qkv_reference,
     ln_qkv_plan,
     plan_blocks,
+    plan_cost,
+    plan_resident,
     plan_smem_bytes,
 )
 
@@ -49,50 +50,76 @@ SHAPES = (BENCH + [(2 * w, c) for w, c in BENCH]
           + [(300, 1536), (700, 16)])
 
 
+def block_tiles(block: int, c: int, plan: Plan) -> tuple[int, int, list[int]]:
+    """(window, first token, first column of each of its G tiles) of block
+    ``block`` of a grid over 64-token windows, as
+    ``ln_partition_qkv_kernel`` maps ``blockIdx.x``."""
+    n_grp, parts = 3 * c // plan.cols // plan.group, 64 // plan.rows
+    first = block % n_grp * plan.group * plan.cols
+    return (block // n_grp // parts, (block // n_grp) % parts * plan.rows,
+            [first + j * plan.cols for j in range(plan.group)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w,c", SHAPES)
 def test_plan_covers_the_output_once_within_budget(w, c, dtype):
     plan = ln_qkv_plan(w, c, dtype)
-    r, bn, bk = plan
+    r, bn, bk, g = plan
     # what the C entry point takes
     assert r in (16, 32, 64) and 64 % r == 0
-    assert bn % 16 == 0 and 3 * c % bn == 0 and bk in (16, 32) and c % bk == 0
-    assert r * bn % 512 == 0 and r * bn // 512 in WARP_TILES
-    smem = plan_smem_bytes(c, plan, dtype)
-    assert smem <= MAX_BLOCK_SMEM
-    assert 2 * (smem + 1024) <= SMEM_PER_SM  # two blocks an SM
+    assert bn % 16 == 0 and 3 * c % bn == 0 and bk in (16, 32, 64) and c % bk == 0
+    assert r * bn % 512 == 0 and r * bn // 512 in WARP_TILES and 3 * c // bn % g == 0
+    assert plan_smem_bytes(c, plan, dtype) <= MAX_BLOCK_SMEM
+    if dtype == torch.float32 and c == 1536:  # the A tile alone takes 96 KB
+        assert plan_resident(c, plan, dtype) == 1
+    else:
+        assert plan_resident(c, plan, dtype) >= 2
     blocks = plan_blocks(w, 64, c, plan)
     seen = np.zeros((w, 64, 3 * c), np.uint8)
     for blk in range(blocks):
-        win, tok0, col0 = block_tile(blk, 64, c, plan)
-        seen[win, tok0:tok0 + r, col0:col0 + bn] += 1
+        win, tok0, cols = block_tiles(blk, c, plan)
+        for col0 in cols:
+            seen[win, tok0:tok0 + r, col0:col0 + bn] += 1
     assert (seen == 1).all()
-    # a window's column tiles are neighbours in the grid
-    if 3 * c // bn > 1:
-        assert block_tile(1, 64, c, plan)[:2] == block_tile(0, 64, c, plan)[:2]
+    # a window's column groups are neighbours in the grid
+    if 3 * c // bn // g > 1:
+        assert block_tiles(1, c, plan)[:2] == block_tiles(0, c, plan)[:2]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plan_fills_the_card_at_the_bench_stages(dtype):
-    for w, c in BENCH:
-        assert plan_blocks(w, 64, c, ln_qkv_plan(w, c, dtype)) >= 2 * SMS
+@pytest.mark.parametrize("w,c", BENCH)
+def test_plan_is_the_cheapest_the_model_knows(w, c, dtype):
+    """Every plan the kernel takes costs at least as much in the model, and
+    at the bench stages the grid keeps every SM busy."""
+    plan = ln_qkv_plan(w, c, dtype)
+    best = plan_cost(w, c, dtype, plan)
+    for r in (64, 32, 16):
+        for bk in (64, 32, 16):
+            for bn in range(16, 3 * c + 1, 16):
+                if c % bk or 3 * c % bn or r * bn % 512 or r * bn // 512 not in WARP_TILES:
+                    continue
+                for g in range(1, 3 * c // bn + 1):
+                    p = Plan(r, bn, bk, g)
+                    if (3 * c // bn % g == 0 and plan_resident(c, p, dtype) >= 2
+                            and plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM):
+                        assert plan_cost(w, c, dtype, p) >= best
+    assert plan_blocks(w, 64, c, plan) >= SMS
 
 
 def test_plan_at_the_bench_stages():
-    """bf16: 64 tokens a block; 96 columns at stages 0-2 (stage 2: 48 x 12 =
-    576 blocks), 64 at stage 3 (8 x 36 = 288 blocks)."""
+    """bf16: 64 tokens and all three column tiles of 96 a block at stage 0
+    (1521 blocks, one LayerNorm a window); at stage 2, 16 tokens and three
+    tiles of 192 (384 blocks, one wave of three an SM)."""
     got = [ln_qkv_plan(w, c, torch.bfloat16) for w, c in BENCH]
-    assert got == [Plan(64, 96, 32)] * 3 + [Plan(64, 64, 32)]
-    assert plan_smem_bytes(96, got[0], torch.bfloat16) == (64 * 104 + 3 * 96 * 40) * 2
-    # f32 at C = 1536: 16 tokens, 64 columns and 16-deep chunks keep two
-    # blocks an SM
-    assert ln_qkv_plan(8, 1536, torch.float32) == Plan(16, 64, 16)
+    assert got == [Plan(64, 96, 32, 3), Plan(64, 96, 32, 3), Plan(16, 192, 32, 3),
+                   Plan(32, 192, 32, 1)]
+    assert plan_smem_bytes(96, got[0], torch.bfloat16) == (64 * 104 + 4 * 96 * 40) * 2
+    assert plan_resident(384, got[2], torch.bfloat16) == 3
 
 
-def test_plan_prefers_the_card_filling_grid_then_the_least_l2_traffic():
-    # one window at C = 96: no plan reaches 2 * SMS blocks; the most blocks
-    # (18: 32 tokens x 32 columns) beats 64 x 16 (also 18) on traffic
-    assert ln_qkv_plan(1, 96, torch.bfloat16) == Plan(32, 32, 32)
+def test_plan_with_few_windows():
+    # one window at C = 96: 18 blocks of 32 tokens and 32 columns
+    assert ln_qkv_plan(1, 96, torch.bfloat16) == Plan(32, 32, 32, 1)
     # C = 16 x 95 in f32: R = 64 does not fit, and no smaller R has a BN
     # that divides 3C = 4560 at a width the kernel is built for
     with pytest.raises(ValueError, match="no plan"):

@@ -306,17 +306,17 @@ def _linear_weight_view(c, dtype, device, seed=9):
     return w.to(dtype).t()
 
 
-# the K5 grid runs one block per (R tokens of a window, BN output columns)
-# with weight k-chunks of BK; the cases reach the planner's edges
+# the K5 grid runs one block per (R tokens of a window, G tiles of BN output
+# columns) with weight k-chunks of BK; the cases reach the planner's edges
 # (ops.fused_ln_qkv.ln_qkv_plan)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,size,c,shift", [
     (1, (8, 8, 8), 16, (0, 0, 0)),       # C = 16: 3C = 48, BK = 16, 8 windows
-    (1, (4, 4, 8), 1536, (0, 0, 0)),     # C = 1536: R = 32 (bf16), 16 (f32)
+    (1, (4, 4, 8), 1536, (0, 0, 0)),     # C = 1536: R = 16, one block an SM in f32
     (2, (9, 8, 11), 96, (2, 2, 2)),      # B = 2, pad and shift, 3C = 288
     (2, (9, 8, 11), 192, (2, 0, 2)),     # 3C = 576
-    (1, (7, 7, 5), 768, (2, 2, 2)),      # stage 3: 8 windows, BN = 64
-    (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, BN = 96
+    (1, (7, 7, 5), 768, (2, 2, 2)),      # stage 3: 8 windows
+    (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, R = 16, G = 3
 ])
 def test_ln_partition_qkv_kernel_at_the_planner_edges(cuda, b, size, c, shift, dtype):
     x = torch.randn((b, *size, c), generator=torch.Generator(cuda).manual_seed(10),
@@ -350,22 +350,24 @@ def test_ln_partition_qkv_entry_rejects_plans_it_does_not_take(cuda):
     b = torch.zeros(3 * c, device=cuda)
     s, out = torch.ones(c, device=cuda), torch.empty((1, 64, 3 * c), device=cuda)
 
-    def launch(rows, cols, k_chunk):
+    def launch(rows, cols, k_chunk, group):
         kernels.launch("ln_partition_qkv", x.data_ptr(), s.data_ptr(), s.data_ptr(),
                        w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 4, 4, 4, c,
-                       4, 4, 4, 0, 0, 0, 4, 4, 4, rows, cols, k_chunk,
+                       4, 4, 4, 0, 0, 0, 4, 4, 4, rows, cols, k_chunk, group,
                        kernels.DTYPE_CODES[torch.float32],
                        torch.cuda.current_stream(cuda).cuda_stream)
 
-    launch(64, 96, 32)  # a plan it takes
+    launch(64, 96, 32, 5)  # a plan it takes: all five tiles of 96 in one block
     torch.cuda.synchronize()
-    for rows, cols, k_chunk in [(48, 96, 32),   # R not in {16, 32, 64}
-                                (64, 100, 32),  # BN not a multiple of 16
-                                (64, 80, 32),   # 8 x 10 column tiles a warp: not built
-                                (64, 96, 64),   # BK not in {16, 32}
-                                (64, 96, 48)]:
+    for plan in [(48, 96, 32, 1),   # R not in {16, 32, 64}
+                 (64, 100, 32, 1),  # BN not a multiple of 16
+                 (64, 80, 32, 1),   # 8 x 10 column tiles a warp: not built
+                 (64, 96, 64, 1),   # BK does not divide C = 160
+                 (64, 96, 48, 1),   # BK not in {16, 32, 64}
+                 (64, 96, 32, 2),   # G does not divide the 5 tiles
+                 (64, 96, 32, 0)]:
         with pytest.raises(RuntimeError, match="CUDA error"):
-            launch(rows, cols, k_chunk)
+            launch(*plan)
     wide = torch.zeros((1, 4, 4, 4, 1552), device=cuda)
     with pytest.raises(ValueError, match="C <= 1536"):
         ln_partition_qkv(wide, torch.ones(1552, device=cuda), torch.zeros(1552, device=cuda),
