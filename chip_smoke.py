@@ -35,8 +35,8 @@ nonzero before the result lines:
    shape (208x208x144: tokens 52x52x36, 26x26x18, 13x13x9, 7x7x5, the last
    three padded, every shift on), f32 and bf16, with times (K4 with its
    head group G; K5, given its weight as the model gives it,
-   ``Linear.weight.t()``, with its plan: R tokens and BN columns a block,
-   weight k-chunk BK, blocks);
+   ``Linear.weight.t()``, with its plan: R tokens and G tiles of BN
+   columns a block, weight k-chunk BK, blocks);
 7. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
@@ -507,7 +507,7 @@ def check_ln_partition_qkv(torch, dev):
             tokens = math.prod(size)
             plan = ln_qkv_plan(out.shape[0], c, dtype)
             row = dict(stage=name, grid=list(size), pad=list(pad), C=c, dtype=dtype_name(dtype),
-                       plan=dict(zip(("R", "BN", "BK"), plan)),
+                       plan=dict(zip(("R", "BN", "BK", "G"), plan)),
                        blocks=plan_blocks(out.shape[0], 64, c, plan),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                        **bound(nbytes(x, s, t, wq, b, out), 2 * tokens * c * 3 * c,

@@ -47,13 +47,14 @@ RING = 4                    # weight k-chunk buffers of a block
 ROWS = (64, 32, 16)         # R: tokens of one window a block takes
 K_CHUNKS = (64, 32, 16)     # BK: weight k-chunk
 WARP_TILES = (2, 4, 6, 8, 12)  # n8 column tiles a warp holds (R * BN / 512), as built
-# The cost model's weights, in SM cycles (fitted loosely to the H100 runs
-# of PERF.md, PR 8): a LayerNorm pass's dependent chain (loads, two
-# reductions, the square root), the three sweeps per element a lane
-# normalises, a weight chunk's fixed cost (the block's sync, the copies,
-# the wait), the products per 16-deep step of an n8 tile (bf16; 3xTF32
-# costs four times as much) and a tile's epilogue.
-LN_PASS, LN_ELEMENT, CHUNK, MMA_STEP, EPILOGUE = 600, 3, 200, 8, 200
+# The cost model's weights (us), fitted by non-negative least squares to
+# the device times of ~140 plans at the four Swin-S eval stages on an H100
+# (scripts/time_ln_qkv_plans.py prints the fit): a LayerNorm pass, a
+# weight chunk (the block's sync, the copies, the wait), a chunk's products
+# per 16-deep step of an n8 tile (3xTF32 counts four), a tile's epilogue,
+# each per wave of resident blocks; and a KB of weight and x rows an SM
+# streams from L2.
+W_PASS, W_CHUNK, W_MMA, W_TILE, W_KB = 2.10, 0.252, 0.0139, 0.732, 0.0306
 
 
 class Plan(NamedTuple):
@@ -82,17 +83,20 @@ def plan_blocks(n_windows: int, n_tok: int, c: int, plan: Plan) -> int:
 
 
 def plan_cost(n_windows: int, c: int, dtype: torch.dtype, plan: Plan, n_tok: int = 64) -> float:
-    """The cost model's estimate of a plan, in SM cycles: the waves of
-    resident blocks times a block's serial chain (its LayerNorm passes and
-    sweeps, then G x C / BK weight chunks and G epilogues)."""
+    """The cost model's estimate of a plan (us): the waves of resident
+    blocks times a block's serial chain (its LayerNorm passes, G x C / BK
+    weight chunks and their products, G epilogues), plus the L2 traffic
+    each SM streams (the weight of the block's tiles and its x rows)."""
     r, bn, bk, g = plan
     rows = r // 4                     # a warp's rows
     passes = -(-rows // min(rows, 8))
-    ln = passes * LN_PASS + r * c / 128 * LN_ELEMENT
+    chunks = g * (c // bk)
     steps = bk // 16 * (r * bn // 512) * (1 if dtype == torch.bfloat16 else 4)
-    chain = ln + g * (c // bk) * (CHUNK + MMA_STEP * steps) + g * EPILOGUE
-    slots = SMS * plan_resident(c, plan, dtype)
-    return -(-plan_blocks(n_windows, n_tok, c, plan) // slots) * chain
+    blocks = plan_blocks(n_windows, n_tok, c, plan)
+    waves = -(-blocks // (SMS * plan_resident(c, plan, dtype)))
+    chain = W_PASS * passes + chunks * (W_CHUNK + W_MMA * steps) + W_TILE * g
+    kb = blocks * (g * bn + r) * c * dtype.itemsize / SMS / 1024
+    return waves * chain + W_KB * kb
 
 
 @functools.lru_cache(maxsize=64)  # every eval block asks again; the search costs ~1 ms
