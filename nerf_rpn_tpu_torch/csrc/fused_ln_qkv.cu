@@ -25,8 +25,8 @@
 //   ring without a break, storing each tile when its last chunk is done.
 //   The wrapper's planner (ops/fused_ln_qkv.py : ln_qkv_plan) picks R in
 //   {64, 32, 16} (the LN'd tile must fit at C up to 1536), BN (a multiple
-//   of 16 dividing 3C), G and the weight k-chunk BK from a cost model of
-//   the block's serial chain and the waves of resident blocks.
+//   of 16 dividing 3C), G and the weight k-chunk BK by a cost model
+//   fitted to the device times of measured plans (plan_cost there).
 // - The weight is read in nn.Linear's layout (3C, C), K contiguous, which
 //   is mma.sync's "col" B operand: the model's stored weight, no transposed
 //   copy.  Its (BN x BK) k-chunks go through a ring of four padded shared

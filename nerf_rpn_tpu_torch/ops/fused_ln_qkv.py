@@ -47,14 +47,17 @@ RING = 4                    # weight k-chunk buffers of a block
 ROWS = (64, 32, 16)         # R: tokens of one window a block takes
 K_CHUNKS = (64, 32, 16)     # BK: weight k-chunk
 WARP_TILES = (2, 4, 6, 8, 12)  # n8 column tiles a warp holds (R * BN / 512), as built
-# The cost model's weights (us), fitted by non-negative least squares to
-# the device times of ~140 plans at the four Swin-S eval stages on an H100
-# (scripts/time_ln_qkv_plans.py prints the fit): a LayerNorm pass, a
-# weight chunk (the block's sync, the copies, the wait), a chunk's products
-# per 16-deep step of an n8 tile (3xTF32 counts four), a tile's epilogue,
-# each per wave of resident blocks; and a KB of weight and x rows an SM
-# streams from L2.
-W_PASS, W_CHUNK, W_MMA, W_TILE, W_KB = 2.10, 0.252, 0.0139, 0.732, 0.0306
+# The cost model's weights (us), fitted by non-negative least squares on
+# the relative error to the device times of ~250 plans at the four Swin-S
+# eval stages, bf16 and f32, on an H100 (scripts/time_ln_qkv_plans.py
+# times plans and prints such a fit).  A block's serial chain, per wave of
+# resident blocks: a LayerNorm pass, a weight chunk (the block's sync, the
+# copies, the wait) and a chunk's products per 16-deep step of an n8 tile
+# (3xTF32 counts four); the KB of weight and x rows an SM streams from L2;
+# and the work an SM's blocks share: products, LayerNorm elements and
+# output elements (per 1024).
+W_PASS, W_CHUNK, W_MMA, W_KB = 0.778, 0.231, 0.0102, 0.0150
+W_SM_MMA, W_SM_LN, W_SM_OUT = 0.00996, 0.0914, 0.00983
 
 
 class Plan(NamedTuple):
@@ -82,11 +85,10 @@ def plan_blocks(n_windows: int, n_tok: int, c: int, plan: Plan) -> int:
     return n_windows * (n_tok // plan.rows) * (3 * c // plan.cols // plan.group)
 
 
-def plan_cost(n_windows: int, c: int, dtype: torch.dtype, plan: Plan, n_tok: int = 64) -> float:
-    """The cost model's estimate of a plan (us): the waves of resident
-    blocks times a block's serial chain (its LayerNorm passes, G x C / BK
-    weight chunks and their products, G epilogues), plus the L2 traffic
-    each SM streams (the weight of the block's tiles and its x rows)."""
+def plan_terms(n_windows: int, c: int, dtype: torch.dtype, plan: Plan,
+               n_tok: int = 64) -> list[float]:
+    """The cost model's terms of a plan, in the order of its weights
+    (W_PASS, W_CHUNK, W_MMA, W_KB, W_SM_MMA, W_SM_LN, W_SM_OUT)."""
     r, bn, bk, g = plan
     rows = r // 4                     # a warp's rows
     passes = -(-rows // min(rows, 8))
@@ -94,9 +96,17 @@ def plan_cost(n_windows: int, c: int, dtype: torch.dtype, plan: Plan, n_tok: int
     steps = bk // 16 * (r * bn // 512) * (1 if dtype == torch.bfloat16 else 4)
     blocks = plan_blocks(n_windows, n_tok, c, plan)
     waves = -(-blocks // (SMS * plan_resident(c, plan, dtype)))
-    chain = W_PASS * passes + chunks * (W_CHUNK + W_MMA * steps) + W_TILE * g
-    kb = blocks * (g * bn + r) * c * dtype.itemsize / SMS / 1024
-    return waves * chain + W_KB * kb
+    per_sm = blocks / SMS
+    kb = per_sm * (g * bn + r) * c * dtype.itemsize / 1024
+    return [waves * passes, waves * chunks, waves * chunks * steps, kb,
+            per_sm * chunks * steps, per_sm * r * c / 1024, per_sm * g * r * bn / 1024]
+
+
+def plan_cost(n_windows: int, c: int, dtype: torch.dtype, plan: Plan, n_tok: int = 64) -> float:
+    """The cost model's estimate of a plan (us): the terms of
+    :func:`plan_terms` times their weights."""
+    weights = (W_PASS, W_CHUNK, W_MMA, W_KB, W_SM_MMA, W_SM_LN, W_SM_OUT)
+    return sum(w * t for w, t in zip(weights, plan_terms(n_windows, c, dtype, plan, n_tok)))
 
 
 @functools.lru_cache(maxsize=64)  # every eval block asks again; the search costs ~1 ms
@@ -106,10 +116,9 @@ def ln_qkv_plan(n_windows: int, c: int, dtype: torch.dtype, n_tok: int = 64) -> 
 
     A plan takes R in ROWS dividing the window volume, BK in K_CHUNKS
     dividing C, BN a multiple of 16 dividing 3C with ``R * BN / 512`` in
-    WARP_TILES, G dividing 3C / BN, and fits a block's shared memory.  Of
-    the plans that let two blocks share an SM (all plans where none does),
-    the one :func:`plan_cost` rates cheapest, then the larger R and BK.
-    Raises ValueError where no plan exists."""
+    WARP_TILES, G dividing 3C / BN, and fits a block's shared memory; of
+    those, the one :func:`plan_cost` rates cheapest, then the larger R and
+    BK.  Raises ValueError where no plan exists."""
     plans = [Plan(r, bn, bk, g) for r in ROWS if n_tok % r == 0
              for bk in K_CHUNKS if c % bk == 0
              for bn in range(16, 3 * c + 1, 16)
@@ -118,7 +127,6 @@ def ln_qkv_plan(n_windows: int, c: int, dtype: torch.dtype, n_tok: int = 64) -> 
     plans = [p for p in plans if plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM]
     if not plans:
         raise ValueError(f"K5 has no plan for C={c}, {n_tok} tokens a window in {dtype}")
-    plans = [p for p in plans if plan_resident(c, p, dtype) >= 2] or plans
     return min(plans, key=lambda p: (plan_cost(n_windows, c, dtype, p, n_tok),
                                      -p.rows, -p.k_chunk))
 

@@ -11,8 +11,8 @@ For each of the four eval stages of the bench shape (as
 the planner's pick, the cost model's cheapest others and an even sample of
 the rest, each through the C entry point with ``chip_smoke.time_one`` and
 each checked with ``chip_smoke.close_enough`` against the plain twin.  Then
-it fits the weights of ``ops.fused_ln_qkv.plan_cost`` (W_PASS, W_CHUNK,
-W_MMA, W_TILE, W_KB) by non-negative least squares on the relative error
+it fits the weights of ``ops.fused_ln_qkv.plan_cost`` (the terms of
+``plan_terms``) by non-negative least squares on the relative error
 and prints them, with each case's pick under the fitted weights beside the
 fastest plan measured.  One JSON line per timed plan, then a ``[fit]`` line.
 """
@@ -48,17 +48,6 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels.build_all()
-
-    def features(n_win, c, dtype, plan):
-        """plan_cost's terms, so that plan_cost = features . weights."""
-        r, bn, bk, g = plan
-        rows = r // 4
-        waves = -(-k5.plan_blocks(n_win, 64, c, plan) // (k5.SMS * k5.plan_resident(c, plan, dtype)))
-        chunks = g * (c // bk)
-        steps = bk // 16 * (r * bn // 512) * (1 if dtype == torch.bfloat16 else 4)
-        kb = k5.plan_blocks(n_win, 64, c, plan) * (g * bn + r) * c * dtype.itemsize / k5.SMS / 1024
-        return [waves * -(-rows // min(rows, 8)), waves * chunks, waves * chunks * steps,
-                waves * g, kb]
 
     rows = []
     for stage, (name, size, _, c) in enumerate(cs.EVAL_STAGES):
@@ -98,7 +87,7 @@ def main(argv=None) -> dict:
                            model_us=k5.plan_cost(n_win, c, dtype, plan),
                            blocks=k5.plan_blocks(n_win, 64, c, plan),
                            resident=k5.plan_resident(c, plan, dtype),
-                           features=features(n_win, c, dtype, plan))
+                           features=k5.plan_terms(n_win, c, dtype, plan))
                 rows.append(row)
                 print(json.dumps(row), flush=True)
 
@@ -110,16 +99,15 @@ def main(argv=None) -> dict:
     for stage in range(len(cs.EVAL_STAGES)):
         for dtype in ("bfloat16", "float32"):
             case = [i for i, r in enumerate(rows) if r["stage"] == stage and r["dtype"] == dtype]
-            idx = [i for i in case if rows[i]["resident"] >= 2] or case  # as the planner
-            best = min(idx, key=lambda i: y[i])
-            pick = min(idx, key=lambda i: fitted[i])
-            picked = next(i for i in idx if rows[i]["picked"])
+            best = min(case, key=lambda i: y[i])
+            pick = min(case, key=lambda i: fitted[i])
+            picked = next(i for i in case if rows[i]["picked"])
             cases.append(dict(stage=stage, dtype=dtype, fastest=rows[best]["plan"],
                               fastest_ms=rows[best]["ms"], planner=rows[picked]["plan"],
                               planner_ms=rows[picked]["ms"], refit_pick=rows[pick]["plan"]))
     fit = dict(device=torch.cuda.get_device_name(0),
-               weights=dict(zip(("W_PASS", "W_CHUNK", "W_MMA", "W_TILE", "W_KB"),
-                                [round(float(w), 4) for w in weights])),
+               weights=dict(zip(("W_PASS", "W_CHUNK", "W_MMA", "W_KB", "W_SM_MMA", "W_SM_LN",
+                                 "W_SM_OUT"), [round(float(w), 5) for w in weights])),
                median_rel_err=float(np.median(np.abs(fitted - y) / y)), cases=cases,
                all_ok=all(r["ok"] for r in rows))
     print("[fit]", json.dumps(fit), flush=True)

@@ -4,10 +4,10 @@ The kernel (``csrc/fused_ln_qkv.cu``) runs only on the card; what can be
 checked here is its grid and its numerics:
 
 - the planner (``ln_qkv_plan``) covers every (window, token, output column)
-  exactly once, fits a block's shared memory and keeps two blocks an SM
-  (f32 at C = 1536 excepted, where no plan can), at the Swin-S eval stages,
-  at two scenes a batch, with fewer windows than SMs and at C from 16 to
-  1536, and it takes the plan its cost model rates cheapest;
+  exactly once and fits a block's shared memory, at the Swin-S eval
+  stages, at two scenes a batch, with fewer windows than SMs and at C from
+  16 to 1536; it takes the plan its cost model rates cheapest, and in bf16
+  at the bench stages that plan keeps two blocks an SM and every SM busy;
 - the bf16 form (LN rounded to bf16, bf16 products summed in f32 over the
   plan's weight k-chunks in order, the f32 bias, one rounding) and the f32
   form's 3xTF32 products, emulated in plain torch, stay within the
@@ -29,6 +29,13 @@ from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
     EPS,
     MAX_BLOCK_SMEM,
     SMS,
+    W_CHUNK,
+    W_KB,
+    W_MMA,
+    W_PASS,
+    W_SM_LN,
+    W_SM_MMA,
+    W_SM_OUT,
     WARP_TILES,
     Plan,
     ln_partition_qkv,
@@ -38,6 +45,7 @@ from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
     plan_cost,
     plan_resident,
     plan_smem_bytes,
+    plan_terms,
 )
 
 WINDOW = (4, 4, 4)
@@ -70,10 +78,7 @@ def test_plan_covers_the_output_once_within_budget(w, c, dtype):
     assert bn % 16 == 0 and 3 * c % bn == 0 and bk in (16, 32, 64) and c % bk == 0
     assert r * bn % 512 == 0 and r * bn // 512 in WARP_TILES and 3 * c // bn % g == 0
     assert plan_smem_bytes(c, plan, dtype) <= MAX_BLOCK_SMEM
-    if dtype == torch.float32 and c == 1536:  # the A tile alone takes 96 KB
-        assert plan_resident(c, plan, dtype) == 1
-    else:
-        assert plan_resident(c, plan, dtype) >= 2
+    assert plan_resident(c, plan, dtype) >= 1
     blocks = plan_blocks(w, 64, c, plan)
     seen = np.zeros((w, 64, 3 * c), np.uint8)
     for blk in range(blocks):
@@ -89,8 +94,8 @@ def test_plan_covers_the_output_once_within_budget(w, c, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w,c", BENCH)
 def test_plan_is_the_cheapest_the_model_knows(w, c, dtype):
-    """Every plan the kernel takes costs at least as much in the model, and
-    at the bench stages the grid keeps every SM busy."""
+    """Every plan the kernel takes costs at least as much in the model; in
+    bf16 the pick keeps two blocks an SM and every SM busy."""
     plan = ln_qkv_plan(w, c, dtype)
     best = plan_cost(w, c, dtype, plan)
     for r in (64, 32, 16):
@@ -100,10 +105,10 @@ def test_plan_is_the_cheapest_the_model_knows(w, c, dtype):
                     continue
                 for g in range(1, 3 * c // bn + 1):
                     p = Plan(r, bn, bk, g)
-                    if (3 * c // bn % g == 0 and plan_resident(c, p, dtype) >= 2
-                            and plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM):
+                    if 3 * c // bn % g == 0 and plan_smem_bytes(c, p, dtype) <= MAX_BLOCK_SMEM:
                         assert plan_cost(w, c, dtype, p) >= best
-    assert plan_blocks(w, 64, c, plan) >= SMS
+    if dtype == torch.bfloat16:
+        assert plan_resident(c, plan, dtype) >= 2 and plan_blocks(w, 64, c, plan) >= SMS
 
 
 def test_plan_at_the_bench_stages():
@@ -111,10 +116,19 @@ def test_plan_at_the_bench_stages():
     (1521 blocks, one LayerNorm a window); at stage 2, 64 tokens and three
     tiles of 96 in 64-deep weight chunks (192 blocks, two an SM)."""
     got = [ln_qkv_plan(w, c, torch.bfloat16) for w, c in BENCH]
-    assert got == [Plan(64, 96, 32, 3), Plan(64, 96, 32, 3), Plan(64, 96, 64, 3),
-                   Plan(32, 192, 32, 1)]
+    assert got == [Plan(64, 96, 32, 3), Plan(64, 48, 64, 6), Plan(64, 96, 64, 3),
+                   Plan(32, 96, 64, 2)]
     assert plan_smem_bytes(96, got[0], torch.bfloat16) == (64 * 104 + 4 * 96 * 40) * 2
     assert plan_resident(384, got[2], torch.bfloat16) == 2
+
+
+def test_plan_terms_and_weights_make_the_cost():
+    plan = ln_qkv_plan(48, 384, torch.float32)
+    terms = plan_terms(48, 384, torch.float32, plan)
+    assert len(terms) == 7 and all(t >= 0 for t in terms)
+    assert plan_cost(48, 384, torch.float32, plan) == pytest.approx(
+        sum(w * t for w, t in zip((W_PASS, W_CHUNK, W_MMA, W_KB, W_SM_MMA, W_SM_LN, W_SM_OUT),
+                                  terms)))
 
 
 def test_plan_with_few_windows():

@@ -312,11 +312,11 @@ def _linear_weight_view(c, dtype, device, seed=9):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,size,c,shift", [
     (1, (8, 8, 8), 16, (0, 0, 0)),       # C = 16: 3C = 48, BK = 16, 8 windows
-    (1, (4, 4, 8), 1536, (0, 0, 0)),     # C = 1536: R = 16, one block an SM in f32
+    (1, (4, 4, 8), 1536, (0, 0, 0)),     # C = 1536: R < 64, one block an SM
     (2, (9, 8, 11), 96, (2, 2, 2)),      # B = 2, pad and shift, 3C = 288
     (2, (9, 8, 11), 192, (2, 0, 2)),     # 3C = 576
     (1, (7, 7, 5), 768, (2, 2, 2)),      # stage 3: 8 windows
-    (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, R = 16, G = 3
+    (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, G = 3 (bf16), 9 (f32)
 ])
 def test_ln_partition_qkv_kernel_at_the_planner_edges(cuda, b, size, c, shift, dtype):
     x = torch.randn((b, *size, c), generator=torch.Generator(cuda).manual_seed(10),
