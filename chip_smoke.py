@@ -12,7 +12,7 @@ nonzero before the result lines:
 1. require CUDA, print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed), with
    ``nvcc -Xptxas -v``'s registers, static shared memory and spills of the
-   K1/K4, K2 and K5 kernels printed beside the build;
+   K1/K4, K2, K5 and K6 kernels printed beside the build;
 3. kernel K1 (window attention) against its plain twin at the shapes the
    main path runs it -- the four stages of the Swin-S eval bench shape
    without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
@@ -34,9 +34,10 @@ nonzero before the result lines:
    block) against their twins at the four stages of the Swin-S eval bench
    shape (208x208x144: tokens 52x52x36, 26x26x18, 13x13x9, 7x7x5, the last
    three padded, every shift on), f32 and bf16, with times (K4 with its
-   head group G; K5, given its weight as the model gives it,
-   ``Linear.weight.t()``, with its plan: R tokens and G tiles of BN
-   columns a block, weight k-chunk BK, blocks);
+   head group G; K5 and K6, given their weights as the model gives them,
+   ``Linear.weight.t()``, with their plans and blocks: K5 R tokens and G
+   tiles of BN columns a block, weight k-chunk BK; K6 R tokens and a
+   hidden slice of Hd / S a block, column tile BN, weight k-chunk BK);
 7. a small slice (swin_t, 64^3, f32) on the GPU against the same weights
    on the CPU (plain twins): head outputs, and proposals from the same
    head outputs;
@@ -520,8 +521,14 @@ def check_ln_partition_qkv(torch, dev):
 
 
 def check_fused_mlp(torch, dev):
-    """K6 against its twin on the tokens of the four eval stages."""
-    from nerf_rpn_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_reference
+    """K6 against its twin on the tokens of the four eval stages, the
+    weights as the model passes them (``Linear.weight.t()``)."""
+    from nerf_rpn_tpu_torch.ops.fused_mlp import (
+        fused_mlp_block,
+        fused_mlp_block_reference,
+        mlp_plan,
+        plan_blocks,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -532,9 +539,9 @@ def check_fused_mlp(torch, dev):
             x = torch.randn((tokens, c), generator=gen, device=dev).to(dtype)
             args = (x, 1 + 0.2 * torch.randn(c, generator=gen, device=dev),
                     0.2 * torch.randn(c, generator=gen, device=dev),
-                    (torch.randn((c, hd), generator=gen, device=dev) * c ** -0.5).to(dtype),
+                    (torch.randn((hd, c), generator=gen, device=dev) * c ** -0.5).to(dtype).t(),
                     (0.3 * torch.randn(hd, generator=gen, device=dev)).to(dtype),
-                    (torch.randn((hd, c), generator=gen, device=dev) * hd ** -0.5).to(dtype),
+                    (torch.randn((c, hd), generator=gen, device=dev) * hd ** -0.5).to(dtype).t(),
                     (0.3 * torch.randn(c, generator=gen, device=dev)).to(dtype))
             out = fused_mlp_block(*args)
             ref = fused_mlp_block_reference(*args)
@@ -543,7 +550,10 @@ def check_fused_mlp(torch, dev):
                 fail(f"K6 {name} {dtype}: max|err| {err} outside the tolerance")
             ms, plain_ms = time_pair(torch, lambda: fused_mlp_block_reference(*args),
                                      lambda: fused_mlp_block(*args))
-            row = dict(stage=name, T=tokens, C=c, dtype=dtype_name(dtype), max_abs_err=err,
+            plan = mlp_plan(tokens, c, hd, dtype)
+            row = dict(stage=name, T=tokens, C=c, dtype=dtype_name(dtype),
+                       plan=dict(zip(("R", "S", "BN", "BK"), plan)),
+                       blocks=plan_blocks(tokens, plan), max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, library_ms=None,
                        **bound(nbytes(*args, out), 4 * tokens * c * hd, dtype_name(dtype)))
             rows.append(row)
@@ -912,7 +922,8 @@ def main() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as cubins:
         reports = [(lib, start_ptxas_report(kernels, lib, cubins))
-                   for lib in ("window_attention", "window_attention_bwd", "fused_ln_qkv")]
+                   for lib in ("window_attention", "window_attention_bwd", "fused_ln_qkv",
+                               "fused_mlp")]
         build_s = kernels.build_all()
         for lib, proc in reports:
             print_ptxas_report(proc, lib)

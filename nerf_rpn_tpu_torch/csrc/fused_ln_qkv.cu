@@ -47,27 +47,19 @@
 // - Epilogue: bias in f32, one rounding, stored from the accumulator
 //   fragments so that each row's four lanes fill whole 32-byte sectors
 //   (bf16 lanes swap halves with their neighbour first).
+// The row copies, the LayerNorm (two-pass form here), the chunk products
+// and the fragment stores are gemm_sm90.cuh's, shared with K6.
 
 #include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRing = 4;         // weight k-chunk buffers
 constexpr int kMaxC = 1536;      // widest LayerNorm (Swin-L's last stage)
-constexpr int kMaxSmem = 232448;
 constexpr float kEps = 1e-5f;
 
 struct Geometry {
   int SX, SY, SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz;
 };
-
-// row pad of every shared tile: 16 bytes (see gemm_sm90.cuh)
-template <typename T>
-__host__ __device__ constexpr int pad_elems() {
-  return 16 / static_cast<int>(sizeof(T));
-}
 
 template <typename T>
 size_t smem_bytes(int C, int R, int BN, int BK) {
@@ -75,31 +67,6 @@ size_t smem_bytes(int C, int R, int BN, int BK) {
   return (static_cast<size_t>(R) * (C + kPad) +
           static_cast<size_t>(kRing) * BN * (BK + kPad)) *
          sizeof(T);
-}
-
-// a 16-byte vector as f32 values, and back (bf16: round to nearest even)
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = unpack_bf16(w[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                    __float_as_uint(f[2]), __float_as_uint(f[3]));
 }
 
 // element offset in x of window `win`'s token p, or -1 for a pad voxel
@@ -117,169 +84,6 @@ __device__ __forceinline__ long long token_source(const Geometry& g, int win,
   if (X >= g.SX || Y >= g.SY || Z >= g.SZ) return -1;
   return (((static_cast<long long>(b) * g.SX + X) * g.SY + Y) * g.SZ + Z) *
          g.C;
-}
-
-// The rows of one warp (R / 4 of the block's tokens) in the LayerNorm's
-// lane map: up to 8 rows a pass, each row's 16-byte vectors spread over a
-// group of 32 / (rows a pass) lanes, so that a pass has several rows' loads
-// and short reductions in flight.
-struct RowMap {
-  int lanes, slot, gl, per_pass, rows, first;
-  __device__ RowMap(int R, int warp, int lane) {
-    rows = R / kWarps;
-    per_pass = rows < 8 ? rows : 8;
-    lanes = 32 / per_pass;
-    slot = lane / lanes;
-    gl = lane % lanes;
-    first = warp * rows;
-  }
-};
-
-// each warp copies its own x rows into the A tile (zero-volume pad rows
-// are skipped); src is this lane's row's offset for lanes < rows
-template <typename T>
-__device__ __forceinline__ void copy_rows_async(T* a, int lda,
-                                                const T* __restrict__ x,
-                                                const RowMap& m, int nv,
-                                                long long src) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  for (int r0 = 0; r0 < m.rows; r0 += m.per_pass) {
-    const int r = r0 + m.slot;
-    const long long s = __shfl_sync(0xffffffffu, src, r & 31);
-    if (r < m.rows && s >= 0)
-      for (int v = m.gl; v < nv; v += m.lanes)
-        cp_async16(a + (m.first + r) * lda + v * kVec, x + s + v * kVec);
-  }
-}
-
-// the sum of a 16-byte vector's values, as a pairwise tree
-template <int N>
-__device__ __forceinline__ float tree_sum(const float (&f)[N]) {
-  float h[N / 2];
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) h[e] = f[2 * e] + f[2 * e + 1];
-  if constexpr (N / 2 == 1) {
-    return h[0];
-  } else {
-    return tree_sum<N / 2>(h);
-  }
-}
-
-// LayerNorm of the warp's rows in place in the A tile: the mean, then the
-// variance about it (f32, as the twin), then (x - mean) * rstd * scale +
-// bias in f32, rounded once to T; a pad row becomes zeros
-template <typename T>
-__device__ __forceinline__ void layer_norm_rows(
-    T* a, int lda, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, const RowMap& m, int C, int nv,
-    long long src) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  for (int r0 = 0; r0 < m.rows; r0 += m.per_pass) {
-    const int r = r0 + m.slot;
-    const long long s = __shfl_sync(0xffffffffu, src, r & 31);
-    const bool live = r < m.rows && s >= 0;
-    T* arow = a + (m.first + r) * lda;
-    float sum = 0.f;
-    if (live) {
-#pragma unroll 4
-      for (int v = m.gl; v < nv; v += m.lanes) {
-        float f[kVec];
-        unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
-        sum += tree_sum(f);
-      }
-    }
-    for (int o = m.lanes / 2; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / C;
-    float sq = 0.f;
-    if (live) {
-#pragma unroll 4
-      for (int v = m.gl; v < nv; v += m.lanes) {
-        float f[kVec];
-        unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const float d = f[e] - mean;
-          f[e] = d * d;
-        }
-        sq += tree_sum(f);
-      }
-    }
-    for (int o = m.lanes / 2; o > 0; o >>= 1)
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float rstd = 1.f / sqrtf(sq / C + kEps);
-    if (r < m.rows) {
-#pragma unroll 2
-      for (int v = m.gl; v < nv; v += m.lanes) {
-        float f[kVec];
-        if (live) {
-          unpack(*reinterpret_cast<const uint4*>(arow + v * kVec), f);
-          const float4* sc = reinterpret_cast<const float4*>(ln_scale + v * kVec);
-          const float4* bi = reinterpret_cast<const float4*>(ln_bias + v * kVec);
-#pragma unroll
-          for (int q = 0; q < kVec / 4; ++q) {
-            const float4 s4 = __ldg(sc + q), b4 = __ldg(bi + q);
-            f[4 * q] = (f[4 * q] - mean) * rstd * s4.x + b4.x;
-            f[4 * q + 1] = (f[4 * q + 1] - mean) * rstd * s4.y + b4.y;
-            f[4 * q + 2] = (f[4 * q + 2] - mean) * rstd * s4.z + b4.z;
-            f[4 * q + 3] = (f[4 * q + 3] - mean) * rstd * s4.w + b4.w;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) f[e] = 0.f;
-        }
-        *reinterpret_cast<uint4*>(arow + v * kVec) = pack(f);
-      }
-    }
-  }
-}
-
-// One warp's 16 x 8 NT output tile plus the bias, rounded once, stored from
-// the accumulator fragments: f32 as 8-byte pairs (a row's 4 lanes fill 32
-// bytes); bf16 as 8-byte quads after a swap with the neighbouring lane, so
-// that a row's 4 lanes fill the 32 bytes of two adjacent n8 tiles
-__device__ __forceinline__ void store_tile(float* dst, long long ld,
-                                           const float (&acc)[4], float2 b,
-                                           int nt, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float* p = dst + g * ld + nt * 8 + 2 * t;
-  *reinterpret_cast<float2*>(p) = make_float2(acc[0] + b.x, acc[1] + b.y);
-  *reinterpret_cast<float2*>(p + 8 * ld) = make_float2(acc[2] + b.x, acc[3] + b.y);
-}
-template <int NT>
-__device__ __forceinline__ void store_warp_tile(float* dst, long long ld,
-                                                const float (&acc)[NT][4],
-                                                const float* __restrict__ bias,
-                                                int lane) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + nt * 8 + 2 * (lane & 3)));
-    store_tile(dst, ld, acc[nt], b, nt, lane);
-  }
-}
-template <int NT>
-__device__ __forceinline__ void store_warp_tile(__nv_bfloat16* dst, long long ld,
-                                                const float (&acc)[NT][4],
-                                                const float* __restrict__ bias,
-                                                int lane) {
-  const int g = lane >> 2, t = lane & 3, odd = t & 1;
-#pragma unroll
-  for (int p = 0; p < NT / 2; ++p) {
-    const float2 b0 = __ldg(reinterpret_cast<const float2*>(bias + p * 16 + 2 * t));
-    const float2 b1 = __ldg(reinterpret_cast<const float2*>(bias + p * 16 + 8 + 2 * t));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows g, g + 8
-      const uint32_t u0 = pack_bf16(acc[2 * p][2 * h] + b0.x, acc[2 * p][2 * h + 1] + b0.y);
-      const uint32_t u1 =
-          pack_bf16(acc[2 * p + 1][2 * h] + b1.x, acc[2 * p + 1][2 * h + 1] + b1.y);
-      const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? u0 : u1, 1);
-      // even t: tile 2p columns 2t .. 2t + 3; odd t: tile 2p + 1 columns
-      // 2t - 2 .. 2t + 1
-      const uint2 q = odd ? make_uint2(got, u1) : make_uint2(u0, got);
-      const int col = odd ? p * 16 + 8 + 2 * t - 2 : p * 16 + 2 * t;
-      *reinterpret_cast<uint2*>(dst + (g + 8 * h) * ld + col) = q;
-    }
-  }
 }
 
 // Block b: column group b % n_grp (G tiles of BN columns from
@@ -335,7 +139,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   cp_async_wait<kRing - 1>();
   __syncwarp();
-  layer_norm_rows(a, lda, ln_scale, ln_bias, rows, C, nv, src);
+  layer_norm_rows<Variance::kTwoPass>(a, lda, ln_scale, ln_bias, rows, C, nv,
+                                      src, kEps);
 
   const int wm = R / 16;
   const int wr = (warp % wm) * 16, wc = (warp / wm) * 8 * NT;
@@ -361,8 +166,12 @@ __global__ void __launch_bounds__(kThreads, 4)
                        ring + (q % kRing) * BN * ldb + wc * ldb, ldb, BK,
                        lane);
     if (++kc == nk) {
-      store_warp_tile<NT>(dst + j * BN, N3, acc, bias + n_base + j * BN + wc,
-                          lane);
+      const float* bj = bias + n_base + j * BN + wc;
+      store_warp_tile<NT>(dst + j * BN, N3, acc, lane, 16,
+                          [bj](float2 v, int, int c) {
+                            const float2 b = load_pair(bj + c);
+                            return make_float2(v.x + b.x, v.y + b.y);
+                          });
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll

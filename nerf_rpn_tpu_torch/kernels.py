@@ -76,9 +76,10 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, *[_I] * 19, _P]),
     "fused_mlp_block": (
         "fused_mlp",
-        # x, ln_scale, ln_bias, w1, b1, w2, b2, out, part|NULL, T, C, Hd,
-        # splits, dtype_code, eps, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+        # x, ln_scale, ln_bias, w1 (Hd, C), b1, w2 (C, Hd), b2, out,
+        # part|NULL, T, C, Hd, plan rows / splits / cols / k_chunk,
+        # dtype_code, eps, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 8, _F, _P]),
 }
 
 

@@ -9,13 +9,15 @@ builds its kernels, and times K5 (``ln_partition_qkv``: LayerNorm + pad +
 shift + partition + qkv) and K6 (``fused_mlp_block``) at the four stages of
 the Swin-S eval bench shape (208x208x144: token grids 52x52x36, 26x26x18,
 13x13x9, 7x7x5; K5 pads them to the window and shifts by 2, as a shifted
-block does), in bf16 and f32.  K5's qkv weight is passed as the model passes
-it, ``Linear.weight.t()`` in the compute dtype.  Each row is the device ms
+block does), in bf16 and f32.  K5's qkv weight and K6's two weights are
+passed as the model passes them, ``Linear.weight.t()`` in the compute dtype
+(a tree whose wrapper copies them pays for the copy, as on the model's path).  Each row is the device ms
 per call of ``chip_smoke.time_one`` (back-to-back calls queued behind a
 sleep kernel) for the kernel and for the tree's plain twin, the bound of
 ``chip_smoke.bound``, whether the output holds ``chip_smoke.close_enough``
-against the twin, and, where the tree has a K5 planner, the plan (R tokens
-and BN columns a block, weight k-chunk BK, blocks).  The last line sums the
+against the twin, and, where the tree has a K5 or K6 planner, the plan (K5:
+R tokens, BN columns, weight k-chunk BK and G tiles a block; K6: R tokens,
+S hidden slices, BN and BK) and its blocks.  The last line sums the
 bf16 and f32 rows into ms per eval scene at Swin-S's 2, 2, 18 and 2
 launches per stage.
 
@@ -74,9 +76,11 @@ def main(argv=None) -> dict:
             k5_args = (x, s, t, wq, b, (4, 4, 4), pad, (2, 2, 2))
             xm = x.reshape(tokens, c)
             k6_args = (xm, s, t,
-                       (torch.randn((c, hd), generator=gen, device=dev) * c ** -0.5).to(dtype),
+                       (torch.randn((hd, c), generator=gen, device=dev) * c ** -0.5)
+                       .to(dtype).t(),
                        (0.3 * torch.randn(hd, generator=gen, device=dev)).to(dtype),
-                       (torch.randn((hd, c), generator=gen, device=dev) * hd ** -0.5).to(dtype),
+                       (torch.randn((c, hd), generator=gen, device=dev) * hd ** -0.5)
+                       .to(dtype).t(),
                        (0.3 * torch.randn(c, generator=gen, device=dev)).to(dtype))
             for kern, fn, twin, a in (
                     ("K5", k5.ln_partition_qkv, k5.ln_partition_qkv_reference, k5_args),
@@ -99,6 +103,9 @@ def main(argv=None) -> dict:
                     n_win = out.shape[0]
                     plan = k5.ln_qkv_plan(n_win, c, dtype)
                     row.update(plan=list(plan), blocks=k5.plan_blocks(n_win, 64, c, plan))
+                if kern == "K6" and hasattr(k6, "mlp_plan"):
+                    plan = k6.mlp_plan(tokens, c, hd, dtype)
+                    row.update(plan=list(plan), blocks=k6.plan_blocks(tokens, plan))
                 rows.append(row)
                 print("[time]", json.dumps(row), flush=True)
 

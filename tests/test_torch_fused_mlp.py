@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from nerf_rpn_tpu.ops.fused_mlp import fused_mlp_block as jax_mlp
-from nerf_rpn_tpu_torch.ops.fused_mlp import _erf_as7126, fused_mlp_block, hidden_splits
+from nerf_rpn_tpu_torch.ops.fused_mlp import _erf_as7126, fused_mlp_block
 
 
 def bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -69,12 +69,3 @@ def test_bad_shapes_raise():
         fused_mlp_block(args[0][None], *args[1:])
     with pytest.raises(ValueError):
         fused_mlp_block(*args[:3], args[3][:, :32], *args[4:])
-
-
-@pytest.mark.parametrize("tokens,c,want", [(97344, 96, 1), (12168, 192, 1), (1521, 384, 6),
-                                           (245, 768, 24), (40, 1536, 48)])
-def test_hidden_splits_fill_the_card_and_divide_the_width(tokens, c, want):
-    """The Swin-S bench stages on 132 SMs: the late stages split the hidden
-    width; every split is a whole number of 64-wide chunks."""
-    got = hidden_splits(tokens, c, 4 * c, 132)
-    assert got == want and (4 * c // 64) % got == 0

@@ -16,7 +16,12 @@ import torch
 from nerf_rpn_tpu_torch import kernels
 from nerf_rpn_tpu_torch.models.swin import shift_attn_mask, shift_mask_patterns
 from nerf_rpn_tpu_torch.ops.fused_ln_qkv import ln_partition_qkv, ln_partition_qkv_reference
-from nerf_rpn_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_block_reference
+from nerf_rpn_tpu_torch.ops.fused_mlp import (
+    Plan,
+    fused_mlp_block,
+    fused_mlp_block_reference,
+    mlp_plan,
+)
 from nerf_rpn_tpu_torch.ops.nms_graph import (
     aabb_suppression_graph,
     aabb_suppression_graph_reference,
@@ -375,16 +380,18 @@ def test_ln_partition_qkv_entry_rejects_plans_it_does_not_take(cuda):
                          torch.zeros(3 * 1552, device=cuda), (4, 4, 4))
 
 
-def _mlp_inputs(t, c, dtype, device, seed=8):
+def _mlp_inputs(t, c, dtype, device, seed=8, hd=None):
+    """K6's arguments, the weights as the model passes them:
+    ``Linear.weight.t()`` views in the compute dtype."""
     gen = torch.Generator(device).manual_seed(seed)
-    hd = 4 * c
+    hd = hd or 4 * c
     x = torch.randn((t, c), generator=gen, device=device).to(dtype)
     return (x, 1 + 0.2 * torch.randn(c, generator=gen, device=device),
             0.2 * torch.randn(c, generator=gen, device=device),
-            torch.randn((c, hd), generator=gen, device=device) * c ** -0.5,
-            0.3 * torch.randn(hd, generator=gen, device=device),
-            torch.randn((hd, c), generator=gen, device=device) * hd ** -0.5,
-            0.3 * torch.randn(c, generator=gen, device=device))
+            (torch.randn((hd, c), generator=gen, device=device) * c ** -0.5).to(dtype).t(),
+            (0.3 * torch.randn(hd, generator=gen, device=device)).to(dtype),
+            (torch.randn((c, hd), generator=gen, device=device) * hd ** -0.5).to(dtype).t(),
+            (0.3 * torch.randn(c, generator=gen, device=device)).to(dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -397,6 +404,92 @@ def test_fused_mlp_kernel_matches_twin(cuda, t, c, dtype):
     torch.cuda.synchronize()
     assert kernels.counts()["fused_mlp_block"] == before + 1
     check_close(out, fused_mlp_block_reference(*args), dtype)
+
+
+# the K6 grid runs one block per (R token rows, hidden slice); the cases
+# reach the planner's edges (ops.fused_mlp.mlp_plan): T not a multiple of
+# R, one token, S > 1 at each Swin width, Hd = 2C and Hd = 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,c,hd", [
+    (77, 96, 384), (1, 96, 384), (40, 96, 384), (40, 192, 768), (40, 384, 1536),
+    (40, 768, 3072), (40, 1536, 6144), (300, 96, 192), (300, 192, 64),
+    (12168, 192, 768), (1521, 384, 1536)])
+def test_fused_mlp_kernel_at_the_planner_edges(cuda, t, c, hd, dtype):
+    args = _mlp_inputs(t, c, dtype, cuda, seed=t + c, hd=hd)
+    out = fused_mlp_block(*args)
+    torch.cuda.synchronize()
+    check_close(out, fused_mlp_block_reference(*args), dtype)
+
+
+def _launch_mlp(args, plan):
+    """K6's C entry under a given plan, with the wrapper's arguments."""
+    x, s, sb, w1, b1, w2, b2 = args
+    t, c = x.shape
+    hd = w1.shape[1]
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    out = torch.empty_like(x)
+    part = torch.empty((max(plan[1], 1), t, c), dtype=torch.float32, device=x.device)
+    kernels.launch("fused_mlp_block", x.data_ptr(), s.data_ptr(), sb.data_ptr(),
+                   w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                   out.data_ptr(), part.data_ptr(), t, c, hd, *plan,
+                   kernels.DTYPE_CODES[x.dtype], 1e-5,
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hd,plan", [(96, 576, Plan(64, 1, 16, 16)),
+                                       (96, 576, Plan(64, 2, 32, 32)),
+                                       (96, 576, Plan(64, 3, 48, 32)),
+                                       (192, 768, Plan(64, 4, 64, 64)),
+                                       (96, 576, Plan(64, 2, 96, 32)),
+                                       (192, 768, Plan(16, 6, 64, 64))])
+def test_fused_mlp_entry_under_each_warp_tile(cuda, c, hd, plan, dtype):
+    """Plans the planner may not pick, reaching each n8 tile count a warp
+    holds (R * BN / 512 = 2, 4, 6, 8, 12)."""
+    args = _mlp_inputs(150, c, dtype, cuda, seed=3, hd=hd)
+    out = _launch_mlp(args, plan)
+    torch.cuda.synchronize()
+    check_close(out, fused_mlp_block_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_weight_views_match_contiguous(cuda, dtype):
+    args = _mlp_inputs(333, 192, dtype, cuda, seed=4)
+    assert not args[3].is_contiguous() and not args[5].is_contiguous()
+    got = fused_mlp_block(*args)
+    want = fused_mlp_block(*args[:3], args[3].contiguous(), args[4], args[5].contiguous(),
+                           args[6])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_split_sums_are_bit_identical_between_runs(cuda, dtype):
+    args = _mlp_inputs(1521, 384, dtype, cuda, seed=6)
+    assert mlp_plan(1521, 384, 1536, dtype).splits > 1
+    first = fused_mlp_block(*args)
+    assert torch.equal(first, fused_mlp_block(*args))
+
+
+def test_fused_mlp_rejects_unaligned_pointers_and_plans_it_does_not_take(cuda):
+    args = _mlp_inputs(40, 96, torch.bfloat16, cuda, seed=7)
+    flat = torch.empty(40 * 96 + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(40, 96)
+    shifted.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_mlp_block(shifted, *args[1:])
+    _launch_mlp(args, Plan(32, 4, 32, 32))  # a plan it takes
+    torch.cuda.synchronize()
+    for plan in [(48, 1, 32, 32),   # R not in {16, 32, 64}
+                 (32, 5, 32, 32),   # S does not divide Hd = 384
+                 (32, 1, 40, 32),   # BN not a multiple of 16
+                 (32, 1, 80, 16),   # 5 n8 tiles a warp: not built; BN does not divide C
+                 (32, 8, 32, 64),   # BK does not divide C = 96
+                 (32, 1, 32, 48),   # BK not in {16, 32, 64}
+                 (16, 1, 16, 16),   # R * BN not a multiple of 512
+                 (32, 0, 32, 32)]:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _launch_mlp(args, plan)
 
 
 def test_eval_kernels_reject_bad_shapes(cuda):
