@@ -9,7 +9,7 @@
 //   square root, affine in f32, rounded to the type;
 //   h = round(round(LN(x) . w1) + b1) (f32 accumulation, b1 in the type);
 //   GELU in f32 from that h, h * 0.5 * (1 + erf(h / sqrt 2)) with the
-//   A&S 7.1.26 erf of _erf_f32, rounded;
+//   A&S 7.1.26 erf of _erf_f32 (fast f32 forms, gelu_hidden), rounded;
 //   o = round(round(h . w2) + b2), out = round(x + o).
 //
 // What bounds it on the H100: 4 T C Hd operations against T C bytes in and
@@ -54,24 +54,25 @@ namespace {
 constexpr int kMaxC = 1536;         // widest LayerNorm (Swin-L's last stage)
 constexpr int kReduceThreads = 256;
 
-// erf by Abramowitz & Stegun 7.1.26, as _erf_f32 of the JAX kernel
-__device__ __forceinline__ float erf_as7126(float v) {
-  const float a = fabsf(v);
-  const float t = 1.f / (1.f + 0.3275911f * a);
+// the hidden value from fc1's f32 sum: h = round(round(acc) + b1), then
+// GELU in f32 with the A&S 7.1.26 erf of the JAX kernel's _erf_f32
+// (rounded to T where it is stored).  The GELU is most of the work at
+// stage 0 (37M values), so its arithmetic takes the fast forms, each
+// within a few f32 ulps of the JAX kernel's: h * (1 / sqrt 2) for
+// h / sqrt(2), an approximate reciprocal, exp(-a^2) as ex2.approx, and the
+// sign by copysign (erf(0) = 1.5e-9 instead of 0 is harmless: h = 0)
+template <typename T>
+__device__ __forceinline__ float gelu_hidden(float acc, float b1) {
+  const float h = round_to<T>(round_to<T>(acc) + b1);
+  const float z = h * 0.70710678f;
+  const float a = fabsf(z);
+  const float t = __fdividef(1.f, 1.f + 0.3275911f * a);
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f +
                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float sign = v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-  return sign * (1.f - poly * expf(-a * a));
-}
-
-// the hidden value from fc1's f32 sum: h = round(round(acc) + b1), then
-// GELU in f32 (rounded to T where it is stored)
-template <typename T>
-__device__ __forceinline__ float gelu_hidden(float acc, float b1, float sqrt2) {
-  const float h = round_to<T>(round_to<T>(acc) + b1);
-  return h * 0.5f * (1.f + erf_as7126(h / sqrt2));
+  const float erf = copysignf(1.f - poly * exp2f(-a * a * 1.44269504f), z);
+  return h * 0.5f * (1.f + erf);
 }
 
 // the output from fc2's f32 sum: o = round(round(acc) + b2), x + o (rounded
@@ -155,7 +156,6 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int wr = (warp % wm) * 16, wc = (warp / wm) * 8 * NT;
   const long long left = n_tokens - (row0 + wr);
   const int rows_left = left < 16 ? static_cast<int>(left) : 16;
-  const float sqrt2 = sqrtf(2.f);  // the JAX kernel divides by jnp.sqrt(2.0)
   float acc[NT][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -182,10 +182,10 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (fc1) {
       const T* bj = b1 + h0 + col;
       store_warp_tile<NT>(hid + wr * ldh + col, ldh, acc, lane, 16,
-                          [bj, sqrt2](float2 v, int, int c) {
+                          [bj](float2 v, int, int c) {
                             const float2 b = load_pair(bj + c);
-                            return make_float2(gelu_hidden<T>(v.x, b.x, sqrt2),
-                                               gelu_hidden<T>(v.y, b.y, sqrt2));
+                            return make_float2(gelu_hidden<T>(v.x, b.x),
+                                               gelu_hidden<T>(v.y, b.y));
                           });
       if (++j == nt1) j = 0;
     } else if (S > 1) {
