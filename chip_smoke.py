@@ -12,7 +12,7 @@ nonzero before the result lines:
 1. require CUDA, print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``nerf_rpn_tpu_torch/csrc`` (timed), with
    ``nvcc -Xptxas -v``'s registers, static shared memory and spills of the
-   K1/K4, K2, K5 and K6 kernels printed beside the build;
+   K1/K4, K2, K3 and resolve, K5 and K6 kernels printed beside the build;
 3. kernel K1 (window attention) against its plain twin at the shapes the
    main path runs it -- the four stages of the Swin-S eval bench shape
    without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
@@ -28,7 +28,14 @@ nonzero before the result lines:
    autograd function (K1 forward, K2 backward) against autograd through
    K1's twin;
 5. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
-   4 x 2560 boxes (dense overlaps plus zero-volume padding, IoU 0.3);
+   4 x 2560 boxes (dense overlaps plus zero-volume padding, IoU 0.3); then
+   the bench scene's NMS problem (the Swin-S bf16 eval step at 208x208x144
+   with random weights, one problem per FPN level): ``eval_step.propose``
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), K3
+   and the resolve kernel (greedy keep-set from the graph, one block per
+   problem) against their twins, the twin's sweep count, the resolve
+   kernel against the twin on a depth-2560 chain, and the times of the
+   resolve kernel and of the whole ``nms_mask`` against the sweep loop;
 6. kernels K4 (window attention with the shift-mask pattern table), K5
    (LayerNorm + pad + shift + partition + qkv) and K6 (the MLP half of a
    block) against their twins at the four stages of the Swin-S eval bench
@@ -48,7 +55,7 @@ nonzero before the result lines:
    through ``run_rpn --mode eval`` (Swin-S, bf16), then
    ``--mode benchmark``, with the launch counts read around each: K1, K3,
    K4, K5 and K6 must run, K5 and K6 once per block, K4 and K1 once per
-   shifted and unshifted block, K3 once per scene;
+   shifted and unshifted block, K3 and the resolve kernel once per scene;
 10. the train path: 4 train and 2 validation synthetic scenes at 160^3
    through ``run_rpn --mode train`` (Swin-S, bf16, batch 2, one epoch,
    validation eval, checkpoints), with every kernel's launch count read
@@ -392,18 +399,33 @@ def check_window_attention_backward(torch, dev):
     return rows, main
 
 
-def check_suppression_graph(torch, dev):
-    from nerf_rpn_tpu_torch.ops.nms_graph import (
-        aabb_suppression_graph,
-        aabb_suppression_graph_reference,
-    )
-
+def k3_boxes(torch, dev):
+    """K3's timed problem: 4 x 2560 boxes, dense overlaps, 60 zero-volume
+    padding rows each."""
     gen = torch.Generator(device=dev).manual_seed(1)
     p, n = 4, 2560
     lo = torch.rand((p, n, 3), generator=gen, device=dev) * 60.0
     size = 10.0 + torch.rand((p, n, 3), generator=gen, device=dev) * 50.0
     boxes = torch.cat([lo, lo + size], -1)
     boxes[:, n - 60:] = 0.0  # zero-volume padding rows
+    return boxes
+
+
+def graph_ops(p: int, n: int) -> int:
+    """K3's operations: per box its volume (8 f32 ops); per pair i < j the
+    intersection (12 ops + 2 products), union (2), IoU (1) and the
+    threshold test (1)."""
+    return p * (8 * n + 18 * n * (n - 1) // 2)
+
+
+def check_suppression_graph(torch, dev):
+    from nerf_rpn_tpu_torch.ops.nms_graph import (
+        aabb_suppression_graph,
+        aabb_suppression_graph_reference,
+    )
+
+    boxes = k3_boxes(torch, dev)
+    p, n = boxes.shape[:2]
     out = aabb_suppression_graph(boxes, 0.3)
     ref = aabb_suppression_graph_reference(boxes, 0.3)
     if out.dtype != torch.int32 or out.shape != (p, n, n // 32):
@@ -414,15 +436,165 @@ def check_suppression_graph(torch, dev):
         fail("K3 graph is empty: the check would prove nothing")
     ms, plain_ms = time_pair(torch, lambda: aabb_suppression_graph_reference(boxes, 0.3),
                              lambda: aabb_suppression_graph(boxes, 0.3))
-    # per box its volume (8 f32 ops); per pair i < j the intersection
-    # (12 ops + 2 products), union (2), IoU (1) and the threshold test (1)
-    ops = p * (8 * n + 18 * n * (n - 1) // 2)
     row = dict(P=p, Np=n, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-               **bound(nbytes(boxes, out), ops, "float32"),
+               **bound(nbytes(boxes, out), graph_ops(p, n), "float32"),
                set_bits=int(sum(bin(v & 0xffffffff).count("1")
                                 for v in out.flatten().tolist())))
     print("K3", json.dumps(row), flush=True)
     return row
+
+
+def bench_eval_step(torch, backbone="swin_s", size=None, device="cuda"):
+    """The eval step of ``run_rpn --mode benchmark`` (Swin-S, bf16,
+    200x200x130 padded to 208x208x144, random weights from seed 0), its
+    random grid and the scene's size: ``(eval_step, grids, ori)``.  The
+    keywords shrink it for a rehearsal on the CPU."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    size = size or run_rpn.BENCH_SHAPE
+    args = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", backbone, "--bf16",
+                               "--resolution", str(size[0]), "--pad_multiple", "16",
+                               "--device", device])
+    trainer = run_rpn.Trainer(args)
+    shape = tuple(-(-s // 16) * 16 for s in size)
+    eval_step = trainer.eval_step(shape)
+    rng = np.random.default_rng(args.seed)
+    grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(
+        trainer.device, trainer.dtype)
+    ori = torch.tensor([size], dtype=torch.int32, device=trainer.device)
+    return eval_step, grids, ori
+
+
+def capture_nms_problem(eval_step, obj, dl, ori):
+    """``(boxes, scores, valid, iou_threshold)`` that one ``propose`` call
+    hands ``nms_mask``: one problem per FPN level of the scene."""
+    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+
+    seen, real = [], rpn_lib.nms_mask
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    rpn_lib.nms_mask = record
+    try:
+        eval_step.propose(obj, dl, ori)
+    finally:
+        rpn_lib.nms_mask = real
+    return seen[0]
+
+
+def sweep_count(torch, graph, svalid) -> int:
+    """Sweeps the twin's loop runs to its fixpoint (each but the first ends
+    in a ``torch.equal``, a host sync)."""
+    from nerf_rpn_tpu_torch.ops.nms_graph import resolve_sweep
+
+    alive, sweeps = resolve_sweep(graph, svalid, svalid), 1
+    while True:
+        nxt, sweeps = resolve_sweep(graph, svalid, alive), sweeps + 1
+        if torch.equal(nxt, alive):
+            return sweeps
+        alive = nxt
+
+
+def triangle_words(svalid) -> int:
+    """Graph words the resolve kernel must read: row j's ceil(j / 32) words
+    below the diagonal, for the rows up to each problem's last valid one."""
+    total = 0
+    for row in svalid.cpu():
+        idx = row.nonzero()
+        rows = 0 if len(idx) == 0 else int(idx[-1]) + 1
+        total += sum(-(-j // 32) for j in range(rows))
+    return total
+
+
+def chain_problem(torch, dev, n):
+    """n unit boxes along x in score order, each overlapping only the next
+    (IoU 1/3 > 0.3): greedy keeps every other one, the sweep loop needs ~n
+    sweeps."""
+    x = 0.5 * torch.arange(n, dtype=torch.float32, device=dev)
+    boxes = torch.zeros((1, n, 6), device=dev)
+    boxes[0, :, 0], boxes[0, :, 3] = x, x + 1.0
+    boxes[0, :, 4:6] = 1.0
+    return boxes, torch.ones((1, n), dtype=torch.bool, device=dev)
+
+
+def check_nms_resolve(torch, dev, **rehearsal):
+    """The resolve kernel against the sweep twin on the bench scene's NMS
+    problem and on a depth-2560 chain; ``eval_step.propose`` at the bench
+    shape under ``set_sync_debug_mode("error")``; ms, plain ms and bound
+    of the resolve kernel and of the whole ``nms_mask`` (kernels vs the
+    sweep loop on the same CUDA tensors)."""
+    from nerf_rpn_tpu_torch.ops.nms import nms_mask, sort_problems
+    from nerf_rpn_tpu_torch.ops.nms_graph import (
+        aabb_suppression_graph,
+        aabb_suppression_graph_reference,
+        resolve_keep,
+        resolve_keep_reference,
+    )
+
+    eval_step, grids, ori = bench_eval_step(torch, **rehearsal)
+    _, obj, dl, _ = eval_step.forward(grids)
+    boxes, scores, valid, thresh = capture_nms_problem(eval_step, obj, dl, ori)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eval_step.propose(obj, dl, ori)
+    except RuntimeError as e:
+        fail(f"eval_step.propose synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[nms] eval_step.propose at the bench shape ran under "
+          "set_sync_debug_mode('error') without a host sync", flush=True)
+
+    _, sboxes, svalid = sort_problems(boxes, scores, valid)
+    graph = aabb_suppression_graph(sboxes, thresh)
+    if not torch.equal(graph, aabb_suppression_graph_reference(sboxes, thresh)):
+        fail("K3 differs from its twin on the bench scene's NMS problem")
+    alive = resolve_keep(graph, svalid)
+    if not torch.equal(alive, resolve_keep(graph, svalid)):
+        fail("resolve kernel: two runs differ")
+    if not torch.equal(alive, resolve_keep_reference(graph, svalid)):
+        fail(f"resolve kernel differs from the sweep twin on the bench scene in "
+             f"{(alive != resolve_keep_reference(graph, svalid)).sum().item()} boxes")
+    sweeps = sweep_count(torch, graph, svalid)
+    chain, cvalid = chain_problem(torch, dev, 2560)
+    cgraph = aabb_suppression_graph(chain, 0.3)
+    calive = resolve_keep(cgraph, cvalid)
+    if not (torch.equal(calive, resolve_keep_reference(cgraph, cvalid))
+            and torch.equal(calive[0].cpu(), torch.arange(2560) % 2 == 0)):
+        fail("resolve kernel differs from the sweep twin on the depth-2560 chain")
+    print(f"[nms] resolve kernel == sweep twin on the bench scene ({tuple(graph.shape[:2])}, "
+          f"{int(svalid.sum())} valid, {int(alive.sum())} kept; the twin needed {sweeps} "
+          f"sweeps) and on the depth-2560 chain ({sweep_count(torch, cgraph, cvalid)} sweeps)",
+          flush=True)
+
+    def sweep_nms():
+        o, sb, sv = sort_problems(boxes, scores, valid)
+        keep = torch.zeros_like(valid)
+        keep.scatter_(1, o, resolve_keep_reference(aabb_suppression_graph(sb, thresh),
+                                                   sv)[:, :valid.shape[1]])
+        return keep
+
+    if not torch.equal(nms_mask(boxes, scores, valid, thresh), sweep_nms()):
+        fail("nms_mask differs from the sweep loop on the bench scene")
+    p, np_ = svalid.shape
+    ms, plain_ms = time_pair(torch, lambda: resolve_keep_reference(graph, svalid),
+                             lambda: resolve_keep(graph, svalid))
+    chain_ms = time_one(torch, lambda: resolve_keep(cgraph, cvalid))
+    resolve = dict(P=p, Np=np_, sweeps=sweeps, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, chain_ms=chain_ms,
+                   **bound(4 * triangle_words(svalid) + nbytes(svalid, alive), 0, "float32"))
+    print("resolve", json.dumps(resolve), flush=True)
+    ms, plain_ms = time_pair(torch, sweep_nms, lambda: nms_mask(boxes, scores, valid, thresh))
+    k3_ms = time_one(torch, lambda: aabb_suppression_graph(sboxes, thresh))
+    whole = dict(P=p, N=valid.shape[1], Np=np_, ms=ms, plain_ms=plain_ms, k3_ms=k3_ms,
+                 **bound(nbytes(boxes, scores, valid, valid), graph_ops(p, np_), "float32"))
+    print("nms_mask", json.dumps(whole), flush=True)
+    return resolve
 
 
 def check_fused_window_attention(torch, dev):
@@ -669,7 +841,7 @@ def run_eval_path(torch, workdir):
     # every benchmark scene runs the same kernels: per scene, Swin-S's 24
     # blocks each run K5 and K6, its 12 shifted blocks K4 (every stage grid
     # of the bench shape is wider than a window) and the 12 others K1; K3
-    # runs once in propose
+    # and the resolve kernel run once in propose
     scenes = bench["reps"] + bench["warmup"]
     per_scene = {k: v / scenes for k, v in bench_launches.items() if v}
     if per_scene != EVAL_LAUNCHES_PER_SCENE:
@@ -759,14 +931,14 @@ def check_small_train_step(torch, dev):
           flush=True)
 
 
-EVAL_KERNELS = ("window_attention_fwd", "aabb_suppression_graph", "fused_window_attention",
-                "ln_partition_qkv", "fused_mlp_block")
+EVAL_KERNELS = ("window_attention_fwd", "aabb_suppression_graph", "nms_resolve",
+                "fused_window_attention", "ln_partition_qkv", "fused_mlp_block")
 # the train steps run K1 forward and K2 backward; the validation eval runs
 # the eval kernels
 TRAIN_KERNELS = ("window_attention_bwd", *EVAL_KERNELS)
 EVAL_LAUNCHES_PER_SCENE = {"ln_partition_qkv": 24.0, "fused_mlp_block": 24.0,
                            "fused_window_attention": 12.0, "window_attention_fwd": 12.0,
-                           "aabb_suppression_graph": 1.0}
+                           "aabb_suppression_graph": 1.0, "nms_resolve": 1.0}
 
 
 def require_launches(launches, names, path):
@@ -922,8 +1094,8 @@ def main() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as cubins:
         reports = [(lib, start_ptxas_report(kernels, lib, cubins))
-                   for lib in ("window_attention", "window_attention_bwd", "fused_ln_qkv",
-                               "fused_mlp")]
+                   for lib in ("window_attention", "window_attention_bwd", "nms_graph",
+                               "fused_ln_qkv", "fused_mlp")]
         build_s = kernels.build_all()
         for lib, proc in reports:
             print_ptxas_report(proc, lib)
@@ -940,7 +1112,8 @@ def main() -> None:
 
     t0 = time.perf_counter()
     k3 = check_suppression_graph(torch, dev)
-    phase_done(torch, "K3 vs twin", t0)
+    resolve = check_nms_resolve(torch, dev)
+    phase_done(torch, "K3 and resolve vs twins", t0)
 
     t0 = time.perf_counter()
     _, k4 = check_fused_window_attention(torch, dev)
@@ -981,6 +1154,8 @@ def main() -> None:
         ("window_attention_fwd", "window_attention.cu", "window_attention.py:80", k1),
         ("window_attention_bwd", "window_attention_bwd.cu", "window_attention.py:313", k2),
         ("aabb_suppression_graph", "nms_graph.cu", "nms_graph.py:47", k3),
+        # not a Pallas kernel: the lax.while_loop fixpoint over K3's graph
+        ("nms_resolve", "nms_graph.cu", "nms.py:258", resolve),
         ("fused_window_attention", "window_attention.cu", "window_attention.py:208", k4),
         ("ln_partition_qkv", "fused_ln_qkv.cu", "fused_ln_qkv.py:81", k5),
         ("fused_mlp_block", "fused_mlp.cu", "fused_mlp.py:62", k6),

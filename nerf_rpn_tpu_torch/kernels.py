@@ -63,6 +63,10 @@ SIGNATURES = {
         "nms_graph",
         # boxes, out, P, Np, thresh, stream
         [_P, _P, _I, _I, _F, _P]),
+    "nms_resolve": (
+        "nms_graph",
+        # graph, svalid, alive, P, Np, stream
+        [_P, _P, _P, _I, _I, _P]),
     "fused_window_attention": (
         "window_attention",
         # q, k, v, strides (host int64[12]), bias, table, ids, out, W, H, D,

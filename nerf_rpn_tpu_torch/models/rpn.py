@@ -85,15 +85,19 @@ def build_level_tables(cfg: RPNConfig, mesh_size: Sequence[int],
 
 
 def dynamic_padding_masks_levels(level_shapes: Sequence[Sequence[int]],
-                                 strides: Sequence[Sequence[int]],
+                                 strides: Sequence[Sequence[int] | torch.Tensor],
                                  anchors_per_loc: int,
                                  ori_sizes: torch.Tensor) -> list[torch.Tensor]:
     """Per-level (B, N_l) validity masks: anchor cells at index >=
-    ceil(ori / stride) sit in zero padding.  ``ori_sizes``: (B, 3) int."""
+    ceil(ori / stride) sit in zero padding.  ``ori_sizes``: (B, 3) int.
+
+    A stride given as an f32 tensor on ``ori_sizes``' device is used as it
+    is: a step that makes them once makes no host-to-device copy per call."""
     masks = []
     b = ori_sizes.shape[0]
     for shape, stride in zip(level_shapes, strides):
-        st = torch.tensor(stride, dtype=torch.float32, device=ori_sizes.device)
+        st = (stride if torch.is_tensor(stride)
+              else torch.tensor(stride, dtype=torch.float32, device=ori_sizes.device))
         limits = torch.ceil(ori_sizes.float() / st).to(torch.int32)
         axes = [torch.arange(s, device=ori_sizes.device) for s in shape]
         cell_ok = (
@@ -149,12 +153,15 @@ def generate_proposals_levels(cfg: RPNConfig,
                               objectness: Sequence[torch.Tensor],
                               pred_deltas: Sequence[torch.Tensor],
                               anchors: Sequence[torch.Tensor],
-                              mesh_size: Sequence[int],
+                              mesh_size: Sequence[int] | torch.Tensor,
                               padding_masks: Sequence[torch.Tensor] | None = None):
     """Fixed-capacity proposal generation on per-level head outputs.
 
     ``objectness`` per level (B, N_l); ``pred_deltas`` per level in the
-    head's native (B, V_l, A*D) layout; ``anchors`` per level (N_l, 6) f32.
+    head's native (B, V_l, A*D) layout; ``anchors`` per level (N_l, 6) f32;
+    ``mesh_size`` the (3,) grid the boxes are clipped to, as numbers or as
+    an f32 tensor on the outputs' device (made once by the caller, so that
+    no call copies it from the host).
 
     Returns dict with boxes (B, K, 6), scores (B, K), level_idx (B, K) and
     valid (B, K) -- K = post_nms_top_n, score-sorted, masked entries last
@@ -184,7 +191,8 @@ def generate_proposals_levels(cfg: RPNConfig,
                           device=raw_scores.device)[None, :, None].expand_as(raw_scores)
     probs = torch.sigmoid(raw_scores)
 
-    grid = torch.tensor(mesh_size, dtype=boxes.dtype, device=boxes.device)
+    grid = (mesh_size.to(boxes.dtype) if torch.is_tensor(mesh_size)
+            else torch.tensor(mesh_size, dtype=boxes.dtype, device=boxes.device))
     boxes = clip_boxes_to_grid(boxes, grid)
     valid = small_box_mask(boxes, cfg.min_size)
     valid &= probs >= cfg.score_thresh

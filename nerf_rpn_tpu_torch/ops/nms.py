@@ -8,9 +8,11 @@ Batched over independent problems (the RPN runs one per (scene, level)):
 2. pad to a multiple of 256 with zero boxes that are never valid;
 3. build the packed suppression graph with kernel K3
    (``ops/nms_graph.aabb_suppression_graph``);
-4. iterate ``alive <- valid & ~any(graph & packed(alive))`` to its
-   fixpoint, on the device, which equals sequential greedy NMS: a box is
-   suppressed iff an earlier *kept* box overlaps it past the threshold.
+4. take the fixpoint of ``alive <- valid & ~any(graph & packed(alive))``,
+   which equals sequential greedy NMS (a box is suppressed iff an earlier
+   *kept* box overlaps it past the threshold), with
+   ``ops/nms_graph.resolve_keep``: on CUDA tensors the resolve kernel, one
+   launch and no host sync; on CPU tensors the sweep loop.
 
 The rotated (OBB) path with its gated polygon clipping is not ported yet.
 """
@@ -19,11 +21,26 @@ from __future__ import annotations
 
 import torch
 
-from nerf_rpn_tpu_torch.ops.nms_graph import aabb_suppression_graph, pack_bits
+from nerf_rpn_tpu_torch.ops.nms_graph import aabb_suppression_graph, resolve_keep
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
 
 NEG_INF = -1e10
 PAD_MULTIPLE = 256
+
+
+def sort_problems(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor):
+    """Steps 1-2: ``(order (P, N), sboxes (P, Np, 6) f32, svalid (P, Np))``
+    -- each problem's boxes in descending score order (stable), padded to a
+    multiple of ``PAD_MULTIPLE`` with zero boxes that are never valid."""
+    p, n = scores.shape
+    masked = torch.where(valid, scores, NEG_INF)
+    order = torch.sort(-masked, dim=-1, stable=True).indices
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(p, n, 6))
+    svalid = torch.gather(valid, 1, order)
+    pad = (-n) % PAD_MULTIPLE
+    sboxes = torch.nn.functional.pad(sboxes.float(), (0, 0, 0, pad))
+    svalid = torch.nn.functional.pad(svalid, (0, pad))
+    return order, sboxes, svalid
 
 
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
@@ -42,31 +59,11 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     """
     if boxes.shape[-1] != 6:
         raise NotImplementedError("only the AABB (N, 6) path is ported")
-    p, n = scores.shape
-    masked = torch.where(valid, scores, NEG_INF)
-    order = torch.sort(-masked, dim=-1, stable=True).indices
-    sboxes = torch.gather(boxes, 1, order[..., None].expand(p, n, 6))
-    svalid = torch.gather(valid, 1, order)
-    pad = (-n) % PAD_MULTIPLE
-    sboxes = torch.nn.functional.pad(sboxes.float(), (0, 0, 0, pad))
-    svalid = torch.nn.functional.pad(svalid, (0, pad))
+    order, sboxes, svalid = sort_problems(boxes, scores, valid)
     graph = aabb_suppression_graph(sboxes, iou_threshold)  # (P, Np, Np/32)
-
-    def sweep(alive):
-        bits = pack_bits(alive)                              # (P, Np/32)
-        sup = ((graph & bits[:, None, :]) != 0).any(dim=-1)  # (P, Np)
-        return svalid & ~sup
-
-    # every sweep fixes at least the next box of the greedy order, so Np
-    # sweeps always suffice; in practice the chain depth is < 10
-    alive = sweep(svalid)
-    for _ in range(n + pad):
-        nxt = sweep(alive)
-        if torch.equal(nxt, alive):
-            break
-        alive = nxt
+    alive = resolve_keep(graph, svalid)
     keep = torch.zeros_like(valid)
-    keep.scatter_(1, order, alive[:, :n])
+    keep.scatter_(1, order, alive[:, :scores.shape[1]])
     return keep
 
 

@@ -1,4 +1,4 @@
-"""Packed AABB suppression graph: kernel K3 and its twin.
+"""Packed AABB suppression graph (kernel K3) and its resolve kernel, with twins.
 
 Port of ``suppression_graph`` (``nerf_rpn_tpu/ops/nms_graph.py:104-151``),
 batched over problems.  For problem p with score-sorted boxes (Np, 6), Np a
@@ -9,6 +9,13 @@ PyTorch's ``uint32`` has thin CUDA op coverage, so the words are ``int32``
 holding the same bits.  ``aabb_suppression_graph`` launches the CUDA kernel
 (``csrc/nms_graph.cu``) on CUDA tensors and runs the plain twin
 ``aabb_suppression_graph_reference`` on CPU tensors.
+
+``resolve_keep`` takes greedy NMS's keep-set from the graph: the fixpoint
+of ``alive <- valid & ~any(graph & packed(alive))`` that the JAX package
+iterates in a ``while_loop`` (``nerf_rpn_tpu/ops/nms.py:258-270``).  On CUDA
+tensors it launches the resolve kernel of ``csrc/nms_graph.cu`` (one pass
+over the word columns in order, no host sync); on CPU tensors it runs the
+sweep loop ``resolve_keep_reference``.
 """
 
 from __future__ import annotations
@@ -80,3 +87,54 @@ def aabb_suppression_graph(boxes: torch.Tensor,
         float(iou_threshold),
         torch.cuda.current_stream(boxes.device).cuda_stream)
     return out
+
+
+def resolve_sweep(graph: torch.Tensor, svalid: torch.Tensor,
+                  alive: torch.Tensor) -> torch.Tensor:
+    """One sweep of the fixpoint: ``svalid & ~any(graph & packed(alive))``."""
+    bits = pack_bits(alive)                                # (P, Np/32)
+    sup = ((graph & bits[:, None, :]) != 0).any(dim=-1)    # (P, Np)
+    return svalid & ~sup
+
+
+def resolve_keep_reference(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the resolve kernel: sweeps to the fixpoint.
+
+    Every sweep fixes at least the next box of the greedy order, so Np
+    sweeps always suffice; each sweep ends in a host sync (``torch.equal``).
+    """
+    alive = resolve_sweep(graph, svalid, svalid)
+    for _ in range(graph.shape[1]):
+        nxt = resolve_sweep(graph, svalid, alive)
+        if torch.equal(nxt, alive):
+            break
+        alive = nxt
+    return alive
+
+
+def resolve_keep(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+    """Greedy NMS keep-set in the sorted order: int32 (P, Np, Np/32) graph
+    and (P, Np) bool validity -> (P, Np) bool.
+
+    CPU tensors take the sweep twin; CUDA tensors launch the resolve kernel
+    or raise.
+    """
+    if graph.device.type == "cpu":
+        return resolve_keep_reference(graph, svalid)
+    if graph.device.type != "cuda":
+        raise ValueError(f"unsupported device {graph.device}")
+    if graph.dim() != 3 or graph.shape[1] % WORD or graph.shape[2] != graph.shape[1] // WORD:
+        raise ValueError(f"graph must be (P, Np, Np/{WORD}), got {tuple(graph.shape)}")
+    if graph.dtype != torch.int32 or svalid.dtype != torch.bool:
+        raise TypeError(f"graph must be int32 and svalid bool, got {graph.dtype}, "
+                        f"{svalid.dtype}")
+    p, np_ = graph.shape[:2]
+    if svalid.shape != (p, np_) or svalid.device != graph.device:
+        raise ValueError(f"svalid must be ({p}, {np_}) on {graph.device}, got "
+                         f"{tuple(svalid.shape)} on {svalid.device}")
+    graph, svalid = graph.contiguous(), svalid.contiguous()
+    alive = torch.empty((p, np_), dtype=torch.bool, device=graph.device)
+    kernels.launch(
+        "nms_resolve", graph.data_ptr(), svalid.data_ptr(), alive.data_ptr(), p, np_,
+        torch.cuda.current_stream(graph.device).cuda_stream)
+    return alive

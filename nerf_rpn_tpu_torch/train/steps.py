@@ -95,6 +95,11 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
     anchors_per_loc = model.num_anchors
     level_anchors = [torch.from_numpy(a).to(device)
                      for a in np.split(anchors_np, np.cumsum(counts)[:-1])]
+    # made on the device once: a tensor made from a Python list on a CUDA
+    # device is a synchronous copy, and propose makes none
+    level_strides = [torch.tensor(s, dtype=torch.float32, device=device)
+                     for s in level_strides]
+    grid = torch.tensor(mesh_shape, dtype=torch.float32, device=device)
     n_levels = len(shapes)
 
     @torch.inference_mode()
@@ -114,7 +119,7 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
         pads = rpn_lib.dynamic_padding_masks_levels(
             shapes, level_strides, anchors_per_loc, ori_sizes)
         return rpn_lib.generate_proposals_levels(
-            cfg, obj_l, dl_l, level_anchors, mesh_shape, padding_masks=pads)
+            cfg, obj_l, dl_l, level_anchors, grid, padding_masks=pads)
 
     def eval_step(grids: torch.Tensor, ori_sizes: torch.Tensor):
         _, obj, dl, vox = forward(grids)

@@ -1,4 +1,5 @@
-"""CUDA kernels K1 to K6 against their plain PyTorch twins, on the GPU.
+"""CUDA kernels K1 to K6 and the NMS resolve kernel against their plain
+PyTorch twins, on the GPU.
 
 Needs a CUDA device and nvcc (the kernels are built from
 ``nerf_rpn_tpu_torch/csrc`` on first use); skips otherwise.  The chip run::
@@ -22,9 +23,12 @@ from nerf_rpn_tpu_torch.ops.fused_mlp import (
     fused_mlp_block_reference,
     mlp_plan,
 )
+from nerf_rpn_tpu_torch.ops.nms import nms_mask
 from nerf_rpn_tpu_torch.ops.nms_graph import (
     aabb_suppression_graph,
     aabb_suppression_graph_reference,
+    resolve_keep,
+    resolve_keep_reference,
 )
 from nerf_rpn_tpu_torch.ops.window_attention import (
     WindowAttention,
@@ -214,6 +218,102 @@ def test_suppression_graph_kernel_rejects_bad_shapes(cuda):
         aabb_suppression_graph(boxes[:, :40], 0.3)
     with pytest.raises(TypeError):
         aabb_suppression_graph(boxes.double(), 0.3)
+
+
+def _graph_reference(boxes, thresh):
+    """The twin one problem at a time (its (Np, Np, 3) temporaries are
+    0.8 GB each at Np = 8192)."""
+    return torch.cat([aabb_suppression_graph_reference(boxes[q:q + 1], thresh)
+                      for q in range(boxes.shape[0])])
+
+
+NMS_TILES = [(p, n, t) for p in (1, 4, 16) for n in (32, 64, 256, 2560, 8192)
+             for t in (0.0, 0.3, 0.7)]
+
+
+@pytest.mark.parametrize("p,n,thresh", NMS_TILES)
+def test_suppression_graph_kernel_tiles_bit_exact(cuda, p, n, thresh):
+    """K3's tiles (64 rows x 8 words): ragged edges, the diagonal, tiles
+    wholly above it, zero-volume pads and a zero threshold."""
+    boxes = _nms_boxes(p, n, n // 8, seed=n + p).to(cuda)
+    out = aabb_suppression_graph(boxes, thresh)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and out.shape == (p, n, n // 32)
+    assert torch.equal(out, _graph_reference(boxes, thresh))
+
+
+def _svalid(p, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    valid = torch.rand((p, n), generator=gen) > 0.2
+    valid[:, n - n // 8:] = False  # the pads
+    return valid
+
+
+@pytest.mark.parametrize("p,n,thresh", NMS_TILES)
+def test_resolve_kernel_matches_sweep_twin(cuda, p, n, thresh):
+    boxes = _nms_boxes(p, n, n // 8, seed=n + p).to(cuda)
+    graph = aabb_suppression_graph(boxes, thresh)
+    svalid = _svalid(p, n, n + p).to(cuda)
+    alive = resolve_keep(graph, svalid)
+    again = resolve_keep(graph, svalid)
+    torch.cuda.synchronize()
+    assert alive.dtype == torch.bool and alive.shape == (p, n)
+    assert torch.equal(alive, again)
+    assert torch.equal(alive, resolve_keep_reference(graph, svalid))
+
+
+@pytest.mark.parametrize("n", [256, 2560])
+def test_resolve_kernel_depth_n_chain_and_all_invalid(cuda, n):
+    """Unit boxes along x, each overlapping only the next (IoU 1/3): greedy
+    keeps every other one; the sweep twin needs ~n sweeps.  Problem 1 is
+    the same chain with every box invalid."""
+    x = 0.5 * torch.arange(n, dtype=torch.float32)
+    boxes = torch.zeros((2, n, 6))
+    boxes[:, :, 0], boxes[:, :, 3] = x, x + 1.0
+    boxes[:, :, 4:6] = 1.0
+    svalid = torch.ones((2, n), dtype=torch.bool)
+    svalid[1] = False
+    graph = aabb_suppression_graph(boxes.to(cuda), 0.3)
+    alive = resolve_keep(graph, svalid.to(cuda))
+    again = resolve_keep(graph, svalid.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(alive, again)
+    assert torch.equal(alive[0].cpu(), torch.arange(n) % 2 == 0)
+    assert not alive[1].any()
+    assert torch.equal(alive, resolve_keep_reference(graph, svalid.to(cuda)))
+
+
+def test_nms_mask_cuda_matches_cpu_at_the_bench_problem(cuda):
+    """4 problems of 2500 candidates (one scene's levels), scores with ties,
+    a fifth invalid: the kernels' keep-set equals the CPU path's."""
+    rng = np.random.default_rng(12)
+    lo = rng.uniform(0, 150, (4, 2500, 3))
+    boxes = torch.from_numpy(np.concatenate([lo, lo + rng.uniform(4, 60, (4, 2500, 3))],
+                                            -1).astype(np.float32))
+    scores = torch.from_numpy((rng.integers(0, 200, (4, 2500)) / 200).astype(np.float32))
+    valid = torch.from_numpy(rng.random((4, 2500)) > 0.2)
+    before = kernels.counts()
+    got = nms_mask(boxes.to(cuda), scores.to(cuda), valid.to(cuda), 0.3)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["aabb_suppression_graph"] - before["aabb_suppression_graph"] == 1
+    assert after["nms_resolve"] - before["nms_resolve"] == 1
+    want = nms_mask(boxes, scores, valid, 0.3)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def test_resolve_kernel_rejects_bad_shapes_and_dtypes(cuda):
+    graph = aabb_suppression_graph(_nms_boxes(2, 64, 0).to(cuda), 0.3)
+    svalid = torch.ones((2, 64), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        resolve_keep(graph[:, :, :1], svalid)
+    with pytest.raises(ValueError):
+        resolve_keep(graph, svalid[:, :32])
+    with pytest.raises(TypeError):
+        resolve_keep(graph.long(), svalid)
+    with pytest.raises(TypeError):
+        resolve_keep(graph, svalid.int())
 
 
 def row_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
