@@ -444,19 +444,17 @@ def check_suppression_graph(torch, dev):
     return row
 
 
-def bench_eval_step(torch, backbone="swin_s", size=None, device="cuda"):
+def bench_eval_step(torch):
     """The eval step of ``run_rpn --mode benchmark`` (Swin-S, bf16,
     200x200x130 padded to 208x208x144, random weights from seed 0), its
-    random grid and the scene's size: ``(eval_step, grids, ori)``.  The
-    keywords shrink it for a rehearsal on the CPU."""
+    random grid and the scene's size: ``(eval_step, grids, ori)``."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.cli import run_rpn
 
-    size = size or run_rpn.BENCH_SHAPE
-    args = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", backbone, "--bf16",
-                               "--resolution", str(size[0]), "--pad_multiple", "16",
-                               "--device", device])
+    size = run_rpn.BENCH_SHAPE
+    args = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", "swin_s", "--bf16",
+                               "--resolution", str(size[0]), "--pad_multiple", "16"])
     trainer = run_rpn.Trainer(args)
     shape = tuple(-(-s // 16) * 16 for s in size)
     eval_step = trainer.eval_step(shape)
@@ -486,19 +484,6 @@ def capture_nms_problem(eval_step, obj, dl, ori):
     return seen[0]
 
 
-def sweep_count(torch, graph, svalid) -> int:
-    """Sweeps the twin's loop runs to its fixpoint (each but the first ends
-    in a ``torch.equal``, a host sync)."""
-    from nerf_rpn_tpu_torch.ops.nms_graph import resolve_sweep
-
-    alive, sweeps = resolve_sweep(graph, svalid, svalid), 1
-    while True:
-        nxt, sweeps = resolve_sweep(graph, svalid, alive), sweeps + 1
-        if torch.equal(nxt, alive):
-            return sweeps
-        alive = nxt
-
-
 def triangle_words(svalid) -> int:
     """Graph words the resolve kernel must read: row j's ceil(j / 32) words
     below the diagonal, for the rows up to each problem's last valid one."""
@@ -521,7 +506,7 @@ def chain_problem(torch, dev, n):
     return boxes, torch.ones((1, n), dtype=torch.bool, device=dev)
 
 
-def check_nms_resolve(torch, dev, **rehearsal):
+def check_nms_resolve(torch, dev):
     """The resolve kernel against the sweep twin on the bench scene's NMS
     problem and on a depth-2560 chain; ``eval_step.propose`` at the bench
     shape under ``set_sync_debug_mode("error")``; ms, plain ms and bound
@@ -531,11 +516,12 @@ def check_nms_resolve(torch, dev, **rehearsal):
     from nerf_rpn_tpu_torch.ops.nms_graph import (
         aabb_suppression_graph,
         aabb_suppression_graph_reference,
+        resolve_fixpoint,
         resolve_keep,
         resolve_keep_reference,
     )
 
-    eval_step, grids, ori = bench_eval_step(torch, **rehearsal)
+    eval_step, grids, ori = bench_eval_step(torch)
     _, obj, dl, _ = eval_step.forward(grids)
     boxes, scores, valid, thresh = capture_nms_problem(eval_step, obj, dl, ori)
     torch.cuda.synchronize()
@@ -560,7 +546,7 @@ def check_nms_resolve(torch, dev, **rehearsal):
     if not torch.equal(alive, resolve_keep_reference(graph, svalid)):
         fail(f"resolve kernel differs from the sweep twin on the bench scene in "
              f"{(alive != resolve_keep_reference(graph, svalid)).sum().item()} boxes")
-    sweeps = sweep_count(torch, graph, svalid)
+    sweeps = resolve_fixpoint(graph, svalid)[1]
     chain, cvalid = chain_problem(torch, dev, 2560)
     cgraph = aabb_suppression_graph(chain, 0.3)
     calive = resolve_keep(cgraph, cvalid)
@@ -569,7 +555,7 @@ def check_nms_resolve(torch, dev, **rehearsal):
         fail("resolve kernel differs from the sweep twin on the depth-2560 chain")
     print(f"[nms] resolve kernel == sweep twin on the bench scene ({tuple(graph.shape[:2])}, "
           f"{int(svalid.sum())} valid, {int(alive.sum())} kept; the twin needed {sweeps} "
-          f"sweeps) and on the depth-2560 chain ({sweep_count(torch, cgraph, cvalid)} sweeps)",
+          f"sweeps) and on the depth-2560 chain ({resolve_fixpoint(cgraph, cvalid)[1]} sweeps)",
           flush=True)
 
     def sweep_nms():

@@ -210,24 +210,17 @@ struct Quad {
   unsigned w[4];
 };
 
-// words c0 .. c0+3 of a row; kVec: one 16-byte load (the caller keeps it
-// inside the row), else word by word, those at columns >= limit read as 0
-template <bool kVec>
-__device__ __forceinline__ Quad load_quad(const unsigned* row, int c0, int limit) {
-  if (kVec) {
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + c0));
-    return Quad{{x.x, x.y, x.z, x.w}};
-  }
-  Quad r;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r.w[i] = c0 + i < limit ? __ldg(row + c0 + i) : 0u;
-  return r;
+// words c0 .. c0+3 of a row (c0 a multiple of 4): one 16-byte load.  The
+// rows are whole 16-byte units (Np a multiple of 128) from a 16-byte
+// aligned graph, as nms_resolve requires
+__device__ __forceinline__ Quad load_quad(const unsigned* row, int c0) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(row + c0));
+  return Quad{{x.x, x.y, x.z, x.w}};
 }
 
 // the block's barrier, reached from the two roles' separate loops
 __device__ __forceinline__ void step_barrier() { asm volatile("barrier.sync 0;" ::: "memory"); }
 
-template <bool kVec>
 __global__ void __launch_bounds__(kResolveThreads)
     nms_resolve_kernel(const int* __restrict__ graph,
                        const unsigned char* __restrict__ svalid,
@@ -264,8 +257,8 @@ __global__ void __launch_bounds__(kResolveThreads)
   if (warp == 0) {
     // the resolver: tiles kSpan*S .. kSpan*S + kSpan-1 at step S.  Its row
     // of tile t needs columns kSpan*(S-1) .. t: the previous step's words
-    // `back` and this step's `here` (the diagonal among them), loaded a
-    // step ahead
+    // `back` and this step's `here` (the diagonal among them; the words
+    // past it come in the same 16-byte loads, unused), loaded a step ahead
     Quad back[kSpan], here[kSpan];
     unsigned back_alive[kSpan] = {}, here_alive[kSpan];
     auto fetch = [&](int S) {
@@ -273,9 +266,8 @@ __global__ void __launch_bounds__(kResolveThreads)
       for (int d = 0; d < kSpan; ++d) {
         const int tile = kSpan * S + d;
         const bool in = tile < tiles;
-        back[d] = in && S > 0 ? load_quad<kVec>(row(32 * tile + lane), kSpan * (S - 1), tile)
-                              : Quad{};
-        here[d] = in ? load_quad<kVec>(row(32 * tile + lane), kSpan * S, tile + 1) : Quad{};
+        back[d] = in && S > 0 ? load_quad(row(32 * tile + lane), kSpan * (S - 1)) : Quad{};
+        here[d] = in ? load_quad(row(32 * tile + lane), kSpan * S) : Quad{};
       }
     };
     fetch(0);
@@ -329,7 +321,7 @@ __global__ void __launch_bounds__(kResolveThreads)
         const int j = row0 + 4 * (task & 31) + g, c = 32 * (task >> 5) + 4 * k;
         unsigned hit = 0u;
         if (j < row_end && c < limit && dead[j] == 0) {
-          const Quad v = load_quad<kVec>(row(j), c, limit);
+          const Quad v = load_quad(row(j), c);
           const uint4 a = *reinterpret_cast<const uint4*>(alive_words + c);
           hit = (v.w[0] & a.x) | (v.w[1] & a.y) | (v.w[2] & a.z) | (v.w[3] & a.w);
         }
@@ -357,27 +349,24 @@ extern "C" int aabb_suppression_graph(const void* boxes, void* out, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
-// graph (P, Np, Np/32) int32 from aabb_suppression_graph, svalid (P, Np)
+// graph (P, Np, Np/32) int32 from aabb_suppression_graph, Np a multiple of
+// 128 (nms_mask pads to 256) and the graph 16-byte aligned; svalid (P, Np)
 // bool (one byte each), alive (P, Np) bool out: greedy NMS's keep-set in
 // the sorted order.  One block per problem.  Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int nms_resolve(const void* graph, const void* svalid, void* alive,
                            int P, int Np, void* stream) {
-  if (P <= 0 || Np <= 0 || Np % 32 != 0)
+  if (P <= 0 || Np <= 0 || Np % 128 != 0 ||
+      reinterpret_cast<uintptr_t>(graph) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = resolve_smem_bytes(Np);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte loads when rows are whole 16-byte units (Np a multiple of
-  // 128; nms_mask pads to 256) and the graph is 16-byte aligned; word by
-  // word otherwise
-  const bool vec = (Np / 32) % 4 == 0 && reinterpret_cast<uintptr_t>(graph) % 16 == 0;
-  auto kernel = vec ? nms_resolve_kernel<true> : nms_resolve_kernel<false>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        nms_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<P, kResolveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  nms_resolve_kernel<<<P, kResolveThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph), static_cast<const unsigned char*>(svalid),
       static_cast<unsigned char*>(alive), Np);
   return static_cast<int>(cudaGetLastError());

@@ -153,15 +153,15 @@ def generate_proposals_levels(cfg: RPNConfig,
                               objectness: Sequence[torch.Tensor],
                               pred_deltas: Sequence[torch.Tensor],
                               anchors: Sequence[torch.Tensor],
-                              mesh_size: Sequence[int] | torch.Tensor,
+                              grid: torch.Tensor,
                               padding_masks: Sequence[torch.Tensor] | None = None):
     """Fixed-capacity proposal generation on per-level head outputs.
 
     ``objectness`` per level (B, N_l); ``pred_deltas`` per level in the
     head's native (B, V_l, A*D) layout; ``anchors`` per level (N_l, 6) f32;
-    ``mesh_size`` the (3,) grid the boxes are clipped to, as numbers or as
-    an f32 tensor on the outputs' device (made once by the caller, so that
-    no call copies it from the host).
+    ``grid`` the (3,) f32 grid size the boxes are clipped to, on the
+    outputs' device (made once by the caller, so that no call copies it
+    from the host).
 
     Returns dict with boxes (B, K, 6), scores (B, K), level_idx (B, K) and
     valid (B, K) -- K = post_nms_top_n, score-sorted, masked entries last
@@ -191,9 +191,7 @@ def generate_proposals_levels(cfg: RPNConfig,
                           device=raw_scores.device)[None, :, None].expand_as(raw_scores)
     probs = torch.sigmoid(raw_scores)
 
-    grid = (mesh_size.to(boxes.dtype) if torch.is_tensor(mesh_size)
-            else torch.tensor(mesh_size, dtype=boxes.dtype, device=boxes.device))
-    boxes = clip_boxes_to_grid(boxes, grid)
+    boxes = clip_boxes_to_grid(boxes, grid.to(boxes.dtype))
     valid = small_box_mask(boxes, cfg.min_size)
     valid &= probs >= cfg.score_thresh
     valid &= raw_scores > NEG_INF / 2  # padded-anchor / padded-slot sentinels

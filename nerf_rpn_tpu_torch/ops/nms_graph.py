@@ -25,6 +25,7 @@ import torch
 from nerf_rpn_tpu_torch import kernels
 
 WORD = 32
+RESOLVE_MULTIPLE = 128  # 16-byte rows of the graph for the resolve kernel
 
 
 def pack_bits(b: torch.Tensor) -> torch.Tensor:
@@ -97,24 +98,35 @@ def resolve_sweep(graph: torch.Tensor, svalid: torch.Tensor,
     return svalid & ~sup
 
 
-def resolve_keep_reference(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the resolve kernel: sweeps to the fixpoint.
+def resolve_fixpoint(graph: torch.Tensor,
+                     svalid: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The sweep loop to its fixpoint: ``(alive, sweeps)``, ``sweeps`` the
+    number of sweeps it ran, the last one (which changed nothing) included.
 
-    Every sweep fixes at least the next box of the greedy order, so Np
-    sweeps always suffice; each sweep ends in a host sync (``torch.equal``).
+    Every sweep fixes at least the next box of the greedy order, so Np + 1
+    sweeps always suffice; each sweep but the first ends in a host sync
+    (``torch.equal``).
     """
     alive = resolve_sweep(graph, svalid, svalid)
-    for _ in range(graph.shape[1]):
+    for sweeps in range(2, graph.shape[1] + 2):
         nxt = resolve_sweep(graph, svalid, alive)
         if torch.equal(nxt, alive):
             break
         alive = nxt
-    return alive
+    return alive, sweeps
+
+
+def resolve_keep_reference(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the resolve kernel: the sweep loop's fixpoint."""
+    return resolve_fixpoint(graph, svalid)[0]
 
 
 def resolve_keep(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
     """Greedy NMS keep-set in the sorted order: int32 (P, Np, Np/32) graph
-    and (P, Np) bool validity -> (P, Np) bool.
+    and (P, Np) bool validity -> (P, Np) bool.  The kernel reads a row's
+    words 16 bytes at a time, so on CUDA tensors Np is a multiple of
+    ``RESOLVE_MULTIPLE`` (``nms_mask`` pads to 256) and the graph 16-byte
+    aligned.
 
     CPU tensors take the sweep twin; CUDA tensors launch the resolve kernel
     or raise.
@@ -123,8 +135,10 @@ def resolve_keep(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
         return resolve_keep_reference(graph, svalid)
     if graph.device.type != "cuda":
         raise ValueError(f"unsupported device {graph.device}")
-    if graph.dim() != 3 or graph.shape[1] % WORD or graph.shape[2] != graph.shape[1] // WORD:
-        raise ValueError(f"graph must be (P, Np, Np/{WORD}), got {tuple(graph.shape)}")
+    if (graph.dim() != 3 or graph.shape[1] % RESOLVE_MULTIPLE
+            or graph.shape[2] != graph.shape[1] // WORD):
+        raise ValueError(f"graph must be (P, Np, Np/{WORD}) with Np a multiple of "
+                         f"{RESOLVE_MULTIPLE}, got {tuple(graph.shape)}")
     if graph.dtype != torch.int32 or svalid.dtype != torch.bool:
         raise TypeError(f"graph must be int32 and svalid bool, got {graph.dtype}, "
                         f"{svalid.dtype}")
@@ -133,6 +147,8 @@ def resolve_keep(graph: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"svalid must be ({p}, {np_}) on {graph.device}, got "
                          f"{tuple(svalid.shape)} on {svalid.device}")
     graph, svalid = graph.contiguous(), svalid.contiguous()
+    if graph.data_ptr() % 16:
+        raise ValueError("graph must be 16-byte aligned")
     alive = torch.empty((p, np_), dtype=torch.bool, device=graph.device)
     kernels.launch(
         "nms_resolve", graph.data_ptr(), svalid.data_ptr(), alive.data_ptr(), p, np_,

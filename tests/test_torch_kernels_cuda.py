@@ -25,6 +25,7 @@ from nerf_rpn_tpu_torch.ops.fused_mlp import (
 )
 from nerf_rpn_tpu_torch.ops.nms import nms_mask
 from nerf_rpn_tpu_torch.ops.nms_graph import (
+    RESOLVE_MULTIPLE,
     aabb_suppression_graph,
     aabb_suppression_graph_reference,
     resolve_keep,
@@ -233,7 +234,7 @@ NMS_TILES = [(p, n, t) for p in (1, 4, 16) for n in (32, 64, 256, 2560, 8192)
 
 @pytest.mark.parametrize("p,n,thresh", NMS_TILES)
 def test_suppression_graph_kernel_tiles_bit_exact(cuda, p, n, thresh):
-    """K3's tiles (64 rows x 8 words): ragged edges, the diagonal, tiles
+    """K3's tiles (32 rows x 8 words): ragged edges, the diagonal, tiles
     wholly above it, zero-volume pads and a zero threshold."""
     boxes = _nms_boxes(p, n, n // 8, seed=n + p).to(cuda)
     out = aabb_suppression_graph(boxes, thresh)
@@ -249,7 +250,11 @@ def _svalid(p, n, seed):
     return valid
 
 
-@pytest.mark.parametrize("p,n,thresh", NMS_TILES)
+# the resolve kernel reads 16-byte quads of a row: Np a multiple of 128
+NMS_RESOLVE = [(p, n, t) for p, n, t in NMS_TILES if n % RESOLVE_MULTIPLE == 0]
+
+
+@pytest.mark.parametrize("p,n,thresh", NMS_RESOLVE)
 def test_resolve_kernel_matches_sweep_twin(cuda, p, n, thresh):
     boxes = _nms_boxes(p, n, n // 8, seed=n + p).to(cuda)
     graph = aabb_suppression_graph(boxes, thresh)
@@ -304,8 +309,8 @@ def test_nms_mask_cuda_matches_cpu_at_the_bench_problem(cuda):
 
 
 def test_resolve_kernel_rejects_bad_shapes_and_dtypes(cuda):
-    graph = aabb_suppression_graph(_nms_boxes(2, 64, 0).to(cuda), 0.3)
-    svalid = torch.ones((2, 64), dtype=torch.bool, device=cuda)
+    graph = aabb_suppression_graph(_nms_boxes(2, 256, 0).to(cuda), 0.3)
+    svalid = torch.ones((2, 256), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         resolve_keep(graph[:, :, :1], svalid)
     with pytest.raises(ValueError):
@@ -314,6 +319,13 @@ def test_resolve_kernel_rejects_bad_shapes_and_dtypes(cuda):
         resolve_keep(graph.long(), svalid)
     with pytest.raises(TypeError):
         resolve_keep(graph, svalid.int())
+    unaligned = torch.zeros(graph.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError):  # contiguous, one word off 16-byte alignment
+        resolve_keep(unaligned.view(graph.shape).copy_(graph), svalid)
+    for n in (32, 64):  # rows not whole 16-byte quads
+        small = aabb_suppression_graph(_nms_boxes(2, n, 0).to(cuda), 0.3)
+        with pytest.raises(ValueError):
+            resolve_keep(small, svalid[:, :n])
 
 
 def row_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
