@@ -62,7 +62,22 @@ nonzero before the result lines:
    around it (K2 once per block and step: 24 a step);
    ``--mode eval --checkpoint <save>/model_best``; then 20
    timed train steps at that shape (ms/step with CUDA events, peak device
-   memory).
+   memory);
+11. OBB NMS (``--rotated_bbox``): the bench scene's problem of the rotated
+   Swin-S bf16 eval step (4 x 2560, decoded as OBBs from its head
+   outputs): the rotated graph (plain torch) and the resolve kernel on the
+   card against ``nms_mask`` on CPU copies (equal keep-sets), the resolve
+   kernel against its sweep twin on that graph, ``nms_mask``'s device ms,
+   the gated pairs, the host syncs counted under
+   ``torch.cuda.set_sync_debug_mode("warn")`` and the kernels it launched
+   (the resolve kernel once, K3 never);
+12. the OBB eval path: ``run_rpn --mode benchmark --rotated_bbox`` (Swin-S,
+   bf16, 208x208x144): ms a scene, launches a scene (K5 24, K6 24, K4 12,
+   K1 12, resolve 1, K3 0);
+13. the OBB train path, ``scripts/train.sh``'s configuration:
+   ``run_rpn --mode train --rotated_bbox`` on synthetic OBB scenes at
+   160^3 (Swin-S, bf16, batch 2, smooth-L1), ``--mode eval --checkpoint``,
+   then 20 timed OBB train steps (K1 and K2 24 a step).
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -75,8 +90,11 @@ K1 and K4, its autograd backward for K2), timed as a yardstick only.
 input read once, each output written once) over the memory rate and the
 operations over the peak rate for their type.
 
-The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
-and ``{"ok": true, "device": {...}}``.  Imports no jax.
+Each path (AABB eval, AABB train, OBB eval, OBB train) runs with the
+launch counts set to 0 just before it and read just after; a kernel's
+``launches`` in the record is its sum over the four.  The last three
+lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
+true, "device": {...}}``.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -444,17 +462,19 @@ def check_suppression_graph(torch, dev):
     return row
 
 
-def bench_eval_step(torch):
+def bench_eval_step(torch, rotated=False):
     """The eval step of ``run_rpn --mode benchmark`` (Swin-S, bf16,
-    200x200x130 padded to 208x208x144, random weights from seed 0), its
-    random grid and the scene's size: ``(eval_step, grids, ori)``."""
+    200x200x130 padded to 208x208x144, random weights from seed 0; OBBs
+    with ``rotated``), its random grid and the scene's size: ``(eval_step,
+    grids, ori)``."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.cli import run_rpn
 
     size = run_rpn.BENCH_SHAPE
     args = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", "swin_s", "--bf16",
-                               "--resolution", str(size[0]), "--pad_multiple", "16"])
+                               "--resolution", str(size[0]), "--pad_multiple", "16",
+                               *(["--rotated_bbox"] if rotated else [])])
     trainer = run_rpn.Trainer(args)
     shape = tuple(-(-s // 16) * 16 for s in size)
     eval_step = trainer.eval_step(shape)
@@ -581,6 +601,69 @@ def check_nms_resolve(torch, dev):
                  **bound(nbytes(boxes, scores, valid, valid), graph_ops(p, np_), "float32"))
     print("nms_mask", json.dumps(whole), flush=True)
     return resolve
+
+
+def count_syncs(torch, fn):
+    """``(result of fn(), host syncs it made)``: the syncs are the warnings
+    of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def check_obb_nms(torch):
+    """OBB NMS at the bench scene: the rotated Swin-S bf16 eval step's NMS
+    problem (4 x 2560 OBBs decoded from its head outputs).  The keep-set on
+    the card (rotated graph in torch, resolve kernel) must equal the one on
+    CPU copies; the resolve kernel must equal its sweep twin on the card's
+    graph.  Prints ``nms_mask``'s device ms (host syncs included), its
+    graph build's and the resolve kernel's, the gated pairs, the host syncs
+    of ``nms_mask`` and of the whole propose step, and the launches."""
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.ops.nms import nms_mask, obb_suppression_graph, sort_problems
+    from nerf_rpn_tpu_torch.ops.nms_graph import resolve_keep, resolve_keep_reference
+
+    eval_step, grids, ori = bench_eval_step(torch, rotated=True)
+    _, obj, dl, _ = eval_step.forward(grids)
+    boxes, scores, valid, thresh = capture_nms_problem(eval_step, obj, dl, ori)
+    if boxes.shape[-1] != 7:
+        fail(f"the rotated eval step's NMS problem is {tuple(boxes.shape)}, not OBBs")
+    kernels.reset_counts()
+    keep, nms_syncs = count_syncs(torch, lambda: nms_mask(boxes, scores, valid, thresh))
+    launches = {k: v for k, v in kernels.counts().items() if v}
+    if launches != {"nms_resolve": 1}:
+        fail(f"OBB nms_mask launched {launches}, expected the resolve kernel once")
+    cpu_keep = nms_mask(boxes.cpu(), scores.cpu(), valid.cpu(), thresh)
+    if not torch.equal(keep.cpu(), cpu_keep):
+        fail(f"OBB nms_mask on the card differs from the CPU in "
+             f"{(keep.cpu() != cpu_keep).sum().item()} boxes")
+    _, sboxes, svalid = sort_problems(boxes, scores, valid)
+    stats = {}
+    graph = obb_suppression_graph(sboxes, thresh, stats=stats)
+    alive = resolve_keep(graph, svalid)
+    if not torch.equal(alive, resolve_keep_reference(graph, svalid)):
+        fail("resolve kernel differs from the sweep twin on the OBB graph")
+    _, propose_syncs = count_syncs(torch, lambda: eval_step.propose(obj, dl, ori))
+    p, np_ = svalid.shape
+    row = dict(P=p, N=boxes.shape[1], Np=np_, valid=int(valid.sum()), kept=int(keep.sum()),
+               pairs=stats["pairs"], gated=stats["gated"],
+               gate_pass_rate=stats["gated"] / stats["pairs"],
+               syncs_nms_mask=nms_syncs, syncs_by_chunk=stats["syncs"],
+               syncs_propose=propose_syncs, launches=launches,
+               ms=time_one(torch, lambda: nms_mask(boxes, scores, valid, thresh)),
+               graph_ms=time_one(torch, lambda: obb_suppression_graph(sboxes, thresh)),
+               resolve_ms=time_one(torch, lambda: resolve_keep(graph, svalid)))
+    print("nms_mask_obb", json.dumps(row), flush=True)
+    return row
 
 
 def check_fused_window_attention(torch, dev):
@@ -836,6 +919,38 @@ def run_eval_path(torch, workdir):
     return launches, bench
 
 
+def run_obb_benchmark(torch):
+    """``run_rpn --mode benchmark --rotated_bbox`` (Swin-S, bf16,
+    208x208x144): ms a scene, and the launches a scene -- the eval kernels
+    as on the AABB path, the resolve kernel once, K3 never."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    kernels.reset_counts()
+    bench = run_rpn.main(["--mode", "benchmark", "--rotated_bbox", "--backbone_type", "swin_s",
+                          "--bf16", "--resolution", "200", "--pad_multiple", "16",
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    times = [bench[k] for k in ("forward_ms", "propose_ms", "total_ms")]
+    if not all(np.isfinite(times)) or bench["valid_proposals"] <= 0:
+        fail(f"OBB benchmark {bench}")
+    print(f"[obb eval path] benchmark {bench['shape']} bf16, {bench['reps']} reps: "
+          f"forward {bench['forward_ms']:.3f} ms/scene, propose "
+          f"{bench['propose_ms']:.3f} ms/scene, whole {bench['total_ms']:.3f} "
+          f"ms/scene (median {bench['total_median_ms']:.3f}, "
+          f"p{bench['tail_percentile']:.1f} {bench['total_tail_ms']:.3f})", flush=True)
+    scenes = bench["reps"] + bench["warmup"]
+    per_scene = {k: v / scenes for k, v in launches.items() if v}
+    if per_scene != OBB_EVAL_LAUNCHES_PER_SCENE:
+        fail(f"OBB eval path: launches per scene {per_scene}, expected "
+             f"{OBB_EVAL_LAUNCHES_PER_SCENE}")
+    print(f"[obb eval path] launches per benchmark scene {json.dumps(per_scene)}", flush=True)
+    return launches, bench
+
+
 def check_small_train_step(torch, dev):
     """swin_t at 64^3, f32, batch 2, drop-path off: one train step on the
     GPU (K1 forward, K2 backward) against the same step on the CPU (plain
@@ -925,43 +1040,58 @@ TRAIN_KERNELS = ("window_attention_bwd", *EVAL_KERNELS)
 EVAL_LAUNCHES_PER_SCENE = {"ln_partition_qkv": 24.0, "fused_mlp_block": 24.0,
                            "fused_window_attention": 12.0, "window_attention_fwd": 12.0,
                            "aabb_suppression_graph": 1.0, "nms_resolve": 1.0}
+# OBBs: the same eval kernels, the rotated graph in torch, so no K3
+OBB_EVAL_KERNELS = tuple(k for k in EVAL_KERNELS if k != "aabb_suppression_graph")
+OBB_TRAIN_KERNELS = ("window_attention_bwd", *OBB_EVAL_KERNELS)
+OBB_EVAL_LAUNCHES_PER_SCENE = {k: v for k, v in EVAL_LAUNCHES_PER_SCENE.items()
+                               if k != "aabb_suppression_graph"}
 
 
-def require_launches(launches, names, path):
+def require_launches(launches, names, path, absent=()):
     for name in names:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
+    for name in absent:
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched {launches[name]} times on the {path} path")
     print(f"[{path} path] launches {json.dumps(launches)}", flush=True)
 
 
-def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda"):
+def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda",
+                     rotated=False):
     """4 train, 2 validation and 2 test synthetic scenes at ``resolution``^3
-    under ``workdir``, and the ``run_rpn`` arguments of the train path
-    (bf16, batch 2) that read them: ``(data dir, arguments)``."""
+    under ``workdir`` (OBBs with ``rotated``), and the ``run_rpn`` arguments
+    of the train path (bf16, batch 2; ``--rotated_bbox`` with ``rotated``)
+    that read them: ``(data dir, arguments)``."""
     from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 
-    data = os.path.join(workdir, "data160")
+    data = os.path.join(workdir, "data160_obb" if rotated else "data160")
     write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2,
-                            resolution=(resolution,) * 3, seed=1,
+                            resolution=(resolution,) * 3, seed=1, rotated=rotated,
                             box_size=(resolution / 10, resolution / 4))
     common = ["--backbone_type", backbone, "--bf16", "--resolution", str(resolution),
               "--batch_size", "2", "--device", device, "--features_path", data,
-              "--boxes_path", data, "--dataset_split", os.path.join(data, "split.npz")]
+              "--boxes_path", data, "--dataset_split", os.path.join(data, "split.npz"),
+              *(["--rotated_bbox"] if rotated else [])]
     return data, common
 
 
-def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda"):
+def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda",
+                   rotated=False):
     """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
-    batch 2), then ``--mode eval --checkpoint <save>/model_best``.  The
-    keywords shrink the run for a rehearsal on the CPU."""
+    batch 2; OBBs and ``--rotated_bbox`` with ``rotated``, the
+    ``scripts/train.sh`` configuration), then ``--mode eval --checkpoint
+    <save>/model_best``.  The other keywords shrink the run for a rehearsal
+    on the CPU."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_rpn
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
 
-    data, common = write_train_data(workdir, resolution, backbone, device)
-    save = os.path.join(workdir, "train")
+    path = "obb train" if rotated else "train"
+    data, common = write_train_data(workdir, resolution, backbone, device, rotated)
+    save = os.path.join(workdir, "train_obb" if rotated else "train")
     t0 = time.perf_counter()
     kernels.reset_counts()
     logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
@@ -970,26 +1100,28 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     launches = kernels.counts()
     train_s = time.perf_counter() - t0
     if len(logged) != 2:
-        fail(f"train path: expected 2 logged steps, got {len(logged)}")
+        fail(f"{path} path: expected 2 logged steps, got {len(logged)}")
     for m in logged:
         vals = [m[k] for k in ("loss", "loss_objectness", "loss_rpn_box_reg",
                                "grad_norm", "param_norm")]
         if not (np.all(np.isfinite(vals)) and m["loss"] > 0):
-            fail(f"train path: bad metrics {m}")
+            fail(f"{path} path: bad metrics {m}")
     for name in ("model_best", "epoch_1", "model_best.args.json"):
         if not os.path.isfile(os.path.join(save, name)):
-            fail(f"train path: {name} was not written")
-    print(f"[train path] 1 epoch, 2 steps + validation eval in {train_s:.1f} s; losses "
+            fail(f"{path} path: {name} was not written")
+    print(f"[{path} path] 1 epoch, 2 steps + validation eval in {train_s:.1f} s; losses "
           + ", ".join(f"{m['loss']:.4f}" for m in logged), flush=True)
-    require_launches(launches, TRAIN_KERNELS, "train")
+    k3 = ("aabb_suppression_graph",)
+    require_launches(launches, OBB_TRAIN_KERNELS if rotated else TRAIN_KERNELS, path,
+                     absent=k3 if rotated else ())
     # the backward runs once per Swin block and train step
     want = len(logged) * sum(SWIN_VARIANTS[backbone]["depths"])
     if launches["window_attention_bwd"] != want:
-        fail(f"train path: window_attention_bwd launched {launches['window_attention_bwd']} "
+        fail(f"{path} path: window_attention_bwd launched {launches['window_attention_bwd']} "
              f"times over {len(logged)} steps, expected {want}")
 
     kernels.reset_counts()
-    out = os.path.join(workdir, "eval_ckpt")
+    out = os.path.join(workdir, "eval_ckpt_obb" if rotated else "eval_ckpt")
     recalls, _ = run_rpn.main(["--mode", "eval", "--checkpoint",
                                os.path.join(save, "model_best"), "--save_path", out,
                                "--output_proposals", *common])
@@ -997,25 +1129,32 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     eval_launches = kernels.counts()
     files = sorted(os.listdir(os.path.join(out, "proposals")))
     if len(files) != 2 or not np.all(np.isfinite(recalls)):
-        fail(f"eval from the checkpoint: files {files}, recalls {recalls}")
+        fail(f"{path} eval from the checkpoint: files {files}, recalls {recalls}")
     for name in files:
         with np.load(os.path.join(out, "proposals", name)) as z:
             p, s = z["proposal"], z["score"]
-        if p.shape[0] == 0 or not (np.isfinite(p).all() and np.isfinite(s).all()):
-            fail(f"eval from the checkpoint: {name} proposals {p.shape}")
-    print(f"[train path] eval --checkpoint model_best: recall@50 {recalls[0]:.4f} "
+        if (p.shape[0] == 0 or p.shape[1] != (7 if rotated else 6)
+                or not (np.isfinite(p).all() and np.isfinite(s).all())):
+            fail(f"{path} eval from the checkpoint: {name} proposals {p.shape}")
+    print(f"[{path} path] eval --checkpoint model_best: recall@50 {recalls[0]:.4f} "
           f"on 2 scenes", flush=True)
-    require_launches(eval_launches, EVAL_KERNELS, "eval-from-checkpoint")
+    require_launches(eval_launches, OBB_EVAL_KERNELS if rotated else EVAL_KERNELS,
+                     f"{path} eval-from-checkpoint", absent=k3 if rotated else ())
+    for k, v in eval_launches.items():
+        launches[k] += v
     return launches, data, common
 
 
 def time_train_steps(torch, data, common, steps=20, warmup=3):
     """Device ms per train step (CUDA events around each step) and the
-    peak device memory, at the train path's shape on its first batch."""
+    peak device memory, at the train path's shape on its first batch; K1
+    and K2 must run once per Swin block and step."""
     import numpy as np
 
+    from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.data.datasets import batch_iterator
     from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
 
@@ -1025,7 +1164,8 @@ def time_train_steps(torch, data, common, steps=20, warmup=3):
     train_set, _, _ = run_rpn.common.build_datasets(args, "train", augment=False)
     host = next(iter(batch_iterator(
         train_set, args.batch_size, shuffle=False, drop_last=True,
-        pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=6,
+        pad_multiple=args.pad_multiple, max_gt=args.max_gt,
+        box_dim=7 if args.rotated_bbox else 6,
         fixed_shape=trainer.mesh_shape, num_workers=0)))
     batch = trainer.to_device(host)
     state = TrainState(trainer.model, args.lr, steps + warmup, args.weight_decay,
@@ -1038,6 +1178,7 @@ def time_train_steps(torch, data, common, steps=20, warmup=3):
         step(state, batch, gen, drop)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(steps)]
     losses = []
@@ -1048,12 +1189,18 @@ def time_train_steps(torch, data, common, steps=20, warmup=3):
         b.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_step = {k: v / steps for k, v in kernels.counts().items() if v}
+    blocks = sum(SWIN_VARIANTS[args.backbone_type]["depths"])
+    if per_step != {"window_attention_fwd": blocks, "window_attention_bwd": blocks}:
+        fail(f"timed train steps: launches per step {per_step}, expected K1 and K2 "
+             f"{blocks} each")
     ms = np.array([a.elapsed_time(b) for a, b in events])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.all(np.isfinite(losses)):
         fail(f"timed train steps: non-finite losses {losses}")
-    row = {"shape": list(trainer.mesh_shape), "batch": args.batch_size, "steps": steps,
+    row = {"rotated": args.rotated_bbox, "shape": list(trainer.mesh_shape),
+           "batch": args.batch_size, "steps": steps, "launches_per_step": per_step,
            "ms_per_step_mean": float(ms.mean()), "ms_per_step_median": float(np.median(ms)),
            "ms_per_step_min": float(ms.min()), "ms_per_step_max": float(ms.max()),
            "wall_ms_per_step": wall_ms, "peak_mem_gib": peak_gib,
@@ -1121,21 +1268,38 @@ def main() -> None:
     check_small_train_step(torch, dev)
     phase_done(torch, "small train step vs CPU", t0)
 
+    t0 = time.perf_counter()
+    check_obb_nms(torch)
+    phase_done(torch, "OBB NMS vs CPU", t0)
+
+    # each path runs with the counts set to 0 just before it
+    paths = {}
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
-        eval_launches, _ = run_eval_path(torch, work)
+        paths["eval"], _ = run_eval_path(torch, work)
         phase_done(torch, "eval path", t0)
 
         t0 = time.perf_counter()
-        train_launches, data, common = run_train_path(torch, work)
+        paths["train"], data, common = run_train_path(torch, work)
         phase_done(torch, "train path", t0)
 
         t0 = time.perf_counter()
         time_train_steps(torch, data, common)
         phase_done(torch, "timed train steps", t0)
 
-    # launches: K2 from the train path's run (train steps + validation
-    # eval), the others from the eval path's run (eval + benchmark)
+        t0 = time.perf_counter()
+        paths["obb eval"], _ = run_obb_benchmark(torch)
+        phase_done(torch, "OBB eval path", t0)
+
+        t0 = time.perf_counter()
+        paths["obb train"], data, common = run_train_path(torch, work, rotated=True)
+        phase_done(torch, "OBB train path", t0)
+
+        t0 = time.perf_counter()
+        time_train_steps(torch, data, common)
+        phase_done(torch, "timed OBB train steps", t0)
+
+    print("[launches by path]", json.dumps(paths), flush=True)
     entries = [
         ("window_attention_fwd", "window_attention.cu", "window_attention.py:80", k1),
         ("window_attention_bwd", "window_attention_bwd.cu", "window_attention.py:313", k2),
@@ -1149,7 +1313,7 @@ def main() -> None:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"nerf_rpn_tpu_torch/csrc/{src}",
          "replaces": f"nerf_rpn_tpu/ops/{tpu}",
-         "launches": (train_launches if name == "window_attention_bwd" else eval_launches)[name],
+         "launches": sum(counts[name] for counts in paths.values()),
          **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}}
         for name, src, tpu, row in entries]}

@@ -1,7 +1,8 @@
 """Where the eval step's time goes on the GPU: Swin-S at the bench shape.
 
-Builds the anchor RPN (random weights from ``--seed``) and the eval step of
-``run_rpn`` at 200x200x130 padded to ``--pad_multiple``, then:
+Builds the anchor RPN (random weights from ``--seed``; OBBs with
+``--rotated_bbox``) and the eval step of ``run_rpn`` at 200x200x130 padded
+to ``--pad_multiple``, then:
 
 1. times ``--scenes`` scenes after 10 warm-up scenes with CUDA events,
    split into forward and propose (ms per scene, mean and median);
@@ -16,8 +17,8 @@ Builds the anchor RPN (random weights from ``--seed``) and the eval step of
 
 Run on a GPU from the repository root::
 
-    python -m nerf_rpn_tpu_torch.cli.profile_eval [--bf16] [--scenes 50] \\
-        [--trace out.json]
+    python -m nerf_rpn_tpu_torch.cli.profile_eval [--bf16] [--rotated_bbox] \\
+        [--scenes 50] [--trace out.json]
 
 It prints one JSON line per section; ``--trace`` writes the chrome trace.
 """
@@ -40,6 +41,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--backbone_type", default="swin_s")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--rotated_bbox", action="store_true")
     p.add_argument("--pad_multiple", type=int, default=16)
     p.add_argument("--scenes", type=int, default=50)
     p.add_argument("--profiled", type=int, default=5)
@@ -95,7 +97,8 @@ def main(argv=None) -> dict:
         raise RuntimeError("profile_eval times the GPU: torch.cuda.is_available() is False")
     rargs = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", args.backbone_type,
                                 "--pad_multiple", str(args.pad_multiple), "--seed",
-                                str(args.seed), *(["--bf16"] if args.bf16 else [])])
+                                str(args.seed), *(["--bf16"] if args.bf16 else []),
+                                *(["--rotated_bbox"] if args.rotated_bbox else [])])
     trainer = run_rpn.Trainer(rargs)
     shape = tuple(run_rpn.round_up(s, args.pad_multiple) for s in run_rpn.BENCH_SHAPE)
     step = trainer.eval_step(shape)
@@ -122,7 +125,8 @@ def main(argv=None) -> dict:
     fwd = np.array([a.elapsed_time(b) for a, b, _ in ev])
     prop = np.array([b.elapsed_time(c) for _, b, c in ev])
     timing = {"device": torch.cuda.get_device_name(0), "shape": list(shape),
-              "dtype": str(trainer.dtype), "scenes": args.scenes,
+              "dtype": str(trainer.dtype), "rotated": args.rotated_bbox,
+              "scenes": args.scenes,
               "forward_ms": float(fwd.mean()), "forward_median_ms": float(np.median(fwd)),
               "propose_ms": float(prop.mean()), "total_ms": float((fwd + prop).mean())}
     print("[timing]", json.dumps(timing), flush=True)

@@ -1,8 +1,9 @@
 """Anchor NeRF-RPN command line, torch port: ``--mode train | eval | benchmark``.
 
 Port of ``nerf_rpn_tpu/cli/run_rpn.py`` for the Swin backbones with
-axis-aligned boxes and the smooth-L1 box loss, in f32 or ``--bf16``, on one
-device.  The flags are the JAX CLI's flags that these modes read, plus:
+axis-aligned boxes, or oriented ones with ``--rotated_bbox`` (the
+midpoint-offset coder, 8 deltas an anchor), and the smooth-L1 box loss, in
+f32 or ``--bf16``, on one device.  The flags are the JAX CLI's flags that these modes read, plus:
 
 - ``--weights <npz>``: a flax params tree flattened to ``a/b/c`` keys
   (``nerf_rpn_tpu_torch.weights.save_npz``); without it (and without
@@ -22,15 +23,14 @@ the reference layout), pruned to ``--keep_checkpoints``.  ``--checkpoint``
 Datasets, ``unmask_proposals``, the proposals npz and the Recall/AP report
 with its ``eval.json`` are the port's copies of the JAX package's host code
 (``cli/common.py``, ``data/``, ``evaluation/metrics.py``).
-Not ported yet: ``--rotated_bbox``, ``--reg_loss_type`` other than
-``smooth_l1``, multi-GPU training (``--gpus``), ``--wandb``,
+Not ported yet: ``--reg_loss_type`` other than ``smooth_l1``, multi-GPU training (``--gpus``), ``--wandb``,
 ``--check_arch``, ``--save_results`` and ``--output_all``; orbax and
 ``.msgpack`` checkpoints are not read.
 
 Example::
 
     python -m nerf_rpn_tpu_torch.cli.run_rpn --mode train --backbone_type swin_s \\
-        --bf16 --features_path data --boxes_path data \\
+        --bf16 --rotated_bbox --features_path data --boxes_path data \\
         --dataset_split data/split.npz --save_path out --resolution 160 \\
         --batch_size 2 --num_epochs 1
 """
@@ -131,13 +131,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) | cpu.")
     args = p.parse_args(argv)
-    if args.rotated_bbox:
-        raise NotImplementedError(
-            "--rotated_bbox is not ported to torch yet (ROADMAP.md, queue 1, item 6)")
     if args.gpus or args.wandb:
         raise NotImplementedError(
             "--gpus (multi-GPU training) and --wandb are not ported to torch yet "
-            "(ROADMAP.md, queue 1, item 8)")
+            "(ROADMAP.md: \"DDP\")")
     return args
 
 
@@ -156,8 +153,9 @@ class Trainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         side = round_up(args.resolution, args.pad_multiple)
         self.mesh_shape = (side, side, side)
+        self.box_dim = 7 if args.rotated_bbox else 6
         self.model = NeRFRPN(args.backbone_type, conv_depth=args.rpn_head_conv_depth,
-                             dtype=self.dtype)
+                             rotated=args.rotated_bbox, dtype=self.dtype)
         if args.weights:
             sd = weights_lib.from_jax_params(weights_lib.load_npz(args.weights))
             self.model.load_state_dict(sd, strict=True)
@@ -178,6 +176,7 @@ class Trainer:
     def _make_cfg(self, pre_nms: int, post_nms: int) -> RPNConfig:
         a = self.args
         return RPNConfig(
+            rotated=a.rotated_bbox,
             fg_iou_thresh=a.rpn_fg_iou_thresh,
             bg_iou_thresh=a.rpn_bg_iou_thresh,
             batch_size_per_mesh=a.rpn_batch_size_per_mesh,
@@ -226,7 +225,7 @@ class Trainer:
         for epoch in range(1, args.num_epochs + 1):
             it = batch_iterator(
                 train_set, args.batch_size, shuffle=True, seed=epoch, drop_last=True,
-                pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=6,
+                pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=self.box_dim,
                 fixed_shape=self.mesh_shape, num_workers=args.num_workers)
             for i, batch in enumerate(prefetch_iterator(it, depth=args.prefetch_batches)):
                 t0 = time.perf_counter()
@@ -262,7 +261,7 @@ class Trainer:
         eval_step = self.eval_step(self.mesh_shape)
         it = batch_iterator(
             dataset, args.batch_size, shuffle=False,
-            pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=6,
+            pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=self.box_dim,
             fixed_shape=self.mesh_shape, num_workers=args.num_workers)
         proposals_list, scores_list, gt_boxes_list, scenes_list = [], [], [], []
         for batch in prefetch_iterator(it, depth=args.prefetch_batches):
@@ -273,14 +272,14 @@ class Trainer:
             host = {k: v.float().cpu().numpy() if v.is_floating_point()
                     else v.cpu().numpy()
                     for k, v in out.items() if k != "voxel_scores"}
-            props, scs, _ = common.unmask_proposals(host, 6)
+            props, scs, _ = common.unmask_proposals(host, self.box_dim)
             proposals_list.extend(props)
             scores_list.extend(scs)
             scenes_list.extend(names)
             for i in range(len(names)):
                 gt_boxes_list.append(
-                    batch["gt_boxes"][i][gt_mask[i]][:, :6] if gt_mask[i].any()
-                    else np.zeros((0, 6), np.float32))
+                    batch["gt_boxes"][i][gt_mask[i]][:, :self.box_dim] if gt_mask[i].any()
+                    else np.zeros((0, self.box_dim), np.float32))
             if args.output_voxel_scores:
                 for i, name in enumerate(names):
                     common.output_voxel_scores_npz(

@@ -15,8 +15,8 @@ augmentations operate on the spatial axes 0..2.
 
 Copy of ``nerf_rpn_tpu/data/augment.py`` for the torch port.  The small
 rotation + scale resamples in numpy only (the JAX package's native C++
-resample is not carried over); it runs for OBB boxes only, which the port
-does not train yet.
+resample is not carried over); it runs for OBB boxes only
+(``run_rpn --rotated_bbox``).
 """
 
 from __future__ import annotations

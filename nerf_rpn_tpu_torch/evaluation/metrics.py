@@ -1,12 +1,12 @@
-"""Recall / AR / AP of AABB proposals (host-side numpy).
+"""Recall / AR / AP of AABB and OBB proposals (host-side numpy).
 
-Copy, for the torch port, of the AABB part of
-``nerf_rpn_tpu/evaluation/metrics.py`` -- the functions that the eval
-report (``cli/common.report_metrics``) and the proposal filter call.
+Copy, for the torch port, of the part of
+``nerf_rpn_tpu/evaluation/metrics.py`` that the eval report
+(``cli/common.report_metrics``) and the proposal filter call.
 Parity target: reference ``nerf_rpn/eval.py`` -- Detectron-style greedy
 one-to-one matching for recall (:14-81) and VOC AP with the precision
-envelope + delta-recall summation (:319-395).  Oriented (7-wide) boxes
-raise ``NotImplementedError`` until the rotated-geometry slice.
+envelope + delta-recall summation (:319-395).  The IoU of oriented
+(7-wide) boxes is ``ops/rotated_iou_pairwise``'s, on CPU tensors.
 
 Inputs are python lists of per-scene numpy arrays (variable length -- eval
 runs after the fixed-shape device pipeline has been unmasked).
@@ -15,10 +15,13 @@ runs after the fixed-shape device pipeline has been unmasked).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from nerf_rpn_tpu_torch.ops.rotated_iou_pairwise import pairwise_iou_rotated_3d_soa
 
 
 def _pairwise_iou_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
-    """(M, 6|7) x (N, 6|7) -> (M, N); AABB in numpy; OBB raises."""
+    """(M, 6|7) x (N, 6|7) -> (M, N); AABB in numpy, OBB in torch on the CPU."""
     if boxes1.shape[-1] == 6:
         lt = np.maximum(boxes1[:, None, :3], boxes2[None, :, :3])
         rb = np.minimum(boxes1[:, None, 3:], boxes2[None, :, 3:])
@@ -27,9 +30,9 @@ def _pairwise_iou_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
         v1 = (boxes1[:, 3:] - boxes1[:, :3]).prod(-1)
         v2 = (boxes2[:, 3:] - boxes2[:, :3]).prod(-1)
         return inter / (v1[:, None] + v2[None, :] - inter)
-    raise NotImplementedError(
-        "IoU of oriented boxes needs the rotated geometry, not ported to "
-        "torch yet (ROADMAP.md, queue 1, item 6)")
+    return pairwise_iou_rotated_3d_soa(
+        torch.from_numpy(np.ascontiguousarray(boxes1, np.float32)),
+        torch.from_numpy(np.ascontiguousarray(boxes2, np.float32))).numpy()
 
 
 def _greedy_match_overlaps(overlaps: np.ndarray, match_axis: int) -> np.ndarray:

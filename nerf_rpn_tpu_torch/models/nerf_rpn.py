@@ -26,17 +26,20 @@ def build_backbone(backbone_type: str, dtype: torch.dtype = torch.float32) -> nn
 
 
 class NeRFRPN(nn.Module):
-    """Returns (features, logits, deltas), each a per-level list."""
+    """Returns (features, logits, deltas), each a per-level list; with
+    ``rotated`` the head predicts 8 midpoint-offset deltas per anchor."""
 
     def __init__(self, backbone_type: str = "swin_s", num_anchors: int = 13,
-                 conv_depth: int = 4, dtype: torch.dtype = torch.float32):
+                 conv_depth: int = 4, rotated: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone_type = backbone_type
         self.num_anchors = num_anchors
         self.conv_depth = conv_depth
+        self.rotated = rotated
         self.dtype = dtype
         self.backbone = build_backbone(backbone_type, dtype)
-        self.rpn_head = RPNHead3D(256, num_anchors, conv_depth, dtype)
+        self.rpn_head = RPNHead3D(256, num_anchors, conv_depth, rotated, dtype)
 
     def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
         """``generator`` draws the backbone's stochastic-depth masks in

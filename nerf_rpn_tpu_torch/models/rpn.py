@@ -9,8 +9,9 @@ losses are ``rpn_losses`` split in three steps -- ``assign_anchors``
 can feed the JAX package's sampled indices to the last one.  The anchor
 tables come from ``models/anchors.py``, the port's copy of the JAX package's
 numpy module.
-The AABB path with the smooth-L1 regression only: OBB boxes and the IoU
-losses come with the rotated-geometry slice.
+Boxes are AABBs (6 deltas an anchor) or, with ``RPNConfig.rotated``, OBBs
+coded against the AABB anchors by the midpoint-offset coder (8 deltas).
+The regression loss is smooth-L1; the IoU losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +24,14 @@ import torch
 
 from nerf_rpn_tpu_torch.models import anchors as anchor_lib
 from nerf_rpn_tpu_torch.ops import coders
-from nerf_rpn_tpu_torch.ops.aabb import clip_boxes_to_grid, pairwise_iou_aabb, small_box_mask
+from nerf_rpn_tpu_torch.ops.aabb import (
+    clip_boxes_to_grid,
+    obb_center_valid_mask,
+    pairwise_iou_aabb,
+    small_box_mask,
+)
 from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask
+from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d, obb2points_3d
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
 from nerf_rpn_tpu_torch.utils.losses import bce_with_logits, smooth_l1
 from nerf_rpn_tpu_torch.utils.projection import project_points
@@ -35,6 +42,7 @@ from nerf_rpn_tpu_torch.utils.target_assign import match_anchors, sample_balance
 class RPNConfig:
     """Static RPN configuration (defaults = the reference CLI's)."""
 
+    rotated: bool = False
     fg_iou_thresh: float = 0.35
     bg_iou_thresh: float = 0.2
     batch_size_per_mesh: int = 256
@@ -51,18 +59,29 @@ class RPNConfig:
     min_size = 1e-3
     anchor_sizes = anchor_lib.DEFAULT_ANCHOR_SIZES
     aspect_ratios = anchor_lib.DEFAULT_ASPECT_RATIOS
-    delta_dim = 6
 
     def __post_init__(self):
         if self.reg_loss_type != "smooth_l1":
             raise NotImplementedError(
-                f"reg_loss_type {self.reg_loss_type!r} needs the rotated IoU "
-                "geometry, not ported to torch yet (ROADMAP.md, queue 1, item 6)")
+                f"reg_loss_type {self.reg_loss_type!r} is not ported to torch yet "
+                "(ROADMAP.md: \"Rotated geometry and the OBB main path: IoU losses\")")
+
+    @property
+    def box_dim(self) -> int:
+        return 7 if self.rotated else 6
+
+    @property
+    def delta_dim(self) -> int:
+        return 8 if self.rotated else 6
 
     def decode(self, deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+        if self.rotated:
+            return coders.decode_midpoint_offset(deltas, anchors)
         return coders.decode_aabb(deltas, anchors)
 
     def encode(self, gt: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+        if self.rotated:
+            return coders.encode_midpoint_offset(gt, anchors)
         return coders.encode_aabb(gt, anchors)
 
 
@@ -159,13 +178,13 @@ def generate_proposals_levels(cfg: RPNConfig,
 
     ``objectness`` per level (B, N_l); ``pred_deltas`` per level in the
     head's native (B, V_l, A*D) layout; ``anchors`` per level (N_l, 6) f32;
-    ``grid`` the (3,) f32 grid size the boxes are clipped to, on the
-    outputs' device (made once by the caller, so that no call copies it
-    from the host).
+    ``grid`` the (3,) f32 grid size, on the outputs' device (made once by
+    the caller, so that no call copies it from the host): AABBs are clipped
+    to it, OBBs whose centre leaves it are dropped.
 
-    Returns dict with boxes (B, K, 6), scores (B, K), level_idx (B, K) and
-    valid (B, K) -- K = post_nms_top_n, score-sorted, masked entries last
-    with score 0.
+    Returns dict with boxes (B, K, 6|7), scores (B, K), level_idx (B, K)
+    and valid (B, K) -- K = post_nms_top_n, score-sorted, masked entries
+    last with score 0.
     """
     b = objectness[0].shape[0]
     n_levels = len(objectness)
@@ -185,28 +204,33 @@ def generate_proposals_levels(cfg: RPNConfig,
         boxes_l.append(bx)
         scores_l.append(top_s)
 
-    boxes = torch.stack(boxes_l, dim=1)          # (B, L, kmax, 6)
+    boxes = torch.stack(boxes_l, dim=1)          # (B, L, kmax, 6|7)
     raw_scores = torch.stack(scores_l, dim=1)    # (B, L, kmax)
     levels = torch.arange(n_levels, dtype=torch.int32,
                           device=raw_scores.device)[None, :, None].expand_as(raw_scores)
     probs = torch.sigmoid(raw_scores)
 
-    boxes = clip_boxes_to_grid(boxes, grid.to(boxes.dtype))
-    valid = small_box_mask(boxes, cfg.min_size)
+    if cfg.rotated:
+        valid = obb_center_valid_mask(boxes, grid.to(boxes.dtype))
+        valid &= small_box_mask(boxes, cfg.min_size)
+    else:
+        boxes = clip_boxes_to_grid(boxes, grid.to(boxes.dtype))
+        valid = small_box_mask(boxes, cfg.min_size)
     valid &= probs >= cfg.score_thresh
     valid &= raw_scores > NEG_INF / 2  # padded-anchor / padded-slot sentinels
 
     # NMS per (scene, level): suppression is per level (the reference's
     # batched-NMS category semantics), so B*L independent problems
-    keep = nms_mask(boxes.reshape(b * n_levels, kmax, 6),
+    d = cfg.box_dim
+    keep = nms_mask(boxes.reshape(b * n_levels, kmax, d),
                     probs.reshape(b * n_levels, kmax),
                     valid.reshape(b * n_levels, kmax), cfg.nms_thresh)
 
     masked = torch.where(keep.reshape(b, n_levels, kmax), probs, NEG_INF)
     masked = masked.reshape(b, n_levels * kmax)
     top_s, top_i = safe_top_k(masked, cfg.post_nms_top_n)
-    flat_boxes = boxes.reshape(b, n_levels * kmax, 6)
-    out_boxes = torch.gather(flat_boxes, 1, top_i[..., None].expand(-1, -1, 6))
+    flat_boxes = boxes.reshape(b, n_levels * kmax, d)
+    out_boxes = torch.gather(flat_boxes, 1, top_i[..., None].expand(-1, -1, d))
     out_levels = torch.gather(levels.reshape(b, n_levels * kmax), 1, top_i)
     return {
         "boxes": out_boxes,
@@ -228,15 +252,17 @@ def voxel_objectness_scores(logits: Sequence[torch.Tensor]) -> list[torch.Tensor
 
 def assign_anchors(cfg: RPNConfig, anchors: torch.Tensor, gt_boxes: torch.Tensor,
                    gt_mask: torch.Tensor, padding_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, N) matches of the (N, 6) anchors to the (B, G, 6) zero-padded gt
-    boxes: gt index, -1 background, -2 ignore (padded anchors included).
+    """(B, N) matches of the (N, 6) anchors to the (B, G, 6|7) zero-padded
+    gt boxes: gt index, -1 background, -2 ignore (padded anchors included).
+    OBBs are matched by their enclosing AABBs.
 
     One scene at a time: the (G, N) IoU matrix of a scene is already
     243 MB in f32 at the train shape (G = 64, N = 950,625).
     """
     out = []
     for i in range(gt_boxes.shape[0]):
-        iou = pairwise_iou_aabb(gt_boxes[i], anchors)
+        gt = obb2hbb_3d(gt_boxes[i]) if cfg.rotated else gt_boxes[i]
+        iou = pairwise_iou_aabb(gt, anchors)
         if padding_mask is not None:
             iou = torch.where(padding_mask[i][None, :], iou, -1.0)
         matches = match_anchors(iou, gt_mask[i], cfg.fg_iou_thresh, cfg.bg_iou_thresh,
@@ -292,9 +318,15 @@ def rpn_losses_at(cfg: RPNConfig, objectness: torch.Tensor,
     if cfg.reg_loss_weight_2d > 0:
         k = pos_idx.shape[1]
         proposals = cfg.decode(k_deltas, k_anchors)
-        # (min corner, max corner) through the four cameras
-        pred_uv = project_points(proposals.reshape(b, k, 2, 3), max_mesh_dim)
-        tgt_uv = project_points(matched_gt.reshape(b, k, 2, 3), max_mesh_dim)
+        # two points a box through the four cameras: an OBB's rotated
+        # diagonal, an AABB's (min corner, max corner)
+        if cfg.rotated:
+            pred_pts, tgt_pts = obb2points_3d(proposals), obb2points_3d(matched_gt)
+        else:
+            pred_pts = proposals.reshape(b, k, 2, 3)
+            tgt_pts = matched_gt.reshape(b, k, 2, 3)
+        pred_uv = project_points(pred_pts, max_mesh_dim)
+        tgt_uv = project_points(tgt_pts, max_mesh_dim)
         l2d = smooth_l1(pred_uv, tgt_uv, beta=1.0 / 9)
         losses["loss_rpn_box_reg_2d"] = (
             torch.sum(l2d * pos_take[..., None, None, None]) / num_pos / max_mesh_dim)

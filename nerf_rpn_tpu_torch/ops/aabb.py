@@ -1,7 +1,8 @@
 """Axis-aligned 3D box algebra (port of ``nerf_rpn_tpu/ops/aabb.py``).
 
-Boxes are ``[x1, y1, z1, x2, y2, z2]``; every function returns masks rather
-than filtering, like the JAX original.
+Boxes are ``[x1, y1, z1, x2, y2, z2]``; the two masks also take OBBs
+``[x, y, z, w, l, h, theta]``.  Every function returns masks rather than
+filtering, like the JAX original.
 """
 
 from __future__ import annotations
@@ -42,6 +43,16 @@ def clip_boxes_to_grid(boxes: torch.Tensor, grid_size: torch.Tensor) -> torch.Te
     return torch.cat([lo, hi], dim=-1)
 
 
+def obb_center_valid_mask(boxes: torch.Tensor, grid_size: torch.Tensor) -> torch.Tensor:
+    """True where the OBB's centre lies inside ``[0, grid_size]``: OBBs
+    cannot be clamped, so proposals whose centre leaves the grid are
+    dropped instead.  boxes (..., 7); grid_size (..., 3)."""
+    ctr = boxes[..., 0:3]
+    return torch.all((ctr >= 0.0) & (ctr <= grid_size), dim=-1)
+
+
 def small_box_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
-    """True where the AABB has every side >= min_size."""
-    return torch.all(boxes[..., 3:6] - boxes[..., 0:3] >= min_size, dim=-1)
+    """True where the box has every side >= min_size: AABB (..., 6), or OBB
+    (..., 7) with its sizes (w, l, h) at 3:6."""
+    dims = boxes[..., 3:6] - boxes[..., 0:3] if boxes.shape[-1] == 6 else boxes[..., 3:6]
+    return torch.all(dims >= min_size, dim=-1)

@@ -33,7 +33,10 @@ def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
     return [tuple(-(-int(m) // s) for m in mesh_shape) for s in strides]
 
 
-def _level_tables(cfg: RPNConfig, mesh_shape, strides):
+def _level_tables(model, cfg: RPNConfig, mesh_shape, strides):
+    if model.rotated != cfg.rotated:
+        raise ValueError(f"the model predicts {'OBB' if model.rotated else 'AABB'} deltas "
+                         f"and the RPN config codes {'OBBs' if cfg.rotated else 'AABBs'}")
     shapes = level_shapes_for(mesh_shape, strides)
     anchors_np, _, level_strides, counts = rpn_lib.build_level_tables(cfg, mesh_shape, shapes)
     return shapes, anchors_np, level_strides, counts
@@ -46,14 +49,15 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
     indices=None) -> metrics``.
 
     ``batch``: device tensors ``grids`` (B, X, Y, Z, 4), ``ori_sizes``
-    (B, 3), ``gt_boxes`` (B, G, 6), ``gt_mask`` (B, G).  ``indices``
-    (``pos_idx, pos_take, neg_idx, neg_take``) replace the sampled anchors,
-    for tests that feed the JAX package's sample.  Metrics: ``loss``,
+    (B, 3), ``gt_boxes`` (B, G, ``cfg.box_dim``): AABBs, or OBBs with
+    ``cfg.rotated`` (the model's ``rotated`` must agree), ``gt_mask`` (B,
+    G).  ``indices`` (``pos_idx, pos_take, neg_idx, neg_take``) replace the
+    sampled anchors, for tests that feed the JAX package's sample.  Metrics: ``loss``,
     ``loss_objectness``, ``loss_rpn_box_reg``, ``loss_rpn_box_reg_2d``,
     ``grad_norm`` (pre-clip) and ``param_norm`` (after the update).
     """
     shapes, anchors_np, level_strides, counts = _level_tables(
-        cfg, mesh_shape, strides)
+        model, cfg, mesh_shape, strides)
     anchors = torch.from_numpy(anchors_np).to(device)
     anchors_per_loc = model.num_anchors
     max_dim = int(max(mesh_shape))
@@ -89,9 +93,10 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
 def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                        strides: Sequence[int] = (4, 8, 16, 32),
                        device: torch.device | str = "cpu"):
-    """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict."""
+    """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict,
+    with boxes (B, K, ``cfg.box_dim``)."""
     shapes, anchors_np, level_strides, counts = _level_tables(
-        cfg, mesh_shape, strides)
+        model, cfg, mesh_shape, strides)
     anchors_per_loc = model.num_anchors
     level_anchors = [torch.from_numpy(a).to(device)
                      for a in np.split(anchors_np, np.cumsum(counts)[:-1])]

@@ -2,11 +2,13 @@
 
 Run on a GPU from the repository root::
 
-    python scripts/time_train_step.py [--tree DIR] [--label NAME]
+    python scripts/time_train_step.py [--tree DIR] [--label NAME] [--rotated_bbox]
 
 It imports ``nerf_rpn_tpu_torch`` from DIR (default: this repository),
 writes the synthetic 160^3 scenes of ``chip_smoke.py``'s train path
-(Swin-S, bf16, batch 2) into a temporary directory, and runs
+(Swin-S, bf16, batch 2; OBBs and ``--rotated_bbox``, the
+``scripts/train.sh`` configuration, with ``--rotated_bbox``) into a
+temporary directory, and runs
 ``chip_smoke.time_train_steps``: 20 timed steps after 3 warm-up steps on
 the first batch, CUDA events around each step, and the peak device
 memory.  It prints one ``[train steps]`` line with the label and the card.
@@ -32,6 +34,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=str(ROOT))
     p.add_argument("--label", default="")
+    p.add_argument("--rotated_bbox", action="store_true")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -46,7 +49,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("this script times the GPU: torch.cuda.is_available() is False")
     kernels.build_all()
     with tempfile.TemporaryDirectory() as work:
-        data, common = cs.write_train_data(work)
+        data, common = cs.write_train_data(work, rotated=args.rotated_bbox)
         print(f"[label] {args.label} ({torch.cuda.get_device_name(0)})", flush=True)
         row = cs.time_train_steps(torch, data, common)
     return dict(label=args.label, **row)

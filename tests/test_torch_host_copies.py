@@ -89,5 +89,20 @@ def test_aabb_recall_and_ap_equal():
             got = metrics.evaluate_box_proposals_ap(props, scores, gts, iou, top_k)
             want = jmetrics.evaluate_box_proposals_ap(props, scores, gts, iou, top_k)
             assert got["ap"] == want["ap"]
-    with pytest.raises(NotImplementedError):
-        metrics._pairwise_iou_np(np.zeros((2, 7), np.float32), np.zeros((3, 7), np.float32))
+    # oriented boxes (7-wide): the port's pairwise clip against the JAX
+    # metrics' IoU within 1e-5, and the same recall and AP
+    obb = [np.concatenate([p[:, :3], p[:, 3:] - p[:, :3],
+                           rng.uniform(-np.pi / 2, np.pi / 2, (len(p), 1))], 1).astype(np.float32)
+           for p in props]
+    obb_gt = [np.concatenate([g[:, :3], g[:, 3:] - g[:, :3],
+                              rng.uniform(-np.pi / 2, np.pi / 2, (len(g), 1))], 1).astype(np.float32)
+              for g in gts]
+    iou = metrics._pairwise_iou_np(obb[0], obb_gt[0])
+    np.testing.assert_allclose(iou, jmetrics._pairwise_iou_np(obb[0], obb_gt[0]), rtol=0,
+                               atol=1e-5)
+    assert (iou > 0).any()
+    got = metrics.evaluate_box_proposals_recall(obb, scores, obb_gt, thresholds=[0.1, 0.25])
+    want = jmetrics.evaluate_box_proposals_recall(obb, scores, obb_gt, thresholds=[0.1, 0.25])
+    assert got["ar"] == want["ar"] and got["num_pos"] == want["num_pos"]
+    got = metrics.evaluate_box_proposals_ap(obb, scores, obb_gt, 0.1)
+    assert got["ap"] == jmetrics.evaluate_box_proposals_ap(obb, scores, obb_gt, 0.1)["ap"]

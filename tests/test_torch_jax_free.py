@@ -2,9 +2,10 @@
 
 A subprocess blocks jax / jaxlib / flax / optax / orbax and ``nerf_rpn_tpu``
 with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch``,
-writes a synthetic 32^3 dataset with the port's own writer and runs the CPU
+writes synthetic 32^3 datasets with the port's own writer and runs the CPU
 slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
-then ``--mode eval --checkpoint model_best`` -- and checks that none of
+then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
+(``--rotated_bbox``, the 2D projection loss on) -- and checks that none of
 them reached ``sys.modules``.  An AST scan shows that no file of the port,
 and not ``chip_smoke.py``, names them in an import statement.
 """
@@ -40,20 +41,25 @@ for mod in pkgutil.walk_packages(nerf_rpn_tpu_torch.__path__, "nerf_rpn_tpu_torc
 from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
 
-data = sys.argv[1]
-write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32))
-common = ["--backbone_type", "swin_t", "--resolution", "32",
-          "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64",
-          "--rpn_post_nms_top_n_test", "32", "--device", "cpu", "--num_workers", "0",
-          "--features_path", data, "--boxes_path", data,
-          "--dataset_split", data + "/split.npz"]
-logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
-                       "--save_path", data + "/run", *common])
-assert len(logged) == 2 and all(m["loss"] > 0 for m in logged), logged
-run_rpn.main(["--mode", "eval", "--checkpoint", data + "/run/model_best",
-              "--save_path", data + "/out", *common])
 import os
-assert os.path.exists(data + "/out/eval.json")
+for data, extra in ((sys.argv[1], []),
+                    (sys.argv[1] + "/obb", ["--rotated_bbox", "--reg_loss_weight_2d", "0.5"])):
+    write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32),
+                            rotated=bool(extra))
+    common = ["--backbone_type", "swin_t", "--resolution", "32",
+              "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64",
+              "--rpn_post_nms_top_n_test", "32", "--device", "cpu", "--num_workers", "0",
+              "--features_path", data, "--boxes_path", data,
+              "--dataset_split", data + "/split.npz", *extra]
+    logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                           "--save_path", data + "/run", *common])
+    assert len(logged) == 2 and all(m["loss"] > 0 for m in logged), logged
+    run_rpn.main(["--mode", "eval", "--checkpoint", data + "/run/model_best",
+                  "--save_path", data + "/out", "--output_proposals", *common])
+    assert os.path.exists(data + "/out/eval.json")
+    import numpy as np
+    with np.load(data + "/out/proposals/synth003.npz") as z:
+        assert z["proposal"].shape[1] == (7 if extra else 6), z["proposal"].shape
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("JAX_FREE_OK")

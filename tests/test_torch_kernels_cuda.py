@@ -1,5 +1,5 @@
-"""CUDA kernels K1 to K6 and the NMS resolve kernel against their plain
-PyTorch twins, on the GPU.
+"""CUDA kernels K1 to K6 and the NMS resolve kernel (on K3's AABB graph and
+on the plain-torch OBB graph) against their plain PyTorch twins, on the GPU.
 
 Needs a CUDA device and nvcc (the kernels are built from
 ``nerf_rpn_tpu_torch/csrc`` on first use); skips otherwise.  The chip run::
@@ -23,7 +23,7 @@ from nerf_rpn_tpu_torch.ops.fused_mlp import (
     fused_mlp_block_reference,
     mlp_plan,
 )
-from nerf_rpn_tpu_torch.ops.nms import nms_mask
+from nerf_rpn_tpu_torch.ops.nms import nms_mask, obb_suppression_graph, sort_problems
 from nerf_rpn_tpu_torch.ops.nms_graph import (
     RESOLVE_MULTIPLE,
     aabb_suppression_graph,
@@ -302,6 +302,39 @@ def test_nms_mask_cuda_matches_cpu_at_the_bench_problem(cuda):
     torch.cuda.synchronize()
     after = kernels.counts()
     assert after["aabb_suppression_graph"] - before["aabb_suppression_graph"] == 1
+    assert after["nms_resolve"] - before["nms_resolve"] == 1
+    want = nms_mask(boxes, scores, valid, 0.3)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def _obb_problem(p, n, seed):
+    rng = np.random.default_rng(seed)
+    boxes = np.concatenate([rng.uniform(0, 120, (p, n, 3)), rng.uniform(4, 40, (p, n, 3)),
+                            rng.uniform(-np.pi / 2, np.pi / 2, (p, n, 1))], -1)
+    scores = (rng.integers(0, 200, (p, n)) / 200).astype(np.float32)
+    return (torch.from_numpy(boxes.astype(np.float32)), torch.from_numpy(scores),
+            torch.from_numpy(rng.random((p, n)) > 0.2))
+
+
+def test_resolve_kernel_on_an_obb_graph_matches_sweep_twin(cuda):
+    """The OBB graph (plain torch on the card) fed to the resolve kernel:
+    the keep-set equals the sweep loop's on the same graph, and nms_mask
+    of the OBBs on the card equals the CPU path's; K3 does not run."""
+    boxes, scores, valid = _obb_problem(4, 1000, 13)
+    _, sboxes, svalid = sort_problems(boxes.to(cuda), scores.to(cuda), valid.to(cuda))
+    graph = obb_suppression_graph(sboxes, 0.3)
+    assert int((graph != 0).sum()) > 0
+    before = kernels.counts()
+    alive = resolve_keep(graph, svalid)
+    torch.cuda.synchronize()
+    assert kernels.counts()["nms_resolve"] - before["nms_resolve"] == 1
+    assert torch.equal(alive, resolve_keep_reference(graph, svalid))
+    before = kernels.counts()
+    got = nms_mask(boxes.to(cuda), scores.to(cuda), valid.to(cuda), 0.3)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert after["aabb_suppression_graph"] == before["aabb_suppression_graph"]
     assert after["nms_resolve"] - before["nms_resolve"] == 1
     want = nms_mask(boxes, scores, valid, 0.3)
     assert torch.equal(got.cpu(), want)

@@ -172,7 +172,7 @@ def test_benchmark_mode_needs_a_gpu():
 
 @pytest.mark.parametrize("argv,exc", [
     (["--backbone_type", "resnet"], NotImplementedError),
-    (["--backbone_type", "swin_t", "--rotated_bbox"], NotImplementedError),
+    (["--backbone_type", "swin_t", "--reg_loss_type", "iou"], NotImplementedError),
 ])
 def test_cli_rejects_unported_options(argv, exc):
     with pytest.raises(exc):
