@@ -77,7 +77,26 @@ nonzero before the result lines:
 13. the OBB train path, ``scripts/train.sh``'s configuration:
    ``run_rpn --mode train --rotated_bbox`` on synthetic OBB scenes at
    160^3 (Swin-S, bf16, batch 2, smooth-L1), ``--mode eval --checkpoint``,
-   then 20 timed OBB train steps (K1 and K2 24 a step).
+   then 20 timed OBB train steps (K1 and K2 24 a step);
+14. FCOS NMS: the cross-level problem of the Swin-S bf16 FCOS eval step
+   at 160^3 (``run_fcos --mode benchmark``'s scene, random weights): one
+   scene of 2500 + 2500 + 1000 + 125 boxes, padded to Np = 6144, as AABBs
+   and as OBBs.  The keep-sets on the card equal the CPU's; K3 (AABB) and
+   the resolve kernel equal their twins at Np = 6144, with their ms; the
+   OBB graph's gated pairs and host syncs (``set_sync_debug_mode("warn")``)
+   and each ``nms_mask`` call's device-busy ms (``torch.profiler``);
+15. the FCOS eval path: ``run_fcos --mode benchmark`` (Swin-S, bf16,
+   ``test_fcos.sh``'s head flags, 160^3) with ``--rotated_bbox`` and
+   without: forward, propose and whole ms a scene, and the launches a
+   scene (K5 24, K6 24, K4 12, K1 12, resolve 1; K3 1 for AABBs, 0 for
+   OBBs);
+16. the FCOS train path, ``scripts/train_fcos.sh``'s configuration
+   (Swin-S, bf16, OBBs, ``--iou_loss_type iou``, ``--norm_reg_targets
+   --centerness_on_reg``, radius 1.5, batch 2 a card): ``run_fcos --mode
+   train`` on the synthetic 160^3 OBB scenes of phase 13, finite loss
+   terms, no dropped positives, K1 and K2 24 a step; then ``--mode eval
+   --checkpoint <save>/model_best --output_proposals --save_level_index``;
+17. 20 timed FCOS train steps (ms a step, peak GiB).
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -90,9 +109,10 @@ K1 and K4, its autograd backward for K2), timed as a yardstick only.
 input read once, each output written once) over the memory rate and the
 operations over the peak rate for their type.
 
-Each path (AABB eval, AABB train, OBB eval, OBB train) runs with the
-launch counts set to 0 just before it and read just after; a kernel's
-``launches`` in the record is its sum over the four.  The last three
+Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
+eval, FCOS train) runs with the launch counts set to 0 just before it and
+read just after; a kernel's ``launches`` in the record is its sum over
+them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
 """
@@ -485,22 +505,25 @@ def bench_eval_step(torch, rotated=False):
     return eval_step, grids, ori
 
 
-def capture_nms_problem(eval_step, obj, dl, ori):
-    """``(boxes, scores, valid, iou_threshold)`` that one ``propose`` call
-    hands ``nms_mask``: one problem per FPN level of the scene."""
-    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+def capture_nms_problem(eval_step, *heads, module=None):
+    """``(boxes, scores, valid, iou_threshold)`` that one ``propose(*heads)``
+    call hands the ``nms_mask`` of ``module`` (default ``models/rpn.py``:
+    one problem per FPN level of the scene; ``models/fcos.py``: one
+    cross-level problem per scene)."""
+    if module is None:
+        from nerf_rpn_tpu_torch.models import rpn as module
 
-    seen, real = [], rpn_lib.nms_mask
+    seen, real = [], module.nms_mask
 
     def record(*args):
         seen.append(args)
         return real(*args)
 
-    rpn_lib.nms_mask = record
+    module.nms_mask = record
     try:
-        eval_step.propose(obj, dl, ori)
+        eval_step.propose(*heads)
     finally:
-        rpn_lib.nms_mask = real
+        module.nms_mask = real
     return seen[0]
 
 
@@ -664,6 +687,147 @@ def check_obb_nms(torch):
                resolve_ms=time_one(torch, lambda: resolve_keep(graph, svalid)))
     print("nms_mask_obb", json.dumps(row), flush=True)
     return row
+
+
+# ``scripts/test_fcos.sh``'s head flags and ``scripts/train_fcos.sh``'s loss
+# and optimizer flags (its batch 8 over 4 GPUs is 2 a card)
+FCOS_FLAGS = ["--norm_reg_targets", "--centerness_on_reg", "--nms_thresh", "0.3"]
+FCOS_TRAIN_FLAGS = [*FCOS_FLAGS, "--center_sampling_radius", "1.5", "--iou_loss_type", "iou",
+                    "--normalize_density", "--lr", "3e-4", "--weight_decay", "1e-3"]
+# FCOS's NMS problem at 160^3: the top 2500 of 64000, 2500 of 8000, all
+# 1000 and all 125 locations of the four levels, padded to a multiple of 256
+FCOS_NMS_N, FCOS_NMS_NP = 6125, 6144
+
+
+def fcos_bench_eval_step(torch, rotated, box_bias=0.0):
+    """The eval step of ``run_fcos --mode benchmark`` (Swin-S, bf16, 160^3,
+    random weights from seed 0; OBBs with ``rotated``), its random grid and
+    the scene's size: ``(eval_step, grids, ori)``.  ``box_bias`` is added to
+    the bias of the head's 6 distance channels."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import run_fcos
+
+    args = run_fcos.parse_args(["--mode", "benchmark", "--backbone_type", "swin_s", "--bf16",
+                                *FCOS_FLAGS, *(["--rotated_bbox"] if rotated else [])])
+    trainer = run_fcos.Trainer(args)
+    with torch.no_grad():
+        trainer.model.fcos_head.bbox_pred.bias[:6] += box_bias
+    shape = run_fcos.BENCH_SHAPE
+    eval_step = trainer.eval_step(shape)
+    rng = np.random.default_rng(args.seed)
+    grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(
+        trainer.device, trainer.dtype)
+    ori = torch.tensor([shape], dtype=torch.int32, device=trainer.device)
+    return eval_step, grids, ori
+
+
+def device_busy(torch, fn):
+    """``(device-busy ms, kernels)`` of one call of ``fn``: the union of
+    the device spans that ``torch.profiler`` records."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3, len(spans)
+
+
+def check_fcos_nms(torch):
+    """FCOS's NMS problem at its bench scene, as AABBs and as OBBs: one
+    problem of 6125 boxes padded to Np = 6144.  The keep-set on the card
+    must equal the CPU's, K3 (AABB) and the resolve kernel their twins;
+    prints their ms, ``nms_mask``'s, the OBB graph's gated pairs, the host
+    syncs of ``nms_mask`` and of the whole propose, and the device-busy ms
+    of one ``nms_mask`` call.
+
+    With random weights half of the head's distances are 0 after its ReLU,
+    so nearly every box of the bench scene has no volume and NMS keeps
+    them all.  Each form is therefore also checked on the same scene with
+    1 added to the distance channels' bias ("overlapping"): boxes with
+    volume that overlap their neighbours, where NMS suppresses."""
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.models import fcos as fcos_lib
+    from nerf_rpn_tpu_torch.ops.nms import nms_mask, obb_suppression_graph, sort_problems
+    from nerf_rpn_tpu_torch.ops.nms_graph import (
+        aabb_suppression_graph,
+        aabb_suppression_graph_reference,
+        resolve_fixpoint,
+        resolve_keep,
+        resolve_keep_reference,
+    )
+
+    rows = {}
+    for rotated, box_bias in ((False, 0.0), (True, 0.0), (False, 1.0), (True, 1.0)):
+        kind = ("obb" if rotated else "aabb") + ("_overlapping" if box_bias else "")
+        eval_step, grids, ori = fcos_bench_eval_step(torch, rotated, box_bias)
+        cls_f, reg_f, ctr_f, _ = eval_step.forward(grids)
+        heads = (cls_f, reg_f, ctr_f, ori)
+        boxes, scores, valid, thresh = capture_nms_problem(eval_step, *heads, module=fcos_lib)
+        if tuple(boxes.shape) != (1, FCOS_NMS_N, 7 if rotated else 6):
+            fail(f"FCOS {kind} NMS problem is {tuple(boxes.shape)}, expected "
+                 f"(1, {FCOS_NMS_N}, .)")
+        kernels.reset_counts()
+        keep, nms_syncs = count_syncs(torch, lambda: nms_mask(boxes, scores, valid, thresh))
+        launches = {k: v for k, v in kernels.counts().items() if v}
+        want = {"nms_resolve": 1, **({} if rotated else {"aabb_suppression_graph": 1})}
+        if launches != want:
+            fail(f"FCOS {kind} nms_mask launched {launches}, expected {want}")
+        cpu_keep = nms_mask(boxes.cpu(), scores.cpu(), valid.cpu(), thresh)
+        if not torch.equal(keep.cpu(), cpu_keep):
+            fail(f"FCOS {kind} nms_mask on the card differs from the CPU in "
+                 f"{(keep.cpu() != cpu_keep).sum().item()} boxes")
+        _, sboxes, svalid = sort_problems(boxes, scores, valid)
+        p, np_ = svalid.shape
+        if np_ != FCOS_NMS_NP:
+            fail(f"FCOS {kind} NMS pads to Np = {np_}, expected {FCOS_NMS_NP}")
+        row = dict(P=p, N=boxes.shape[1], Np=np_, valid=int(valid.sum()), kept=int(keep.sum()),
+                   syncs_nms_mask=nms_syncs, launches=launches)
+        if rotated:
+            stats = {}
+            graph = obb_suppression_graph(sboxes, thresh, stats=stats)
+            row.update(pairs=stats["pairs"], gated=stats["gated"],
+                       gate_pass_rate=stats["gated"] / stats["pairs"],
+                       syncs_by_chunk=stats["syncs"],
+                       graph_ms=time_one(torch, lambda: obb_suppression_graph(sboxes, thresh)))
+        else:
+            graph = aabb_suppression_graph(sboxes, thresh)
+            if not torch.equal(graph, aabb_suppression_graph_reference(sboxes, thresh)):
+                fail("K3 differs from its twin at the FCOS problem (Np = 6144)")
+            k3_ms, k3_plain = time_pair(
+                torch, lambda: aabb_suppression_graph_reference(sboxes, thresh),
+                lambda: aabb_suppression_graph(sboxes, thresh))
+            row.update(k3_ms=k3_ms, k3_plain_ms=k3_plain,
+                       k3_bound=bound(nbytes(sboxes) + 4 * p * np_ * np_ // 32,
+                                      graph_ops(p, np_), "float32"))
+        alive = resolve_keep(graph, svalid)
+        if not torch.equal(alive, resolve_keep_reference(graph, svalid)):
+            fail(f"resolve kernel differs from the sweep twin at the FCOS {kind} problem")
+        resolve_ms, resolve_plain = time_pair(torch, lambda: resolve_keep_reference(graph, svalid),
+                                              lambda: resolve_keep(graph, svalid))
+        _, propose_syncs = count_syncs(torch, lambda: eval_step.propose(*heads))
+        busy_ms, busy_kernels = device_busy(torch, lambda: nms_mask(boxes, scores, valid, thresh))
+        row.update(sweeps=resolve_fixpoint(graph, svalid)[1], resolve_ms=resolve_ms,
+                   resolve_plain_ms=resolve_plain,
+                   resolve_bound=bound(4 * triangle_words(svalid) + nbytes(svalid, alive), 0,
+                                       "float32"),
+                   syncs_propose=propose_syncs,
+                   nms_mask_ms=time_one(torch, lambda: nms_mask(boxes, scores, valid, thresh)),
+                   nms_mask_busy_ms=busy_ms, nms_mask_kernels=busy_kernels)
+        if not rotated and propose_syncs:
+            fail(f"FCOS AABB propose synchronised {propose_syncs} times with the host")
+        if box_bias and not 0 < row["kept"] < row["valid"]:
+            fail(f"FCOS {kind}: NMS kept {row['kept']} of {row['valid']}: it should suppress")
+        print(f"fcos_nms_{kind}", json.dumps(row), flush=True)
+        rows[kind] = row
+    return rows
 
 
 def check_fused_window_attention(torch, dev):
@@ -951,6 +1115,42 @@ def run_obb_benchmark(torch):
     return launches, bench
 
 
+def run_fcos_benchmark(torch, rotated):
+    """``run_fcos --mode benchmark`` (Swin-S, bf16, 160^3, ``test_fcos.sh``'s
+    head flags; OBBs with ``rotated``): ms a scene and the launches a scene
+    -- the eval kernels as on the RPN path, the resolve kernel once, K3
+    once for AABBs and never for OBBs."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_fcos
+
+    path = f"fcos {'obb' if rotated else 'aabb'} eval"
+    kernels.reset_counts()
+    bench = run_fcos.main(["--mode", "benchmark", "--backbone_type", "swin_s", "--bf16",
+                           *FCOS_FLAGS, *(["--rotated_bbox"] if rotated else []),
+                           "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    times = [bench[k] for k in ("forward_ms", "propose_ms", "total_ms")]
+    if not all(np.isfinite(times)) or bench["valid_proposals"] <= 0:
+        fail(f"{path} benchmark {bench}")
+    print(f"[{path} path] benchmark {bench['shape']} bf16, {bench['reps']} reps: "
+          f"forward {bench['forward_ms']:.3f} ms/scene, propose "
+          f"{bench['propose_ms']:.3f} ms/scene, whole {bench['total_ms']:.3f} "
+          f"ms/scene (median {bench['total_median_ms']:.3f}, "
+          f"p{bench['tail_percentile']:.1f} {bench['total_tail_ms']:.3f})", flush=True)
+    require_launches(launches, OBB_EVAL_KERNELS if rotated else EVAL_KERNELS, path,
+                     absent=("aabb_suppression_graph",) if rotated else ())
+    scenes = bench["reps"] + bench["warmup"]
+    per_scene = {k: v / scenes for k, v in launches.items() if v}
+    want = OBB_EVAL_LAUNCHES_PER_SCENE if rotated else EVAL_LAUNCHES_PER_SCENE
+    if per_scene != want:
+        fail(f"{path}: launches per scene {per_scene}, expected {want}")
+    print(f"[{path} path] launches per benchmark scene {json.dumps(per_scene)}", flush=True)
+    return launches, bench
+
+
 def check_small_train_step(torch, dev):
     """swin_t at 64^3, f32, batch 2, drop-path off: one train step on the
     GPU (K1 forward, K2 backward) against the same step on the CPU (plain
@@ -1077,35 +1277,43 @@ def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda",
 
 
 def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda",
-                   rotated=False):
+                   rotated=False, fcos=False):
     """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
     batch 2; OBBs and ``--rotated_bbox`` with ``rotated``, the
     ``scripts/train.sh`` configuration), then ``--mode eval --checkpoint
-    <save>/model_best``.  The other keywords shrink the run for a rehearsal
-    on the CPU."""
+    <save>/model_best``; with ``fcos`` the same through ``run_fcos`` with
+    ``scripts/train_fcos.sh``'s flags, no positive dropped by the loss, and
+    the eval with ``--save_level_index``.  The other keywords shrink the
+    run for a rehearsal on the CPU."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
-    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
 
-    path = "obb train" if rotated else "train"
+    path = ("fcos " if fcos else "") + ("obb train" if rotated else "train")
+    cli = run_fcos if fcos else run_rpn
     data, common = write_train_data(workdir, resolution, backbone, device, rotated)
-    save = os.path.join(workdir, "train_obb" if rotated else "train")
+    if fcos:
+        common = [*common, *FCOS_TRAIN_FLAGS]
+        keys = ("loss", "loss_cls", "loss_reg", "loss_centerness", "grad_norm", "param_norm")
+    else:
+        keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm", "param_norm")
+    save = os.path.join(workdir, path.replace(" ", "_"))
     t0 = time.perf_counter()
     kernels.reset_counts()
-    logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
-                           "--save_path", save, *common])
+    logged = cli.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                       "--save_path", save, *common])
     torch.cuda.synchronize()
     launches = kernels.counts()
     train_s = time.perf_counter() - t0
     if len(logged) != 2:
         fail(f"{path} path: expected 2 logged steps, got {len(logged)}")
     for m in logged:
-        vals = [m[k] for k in ("loss", "loss_objectness", "loss_rpn_box_reg",
-                               "grad_norm", "param_norm")]
-        if not (np.all(np.isfinite(vals)) and m["loss"] > 0):
+        if not (np.all(np.isfinite([m[k] for k in keys])) and m["loss"] > 0):
             fail(f"{path} path: bad metrics {m}")
+        if fcos and m["dropped_positives"] != 0:
+            fail(f"{path} path: the loss dropped {m['dropped_positives']} positives")
     for name in ("model_best", "epoch_1", "model_best.args.json"):
         if not os.path.isfile(os.path.join(save, name)):
             fail(f"{path} path: {name} was not written")
@@ -1121,10 +1329,10 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
              f"times over {len(logged)} steps, expected {want}")
 
     kernels.reset_counts()
-    out = os.path.join(workdir, "eval_ckpt_obb" if rotated else "eval_ckpt")
-    recalls, _ = run_rpn.main(["--mode", "eval", "--checkpoint",
-                               os.path.join(save, "model_best"), "--save_path", out,
-                               "--output_proposals", *common])
+    out = save + "_eval_ckpt"
+    recalls, _ = cli.main(["--mode", "eval", "--checkpoint", os.path.join(save, "model_best"),
+                           "--save_path", out, "--output_proposals",
+                           *(["--save_level_index"] if fcos else []), *common])
     torch.cuda.synchronize()
     eval_launches = kernels.counts()
     files = sorted(os.listdir(os.path.join(out, "proposals")))
@@ -1133,7 +1341,8 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     for name in files:
         with np.load(os.path.join(out, "proposals", name)) as z:
             p, s = z["proposal"], z["score"]
-        if (p.shape[0] == 0 or p.shape[1] != (7 if rotated else 6)
+            levels = z["level_indices"] if fcos else np.zeros(len(p))
+        if (p.shape[0] == 0 or p.shape[1] != (7 if rotated else 6) or len(levels) != len(p)
                 or not (np.isfinite(p).all() and np.isfinite(s).all())):
             fail(f"{path} eval from the checkpoint: {name} proposals {p.shape}")
     print(f"[{path} path] eval --checkpoint model_best: recall@50 {recalls[0]:.4f} "
@@ -1145,35 +1354,45 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     return launches, data, common
 
 
-def time_train_steps(torch, data, common, steps=20, warmup=3):
-    """Device ms per train step (CUDA events around each step) and the
-    peak device memory, at the train path's shape on its first batch; K1
-    and K2 must run once per Swin block and step."""
+def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
+    """Device ms per train step (CUDA events around each step), the peak
+    device memory and, for one more step under ``torch.profiler``, the
+    device-busy ms and kernels, at the train path's shape on its first
+    batch (the FCOS step with ``fcos``, ``common`` then holding its
+    flags); K1 and K2 must run once per Swin block and step."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.data.datasets import batch_iterator
-    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
     from nerf_rpn_tpu_torch.train.state import TrainState
-    from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
+    from nerf_rpn_tpu_torch.train.steps import make_fcos_train_step, make_rpn_train_step
 
-    args = run_rpn.parse_args(["--mode", "train", *common, "--num_workers", "0",
-                               "--save_path", os.path.join(os.path.dirname(data), "timed")])
-    trainer = run_rpn.Trainer(args)
-    train_set, _, _ = run_rpn.common.build_datasets(args, "train", augment=False)
+    cli = run_fcos if fcos else run_rpn
+    args = cli.parse_args(["--mode", "train", *common, "--num_workers", "0",
+                           "--save_path", os.path.join(os.path.dirname(data), "timed")])
+    trainer = cli.Trainer(args)
+    train_set, _, _ = cli.common.build_datasets(args, "train", augment=False)
     host = next(iter(batch_iterator(
         train_set, args.batch_size, shuffle=False, drop_last=True,
         pad_multiple=args.pad_multiple, max_gt=args.max_gt,
         box_dim=7 if args.rotated_bbox else 6,
         fixed_shape=trainer.mesh_shape, num_workers=0)))
-    batch = trainer.to_device(host)
+    batch = cli.common.device_batch(host, trainer.device, trainer.dtype)
     state = TrainState(trainer.model, args.lr, steps + warmup, args.weight_decay,
                        args.clip_grad_norm)
-    step = make_rpn_train_step(trainer.model, trainer.cfg_train, trainer.mesh_shape,
-                               run_rpn.STRIDES, device=trainer.device)
     gen = torch.Generator(trainer.device).manual_seed(0)
     drop = torch.Generator(trainer.device).manual_seed(1)
+    if fcos:
+        fcos_step = make_fcos_train_step(trainer.model, trainer.cfg, trainer.mesh_shape,
+                                         device=trainer.device)
+
+        def step(state, batch, gen, drop):
+            return fcos_step(state, batch, drop)
+    else:
+        step = make_rpn_train_step(trainer.model, trainer.cfg_train, trainer.mesh_shape,
+                                   run_rpn.STRIDES, device=trainer.device)
     for _ in range(warmup):
         step(state, batch, gen, drop)
     torch.cuda.synchronize()
@@ -1196,14 +1415,17 @@ def time_train_steps(torch, data, common, steps=20, warmup=3):
              f"{blocks} each")
     ms = np.array([a.elapsed_time(b) for a, b in events])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy_ms, busy_kernels = device_busy(torch, lambda: step(state, batch, gen, drop))
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.all(np.isfinite(losses)):
         fail(f"timed train steps: non-finite losses {losses}")
-    row = {"rotated": args.rotated_bbox, "shape": list(trainer.mesh_shape),
+    row = {"head": "fcos" if fcos else "rpn", "rotated": args.rotated_bbox,
+           "shape": list(trainer.mesh_shape),
            "batch": args.batch_size, "steps": steps, "launches_per_step": per_step,
            "ms_per_step_mean": float(ms.mean()), "ms_per_step_median": float(np.median(ms)),
            "ms_per_step_min": float(ms.min()), "ms_per_step_max": float(ms.max()),
            "wall_ms_per_step": wall_ms, "peak_mem_gib": peak_gib,
+           "device_busy_ms_one_step": busy_ms, "kernels_one_step": busy_kernels,
            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
     print("[train steps]", json.dumps(row), flush=True)
     return row
@@ -1298,6 +1520,24 @@ def main() -> None:
         t0 = time.perf_counter()
         time_train_steps(torch, data, common)
         phase_done(torch, "timed OBB train steps", t0)
+
+        t0 = time.perf_counter()
+        check_fcos_nms(torch)
+        phase_done(torch, "FCOS NMS vs CPU", t0)
+
+        t0 = time.perf_counter()
+        paths["fcos obb eval"], _ = run_fcos_benchmark(torch, rotated=True)
+        paths["fcos aabb eval"], _ = run_fcos_benchmark(torch, rotated=False)
+        phase_done(torch, "FCOS eval path", t0)
+
+        t0 = time.perf_counter()
+        paths["fcos obb train"], data, common = run_train_path(torch, work, rotated=True,
+                                                               fcos=True)
+        phase_done(torch, "FCOS train path", t0)
+
+        t0 = time.perf_counter()
+        time_train_steps(torch, data, common, fcos=True)
+        phase_done(torch, "timed FCOS train steps", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

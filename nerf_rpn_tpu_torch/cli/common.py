@@ -1,8 +1,10 @@
 """CLI plumbing of the torch port: logging, datasets, eval reporting, dumps.
 
 Copy, for the torch port, of the functions of ``nerf_rpn_tpu/cli/common.py``
-that ``cli/run_rpn.py`` calls.  They mirror the driver plumbing the
-reference repeats in each run_*.py: loggers with optional file handlers
+that ``cli/run_rpn.py`` and ``cli/run_fcos.py`` call, the batch copy of
+their train steps (``device_batch``) and the timing of their ``--mode
+benchmark`` (``benchmark_eval_step``).  They mirror the driver plumbing
+the reference repeats in each run_*.py: loggers with optional file handlers
 (``run_rpn.py:627-642``), dataset construction by name + split file
 (``run_rpn.py:250-267,310-330``), proposal/voxel-score npz dumps
 (``run_rpn.py:432-453,476-481``) and the Recall/AR/AP report +
@@ -18,6 +20,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from nerf_rpn_tpu_torch.data.datasets import (
     Front3DRPNDataset,
@@ -86,6 +89,17 @@ def build_datasets(args, mode: str, augment: bool):
     if mode == "train":
         return make(train_scenes, True), make(val_scenes, False), None
     return None, None, make(test_scenes, False)
+
+
+def device_batch(batch: dict, device: torch.device, dtype: torch.dtype) -> dict:
+    """Host batch (numpy) -> a train step's device tensors, the grids in
+    the compute dtype."""
+    return {
+        "grids": torch.from_numpy(batch["grids"]).to(device, dtype),
+        "ori_sizes": torch.from_numpy(batch["ori_sizes"]).to(device),
+        "gt_boxes": torch.from_numpy(batch["gt_boxes"]).to(device),
+        "gt_mask": torch.from_numpy(batch["gt_mask"]).to(device),
+    }
 
 
 def unmask_proposals(out: dict, box_dim: int):
@@ -189,3 +203,38 @@ def report_metrics(proposals_list, scores_list, gt_boxes_list, args, logger,
         with open(os.path.join(args.save_path, "eval.json"), "w") as f:
             json.dump(clean, f, indent=2)
     return recalls, aps
+
+
+def benchmark_eval_step(forward, propose, reps: int, warmup: int, logger,
+                        device: torch.device) -> dict:
+    """Time ``propose(*forward())`` on the card: ``warmup`` untimed calls,
+    then ``reps`` calls with CUDA events around the forward and the propose
+    part, after ``torch.cuda.synchronize()``.  Logs and returns the mean
+    device ms a scene of each part and of the whole, the median and the
+    highest percentile with >= 10 samples above it, and the valid
+    proposals of the last call."""
+    for _ in range(warmup):
+        propose(*forward())
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(reps)]
+    torch.cuda.synchronize()
+    for ev in events:
+        ev[0].record()
+        heads = forward()
+        ev[1].record()
+        out = propose(*heads)
+        ev[2].record()
+    torch.cuda.synchronize()
+    fwd = np.array([a.elapsed_time(b) for a, b, _ in events])
+    prop = np.array([b.elapsed_time(c) for _, b, c in events])
+    total = np.array([a.elapsed_time(c) for a, _, c in events])
+    pct = 100.0 * (1.0 - 10.0 / reps)
+    logger.info(
+        f"Average inference time on {torch.cuda.get_device_name(device)}: "
+        f"{total.mean():.4f} ms ({1e3 / total.mean():.2f} scenes/sec); forward "
+        f"{fwd.mean():.4f} ms, propose {prop.mean():.4f} ms; median "
+        f"{np.median(total):.4f} ms, p{pct:.1f} {np.percentile(total, pct):.4f} ms "
+        f"over {reps} scenes")
+    return {"forward_ms": float(fwd.mean()), "propose_ms": float(prop.mean()),
+            "total_ms": float(total.mean()), "total_median_ms": float(np.median(total)),
+            "tail_percentile": pct, "total_tail_ms": float(np.percentile(total, pct)),
+            "reps": reps, "warmup": warmup, "valid_proposals": int(out["valid"].sum())}

@@ -2,12 +2,13 @@
 
 Builds the anchor RPN (random weights from ``--seed``; OBBs with
 ``--rotated_bbox``) and the eval step of ``run_rpn`` at 200x200x130 padded
-to ``--pad_multiple``, then:
+to ``--pad_multiple`` or, with ``--fcos``, the FCOS detector and the eval
+step of ``run_fcos`` at 160^3 (``test_fcos.sh``'s head flags), then:
 
 1. times ``--scenes`` scenes after 10 warm-up scenes with CUDA events,
    split into forward and propose (ms per scene, mean and median);
 2. times 10 more forwards by layer -- each stage's Swin blocks and patch
-   merge, the FPN neck, the RPN head -- with CUDA events from forward
+   merge, the FPN neck, the detection head -- with CUDA events from forward
    hooks (ms per scene);
 3. runs ``--profiled`` more scenes under ``torch.profiler`` and prints, per
    scene: the device time of every kernel name (top ``--top``), the
@@ -18,7 +19,7 @@ to ``--pad_multiple``, then:
 Run on a GPU from the repository root::
 
     python -m nerf_rpn_tpu_torch.cli.profile_eval [--bf16] [--rotated_bbox] \\
-        [--scenes 50] [--trace out.json]
+        [--fcos] [--scenes 50] [--trace out.json]
 
 It prints one JSON line per section; ``--trace`` writes the chrome trace.
 """
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from nerf_rpn_tpu_torch import kernels
-from nerf_rpn_tpu_torch.cli import run_rpn
+from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
 
 
 def parse_args(argv=None):
@@ -42,6 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--backbone_type", default="swin_s")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--rotated_bbox", action="store_true")
+    p.add_argument("--fcos", action="store_true")
     p.add_argument("--pad_multiple", type=int, default=16)
     p.add_argument("--scenes", type=int, default=50)
     p.add_argument("--profiled", type=int, default=5)
@@ -65,7 +67,8 @@ def layer_times(model, forward, scenes: int = 10) -> dict[str, float]:
     forward hooks record around every module of the group."""
     from nerf_rpn_tpu_torch.models.swin import PatchMerging3D
 
-    groups = {model.backbone.fpn_neck: "fpn neck", model.rpn_head: "rpn head"}
+    head = model.fcos_head if hasattr(model, "fcos_head") else model.rpn_head
+    groups = {model.backbone.fpn_neck: "fpn neck", head: "head"}
     for i, stage in enumerate(model.backbone.stages):
         for layer in stage:
             groups[layer] = f"stage{i} " + ("merge" if isinstance(layer, PatchMerging3D)
@@ -95,21 +98,24 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_eval times the GPU: torch.cuda.is_available() is False")
-    rargs = run_rpn.parse_args(["--mode", "benchmark", "--backbone_type", args.backbone_type,
-                                "--pad_multiple", str(args.pad_multiple), "--seed",
-                                str(args.seed), *(["--bf16"] if args.bf16 else []),
-                                *(["--rotated_bbox"] if args.rotated_bbox else [])])
-    trainer = run_rpn.Trainer(rargs)
-    shape = tuple(run_rpn.round_up(s, args.pad_multiple) for s in run_rpn.BENCH_SHAPE)
+    cli = run_fcos if args.fcos else run_rpn
+    cargs = cli.parse_args(["--mode", "benchmark", "--backbone_type", args.backbone_type,
+                            "--pad_multiple", str(args.pad_multiple), "--seed",
+                            str(args.seed), *(["--bf16"] if args.bf16 else []),
+                            *(["--rotated_bbox"] if args.rotated_bbox else []),
+                            *(["--norm_reg_targets", "--centerness_on_reg"]
+                              if args.fcos else [])])
+    trainer = cli.Trainer(cargs)
+    shape = tuple(cli.round_up(s, args.pad_multiple) for s in cli.BENCH_SHAPE)
     step = trainer.eval_step(shape)
     rng = np.random.default_rng(args.seed)
     grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(
         trainer.device, trainer.dtype)
-    ori = torch.tensor([run_rpn.BENCH_SHAPE], dtype=torch.int32, device=trainer.device)
+    ori = torch.tensor([cli.BENCH_SHAPE], dtype=torch.int32, device=trainer.device)
 
     def scene():
-        _, obj, dl, _ = step.forward(grids)
-        return obj, dl
+        """The forward's outputs that propose reads: all but the voxel scores."""
+        return step.forward(grids)[:3] if args.fcos else step.forward(grids)[1:3]
 
     for _ in range(10):
         step.propose(*scene(), ori)
@@ -117,15 +123,15 @@ def main(argv=None) -> dict:
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(args.scenes)]
     for a, b, c in ev:
         a.record()
-        obj, dl = scene()
+        heads = scene()
         b.record()
-        step.propose(obj, dl, ori)
+        step.propose(*heads, ori)
         c.record()
     torch.cuda.synchronize()
     fwd = np.array([a.elapsed_time(b) for a, b, _ in ev])
     prop = np.array([b.elapsed_time(c) for _, b, c in ev])
     timing = {"device": torch.cuda.get_device_name(0), "shape": list(shape),
-              "dtype": str(trainer.dtype), "rotated": args.rotated_bbox,
+              "dtype": str(trainer.dtype), "rotated": args.rotated_bbox, "fcos": args.fcos,
               "scenes": args.scenes,
               "forward_ms": float(fwd.mean()), "forward_median_ms": float(np.median(fwd)),
               "propose_ms": float(prop.mean()), "total_ms": float((fwd + prop).mean())}

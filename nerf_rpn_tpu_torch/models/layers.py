@@ -32,3 +32,11 @@ def conv3d(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor
                  conv.bias.to(dtype) if conv.bias is not None else None,
                  conv.stride, conv.padding)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm, dtype: torch.dtype) -> torch.Tensor:
+    """Channels-last (B, X, Y, Z, C) in and out; statistics and affine in
+    f32, the output rounded to the compute dtype."""
+    y = F.group_norm(x.permute(0, 4, 1, 2, 3).float(), gn.num_groups, gn.weight, gn.bias,
+                     gn.eps)
+    return y.permute(0, 2, 3, 4, 1).to(dtype)

@@ -1,17 +1,20 @@
-"""Backbone + anchor RPN head (port of ``NeRFRPN``, ``models/nerf_rpn.py``).
+"""Backbone + detection head (port of ``nerf_rpn_tpu/models/nerf_rpn.py``).
 
-Only the Swin backbones are ported; ResNet and VGG raise
-``NotImplementedError`` (ROADMAP queue 1, "Other backbones").
+``NeRFRPN`` is the backbone and the anchor RPN head, ``FCOSOverNeRF`` the
+backbone and the anchor-free FCOS head.  Only the Swin backbones are
+ported; ResNet and VGG raise ``NotImplementedError`` (ROADMAP.md:
+"ResNet / VGG backbones, then the quality gate on the port").
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 from torch import nn
 
-from nerf_rpn_tpu_torch.models.heads import RPNHead3D
+from nerf_rpn_tpu_torch.models.heads import FCOSHead3D, RPNHead3D
 from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS, SwinFPN
 
 
@@ -20,8 +23,8 @@ def build_backbone(backbone_type: str, dtype: torch.dtype = torch.float32) -> nn
         return SwinFPN(**SWIN_VARIANTS[backbone_type], dtype=dtype)
     if backbone_type in ("resnet", "resnet_tiny", "vgg_AF", "vgg_EF"):
         raise NotImplementedError(
-            f"backbone {backbone_type!r} is not ported to torch yet "
-            "(ROADMAP.md, queue 1: other backbones)")
+            f"backbone {backbone_type!r} is not ported to torch yet (ROADMAP.md: "
+            "\"ResNet / VGG backbones, then the quality gate on the port\")")
     raise ValueError(f"Unknown backbone {backbone_type}")
 
 
@@ -49,10 +52,41 @@ class NeRFRPN(nn.Module):
         return features, logits, deltas
 
 
+class FCOSOverNeRF(nn.Module):
+    """Returns (features, cls, reg, ctr), each a per-level list; with
+    ``rotated`` the head predicts 8 box channels (6 distances + the 2
+    midpoint offsets of an OBB)."""
+
+    def __init__(self, backbone_type: str = "swin_s", num_convs: int = 4,
+                 rotated: bool = False, norm_reg_targets: bool = True,
+                 centerness_on_reg: bool = True,
+                 fpn_strides: Sequence[int] = (4, 8, 16, 32),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone_type = backbone_type
+        self.num_convs = num_convs
+        self.rotated = rotated
+        self.fpn_strides = tuple(fpn_strides)
+        self.dtype = dtype
+        self.backbone = build_backbone(backbone_type, dtype)
+        self.fcos_head = FCOSHead3D(256, len(self.fpn_strides), num_convs, rotated,
+                                    centerness_on_reg, norm_reg_targets, self.fpn_strides,
+                                    dtype)
+
+    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
+        """``generator`` draws the backbone's stochastic-depth masks in
+        train mode (unused in eval)."""
+        features = list(self.backbone(grids, generator))
+        cls, reg, ctr = self.fcos_head(features)
+        return features, cls, reg, ctr
+
+
 # flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"):
 # a standard normal cut at +-2 and divided by its std after the cut, this
 # constant, before it is scaled by 1/sqrt(fan_in)
 TRUNCATED_STD = 0.87962566103423978
+# the prior probability of an object that the FCOS class bias starts at
+FCOS_PRIOR_PROB = 0.01
 
 
 @torch.no_grad()
@@ -62,10 +96,20 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     1/(0.8796 sqrt(fan_in)), flax's ``lecun_normal``), zero biases, unit
     LayerNorm scales, relative-position tables from
     ``truncated_normal(0.02)`` (cut at +-0.04, no rescale) and N(0, 0.01)
-    RPN-head convs (flax ``normal(0.01)``, not truncated)."""
+    RPN-head and FCOS-head convs (flax ``normal(0.01)``, not truncated).
+    The FCOS head's GroupNorms start at weight 1 and bias 0, its scales at
+    1, and its class logits' bias at -log((1 - p) / p), p = 0.01 (the focal
+    loss's prior)."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "relative_position_bias_table":
+        if name.startswith("fcos_head."):
+            if p.dim() == 5:
+                p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
+            elif name == "fcos_head.cls_logits.bias":
+                p.fill_(-math.log((1 - FCOS_PRIOR_PROB) / FCOS_PRIOR_PROB))
+            else:  # GroupNorm weights and scales 1, biases 0
+                p.fill_(0.0 if leaf == "bias" else 1.0)
+        elif leaf == "relative_position_bias_table":
             torch.nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04, generator=generator)
         elif ".norm" in name or "patch_partition.2" in name:
             p.fill_(1.0 if leaf == "weight" else 0.0)

@@ -11,7 +11,9 @@ tables come from ``models/anchors.py``, the port's copy of the JAX package's
 numpy module.
 Boxes are AABBs (6 deltas an anchor) or, with ``RPNConfig.rotated``, OBBs
 coded against the AABB anchors by the midpoint-offset coder (8 deltas).
-The regression loss is smooth-L1; the IoU losses are not ported yet.
+The regression loss is smooth-L1 on the deltas or, for OBBs, one of the
+rotated IoU losses (``iou``, ``linear_iou``, ``giou``, ``diou``) on the
+sampled rows' decoded proposals.
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ from nerf_rpn_tpu_torch.ops.aabb import (
 )
 from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask
 from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d, obb2points_3d
+from nerf_rpn_tpu_torch.ops.rotated_iou import diou_rotated_3d, giou_rotated_3d, iou_rotated_3d
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
 from nerf_rpn_tpu_torch.utils.losses import bce_with_logits, smooth_l1
 from nerf_rpn_tpu_torch.utils.projection import project_points
 from nerf_rpn_tpu_torch.utils.target_assign import match_anchors, sample_balanced_indices
+
+
+REG_LOSS_TYPES = ("smooth_l1", "iou", "linear_iou", "giou", "diou")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +67,17 @@ class RPNConfig:
     aspect_ratios = anchor_lib.DEFAULT_ASPECT_RATIOS
 
     def __post_init__(self):
-        if self.reg_loss_type != "smooth_l1":
+        if self.reg_loss_type not in REG_LOSS_TYPES:
+            raise ValueError(f"unknown reg_loss_type {self.reg_loss_type!r}")
+        if self.reg_loss_type != "smooth_l1" and not self.rotated:
+            # the JAX package runs its rotated chain on the 6 AABB columns:
+            # column 6 is empty and an out-of-range index clamps, so it
+            # scores [x1, y1, x2, y2] as an OBB turned by y2 radians; the
+            # port does not train on that value
             raise NotImplementedError(
-                f"reg_loss_type {self.reg_loss_type!r} is not ported to torch yet "
-                "(ROADMAP.md: \"Rotated geometry and the OBB main path: IoU losses\")")
+                f"reg_loss_type {self.reg_loss_type!r} is a rotated IoU loss and needs "
+                "OBBs (--rotated_bbox); the AABB IoU loss is not defined in the JAX "
+                "package either (ROADMAP.md: \"The JAX package's rotated IoU loss on AABBs\")")
 
     @property
     def box_dim(self) -> int:
@@ -250,6 +263,21 @@ def voxel_objectness_scores(logits: Sequence[torch.Tensor]) -> list[torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def rotated_iou_loss(pred: torch.Tensor, target: torch.Tensor, loss_type: str) -> torch.Tensor:
+    """Per-box rotated IoU loss of (..., 7) OBBs (``_rotated_iou_loss`` of
+    the JAX package): ``iou`` / ``linear_iou`` on the (+1)-smoothed volume
+    ratio, ``giou`` / ``diou`` with the smallest enclosing box."""
+    if loss_type in ("iou", "linear_iou"):
+        ious, _, _, _, unions = iou_rotated_3d(pred, target, verbose=True)
+        smooth_iou = (ious * unions + 1.0) / (unions + 1.0)
+        return -torch.log(smooth_iou) if loss_type == "iou" else 1.0 - smooth_iou
+    if loss_type == "giou":
+        return giou_rotated_3d(pred, target)[0]
+    if loss_type == "diou":
+        return diou_rotated_3d(pred, target)[0]
+    raise NotImplementedError(loss_type)
+
+
 def assign_anchors(cfg: RPNConfig, anchors: torch.Tensor, gt_boxes: torch.Tensor,
                    gt_mask: torch.Tensor, padding_mask: torch.Tensor | None = None) -> torch.Tensor:
     """(B, N) matches of the (N, 6) anchors to the (B, G, 6|7) zero-padded
@@ -291,7 +319,9 @@ def rpn_losses_at(cfg: RPNConfig, objectness: torch.Tensor,
     ``objectness`` (B, N); ``pred_deltas`` the head's native per-level
     outputs, split from the flat anchor index by ``level_counts`` and
     ``anchors_per_loc``.  Every normaliser is summed over the whole batch:
-    ``num_sampled = max(sum(pos_take) + sum(neg_take), 1)``.
+    ``num_sampled = max(sum(pos_take) + sum(neg_take), 1)``.  The box term
+    is smooth-L1 on the deltas, or the rotated IoU loss of the decoded
+    proposals against their matched gt boxes.
     """
     pos_idx, pos_take, neg_idx, neg_take = indices
     b = objectness.shape[0]
@@ -310,14 +340,20 @@ def rpn_losses_at(cfg: RPNConfig, objectness: torch.Tensor,
     k_anchors = anchors[pos_idx]
     k_deltas = gather_delta_rows_levels(pred_deltas, pos_idx, level_counts,
                                         anchors_per_loc, cfg.delta_dim)
-    targets = cfg.encode(matched_gt, k_anchors)
-    reg = smooth_l1(k_deltas, targets, beta=1.0 / 9)
-    losses = {"loss_objectness": obj_loss,
-              "loss_rpn_box_reg": torch.sum(reg * pos_take[..., None]) / num_sampled}
+    proposals = None
+    if cfg.reg_loss_type == "smooth_l1":
+        reg = smooth_l1(k_deltas, cfg.encode(matched_gt, k_anchors), beta=1.0 / 9)
+        reg_loss = torch.sum(reg * pos_take[..., None]) / num_sampled
+    else:
+        proposals = cfg.decode(k_deltas, k_anchors)
+        per_box = rotated_iou_loss(proposals, matched_gt, cfg.reg_loss_type)
+        reg_loss = torch.sum(per_box * pos_take) / num_sampled
+    losses = {"loss_objectness": obj_loss, "loss_rpn_box_reg": reg_loss}
 
     if cfg.reg_loss_weight_2d > 0:
         k = pos_idx.shape[1]
-        proposals = cfg.decode(k_deltas, k_anchors)
+        if proposals is None:
+            proposals = cfg.decode(k_deltas, k_anchors)
         # two points a box through the four cameras: an OBB's rotated
         # diagonal, an AABB's (min corner, max corner)
         if cfg.rotated:
@@ -341,7 +377,7 @@ def rpn_losses(cfg: RPNConfig, generator: torch.Generator, objectness: torch.Ten
                level_counts: Sequence[int], anchors_per_loc: int,
                padding_mask: torch.Tensor | None = None, max_mesh_dim: int = 160,
                indices=None) -> dict[str, torch.Tensor]:
-    """Objectness BCE, smooth-L1 box regression and the 2D projection term
+    """Objectness BCE, box regression and the 2D projection term
     (``rpn_losses`` of the JAX package): assign, sample (from ``generator``,
     unless ``indices`` are given), then the losses at the sampled rows."""
     with torch.no_grad():

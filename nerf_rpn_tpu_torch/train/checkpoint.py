@@ -2,7 +2,9 @@
 ``nerf_rpn_tpu/train/checkpoint.py``).
 
 A checkpoint is one file holding ``{epoch, backbone_state_dict,
-rpn_head_state_dict, train_args}`` -- the reference CLI's layout -- plus
+rpn_head_state_dict, train_args}`` -- the reference CLI's layout; an FCOS
+model's head goes under ``fcos_state_dict`` with its keys prefixed
+``head.``, as the reference FCOS CLI saves its ``FCOSModule`` -- plus
 ``optimizer_state_dict``, ``scheduler_state_dict`` and ``step``, with a
 ``<path>.args.json`` sidecar of the run's arguments.  The train loop writes
 ``epoch_N`` every evaluated epoch and ``model_best`` when the validation
@@ -26,15 +28,23 @@ def _split(model: torch.nn.Module, part: str) -> dict[str, torch.Tensor]:
             if k.startswith(prefix)}
 
 
+def _head_entry(model: torch.nn.Module) -> tuple[str, str, str]:
+    """(head module, checkpoint key, key prefix) of the model's head."""
+    if hasattr(model, "fcos_head"):
+        return "fcos_head", "fcos_state_dict", "head."
+    return "rpn_head", "rpn_head_state_dict", ""
+
+
 def save_checkpoint(state, path: str, train_args: dict | None = None,
                     epoch: int | None = None) -> None:
     """Write ``state`` (a ``TrainState``) to ``path`` and its args sidecar."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
+    head, key, prefix = _head_entry(state.model)
     payload = {
         "epoch": epoch,
         "backbone_state_dict": _split(state.model, "backbone"),
-        "rpn_head_state_dict": _split(state.model, "rpn_head"),
+        key: {prefix + k: v for k, v in _split(state.model, head).items()},
         "train_args": train_args,
         "optimizer_state_dict": state.optimizer.state_dict(),
         "scheduler_state_dict": state.scheduler.state_dict(),
@@ -56,7 +66,10 @@ def restore_checkpoint(model: torch.nn.Module, path: str, backbone_only: bool = 
     ckpt = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     model.backbone.load_state_dict(ckpt["backbone_state_dict"], strict=True)
     if not backbone_only:
-        model.rpn_head.load_state_dict(ckpt["rpn_head_state_dict"], strict=True)
+        head, key, prefix = _head_entry(model)
+        getattr(model, head).load_state_dict(
+            {k[len(prefix):]: v for k, v in ckpt[key].items() if k.startswith(prefix)},
+            strict=True)
     return ckpt
 
 

@@ -1,5 +1,6 @@
-"""The anchor-RPN train and eval steps (port of ``make_rpn_train_step`` and
-``make_rpn_eval_step``, ``nerf_rpn_tpu/train/steps.py:95-253``).
+"""The anchor-RPN and FCOS train and eval steps (port of ``make_rpn_train_step``,
+``make_rpn_eval_step``, ``make_fcos_train_step`` and ``make_fcos_eval_step``,
+``nerf_rpn_tpu/train/steps.py``).
 
 ``train_step(state, batch, generator, drop_generator)`` runs the model in
 train mode, the RPN losses, the backward (kernel K2 inside the attention's
@@ -14,6 +15,13 @@ boxes / scores / level_idx / valid from ``generate_proposals_levels`` plus
 -> per-level head outputs) and ``eval_step.propose`` (head outputs ->
 proposals), which the benchmark times separately.  The JAX package's split
 compile units exist for the TPU compiler and are not ported.
+
+The FCOS steps have the same shape.  ``train_step(state, batch,
+drop_generator)`` takes one generator only, for stochastic depth: FCOS's
+target assignment is deterministic.  Its metrics add ``dropped_positives``,
+the positives beyond the loss's gather capacity (``models/fcos.py``).
+``eval_step.forward`` gives the flattened (B, L, .) head outputs and the
+voxel scores, ``eval_step.propose`` the proposals.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from nerf_rpn_tpu_torch.models import fcos as fcos_lib
 from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
 from nerf_rpn_tpu_torch.train.state import global_norm
 
@@ -129,6 +139,85 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
     def eval_step(grids: torch.Tensor, ori_sizes: torch.Tensor):
         _, obj, dl, vox = forward(grids)
         out = propose(obj, dl, ori_sizes)
+        out["voxel_scores"] = vox
+        return out
+
+    eval_step.forward = forward
+    eval_step.propose = propose
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# FCOS
+# ---------------------------------------------------------------------------
+
+
+def _fcos_tables(model, cfg: FCOSConfig, mesh_shape, device):
+    """Locations, strides and size-of-interest ranges of every level on the
+    device (made once, so that no step copies them from the host), and the
+    level counts."""
+    if model.rotated != cfg.rotated:
+        raise ValueError(f"the model predicts {'OBB' if model.rotated else 'AABB'} targets "
+                         f"and the FCOS config codes {'OBBs' if cfg.rotated else 'AABBs'}")
+    shapes = level_shapes_for(mesh_shape, cfg.fpn_strides)
+    loc, _, counts, stride_of, soi = fcos_lib.fcos_locations(shapes, cfg.fpn_strides)
+    return ([torch.from_numpy(a).to(device) for a in (loc, stride_of, soi)], counts)
+
+
+def make_fcos_train_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
+                         device: torch.device | str = "cpu"):
+    """Returns ``train_step(state, batch, drop_generator) -> metrics``.
+
+    ``batch`` as the RPN step's, with (B, G, 6|7) ``gt_boxes``.  Metrics:
+    ``loss`` (the sum of the three terms), ``loss_cls``, ``loss_reg``,
+    ``loss_centerness``, ``dropped_positives``, ``grad_norm`` (pre-clip)
+    and ``param_norm`` (after the update), device tensors all.
+    """
+    (loc, stride_of, soi), _ = _fcos_tables(model, cfg, mesh_shape, device)
+
+    def train_step(state, batch, drop_generator):
+        model.train()
+        _, cls, reg, ctr = model(batch["grids"], drop_generator)
+        losses = fcos_lib.fcos_losses(
+            cfg, fcos_lib.flatten_fcos_outputs(cls, 1),
+            fcos_lib.flatten_fcos_outputs(reg, cfg.reg_dim),
+            fcos_lib.flatten_fcos_outputs(ctr, 1), loc, stride_of, soi,
+            batch["gt_boxes"], batch["gt_mask"],
+            padding_mask=fcos_lib.fcos_padding_mask(loc, batch["ori_sizes"]))
+        total = losses["loss_cls"] + losses["loss_reg"] + losses["loss_centerness"]
+        total.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
+                "grad_norm": grad_norm,
+                "param_norm": global_norm(list(model.parameters()))}
+
+    return train_step
+
+
+def make_fcos_eval_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
+                        device: torch.device | str = "cpu"):
+    """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict of
+    boxes (B, K, 6|7), scores, level_idx, valid (B, K) and voxel_scores."""
+    (loc, _, _), counts = _fcos_tables(model, cfg, mesh_shape, device)
+
+    @torch.inference_mode()
+    def forward(grids: torch.Tensor):
+        model.eval()
+        _, cls, reg, ctr = model(grids)
+        return (fcos_lib.flatten_fcos_outputs(cls, 1),
+                fcos_lib.flatten_fcos_outputs(reg, cfg.reg_dim),
+                fcos_lib.flatten_fcos_outputs(ctr, 1),
+                fcos_lib.fcos_voxel_scores(cls, ctr))
+
+    @torch.inference_mode()
+    def propose(cls_f, reg_f, ctr_f, ori_sizes: torch.Tensor):
+        return fcos_lib.fcos_inference(
+            cfg, cls_f, reg_f, ctr_f, loc, counts, ori_sizes,
+            padding_mask=fcos_lib.fcos_padding_mask(loc, ori_sizes))
+
+    def eval_step(grids: torch.Tensor, ori_sizes: torch.Tensor):
+        cls_f, reg_f, ctr_f, vox = forward(grids)
+        out = propose(cls_f, reg_f, ctr_f, ori_sizes)
         out["voxel_scores"] = vox
         return out
 

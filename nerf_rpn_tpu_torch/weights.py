@@ -1,12 +1,16 @@
-"""Flax parameter tree <-> torch ``state_dict`` for the anchor RPN.
+"""Flax parameter tree <-> torch ``state_dict`` for the anchor RPN and FCOS.
 
 The JAX package's params ``{"backbone": ..., "rpn_head": ...}`` map onto
-this package's ``NeRFRPN`` (Swin backbone) one leaf at a time:
+this package's ``NeRFRPN`` (Swin backbone), and ``{"backbone": ...,
+"fcos_head": ...}`` onto its ``FCOSOverNeRF``, one leaf at a time:
 
 - conv kernels (kx, ky, kz, in, out) -> weight (out, in, kx, ky, kz);
 - dense kernels (in, out) -> weight (out, in);
-- LayerNorm ``scale`` -> ``weight``; biases and the relative-position
-  tables unchanged.
+- LayerNorm and GroupNorm ``scale`` -> ``weight``; biases and the
+  relative-position tables unchanged;
+- the FCOS head's ``{cls,bbox}_tower_{d}_conv`` / ``_gn`` ->
+  ``{cls,bbox}_tower.{3d}`` / ``.{3d+1}`` and its per-level ``scale_{l}``
+  (a scalar) -> ``scales.{l}.scale`` (shape (1,)), the reference keys.
 
 Module names follow the reference torch keys (see ``models/swin.py``), so
 ``nerf_rpn_tpu.tools.convert_weights.convert_swin_fpn`` applied to the
@@ -48,6 +52,13 @@ def _flax_module_to_torch(path: list[str]) -> list[str]:
             return ["rpn_head", "conv", str(2 * int(m[1]))]
         if head in ("cls_logits", "bbox_pred"):
             return ["rpn_head", head]
+    elif top == "fcos_head":
+        if m := re.fullmatch(r"(cls_tower|bbox_tower)_(\d+)_(conv|gn)", head):
+            return ["fcos_head", m[1], str(3 * int(m[2]) + (m[3] == "gn"))]
+        if m := re.fullmatch(r"scale_(\d+)", head):
+            return ["fcos_head", "scales", m[1]]
+        if head in ("cls_logits", "bbox_pred", "centerness"):
+            return ["fcos_head", head]
     raise KeyError(f"no torch counterpart for flax module {'/'.join(path)}")
 
 
@@ -71,6 +82,13 @@ def _torch_module_to_flax(parts: list[str]) -> list[str]:
         if head == "conv":
             return ["rpn_head", f"tower_{int(tail[0]) // 2}"]
         return ["rpn_head", head]
+    elif top == "fcos_head":
+        if head in ("cls_tower", "bbox_tower"):
+            d, kind = divmod(int(tail[0]), 3)
+            return ["fcos_head", f"{head}_{d}_{'gn' if kind else 'conv'}"]
+        if head == "scales":
+            return ["fcos_head", f"scale_{tail[0]}"]
+        return ["fcos_head", head]
     raise KeyError(f"no flax counterpart for torch module {'.'.join(parts)}")
 
 
@@ -104,6 +122,8 @@ def from_jax_params(params: dict) -> dict[str, torch.Tensor]:
         if leaf == "kernel":
             v = v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v.T
             name = "weight"
+        elif leaf == "scale" and v.ndim == 0:  # an FCOS level's Scale
+            v, name = v.reshape(1), "scale"
         elif leaf == "scale":
             name = "weight"
         else:
@@ -118,7 +138,9 @@ def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
         v = t.detach().cpu().float().numpy()
-        if leaf == "weight":
+        if leaf == "scale":  # an FCOS level's Scale, a scalar in flax
+            v = v.reshape(())
+        elif leaf == "weight":
             if v.ndim == 1:
                 leaf = "scale"
             else:

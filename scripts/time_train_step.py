@@ -2,7 +2,7 @@
 
 Run on a GPU from the repository root::
 
-    python scripts/time_train_step.py [--tree DIR] [--label NAME] [--rotated_bbox]
+    python scripts/time_train_step.py [--tree DIR] [--label NAME] [--rotated_bbox] [--fcos]
 
 It imports ``nerf_rpn_tpu_torch`` from DIR (default: this repository),
 writes the synthetic 160^3 scenes of ``chip_smoke.py``'s train path
@@ -10,8 +10,10 @@ writes the synthetic 160^3 scenes of ``chip_smoke.py``'s train path
 ``scripts/train.sh`` configuration, with ``--rotated_bbox``) into a
 temporary directory, and runs
 ``chip_smoke.time_train_steps``: 20 timed steps after 3 warm-up steps on
-the first batch, CUDA events around each step, and the peak device
-memory.  It prints one ``[train steps]`` line with the label and the card.
+the first batch, CUDA events around each step, the peak device memory
+and one profiled step's device-busy ms.  With ``--fcos`` the step is the
+FCOS step of ``scripts/train_fcos.sh``'s flags.  It prints one ``[train
+steps]`` line with the label and the card.
 
 To compare a parent commit, unpack it with ``git archive`` into a
 directory that ``.gitignore`` lists and run both in turns (parent, this,
@@ -35,6 +37,7 @@ def main(argv=None) -> dict:
     p.add_argument("--tree", default=str(ROOT))
     p.add_argument("--label", default="")
     p.add_argument("--rotated_bbox", action="store_true")
+    p.add_argument("--fcos", action="store_true")
     args = p.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -51,7 +54,9 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory() as work:
         data, common = cs.write_train_data(work, rotated=args.rotated_bbox)
         print(f"[label] {args.label} ({torch.cuda.get_device_name(0)})", flush=True)
-        row = cs.time_train_steps(torch, data, common)
+        if args.fcos:
+            common = [*common, *cs.FCOS_TRAIN_FLAGS]
+        row = cs.time_train_steps(torch, data, common, fcos=args.fcos)
     return dict(label=args.label, **row)
 
 

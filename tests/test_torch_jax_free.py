@@ -5,8 +5,10 @@ with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch``,
 writes synthetic 32^3 datasets with the port's own writer and runs the CPU
 slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
 then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
-(``--rotated_bbox``, the 2D projection loss on) -- and checks that none of
-them reached ``sys.modules``.  An AST scan shows that no file of the port,
+(``--rotated_bbox``, the 2D projection loss on), then ``run_fcos --mode
+train`` and ``--mode eval --checkpoint model_best`` on the OBB scenes
+(``train_fcos.sh``'s loss flags) -- and checks that none of them reached
+``sys.modules``.  An AST scan shows that no file of the port,
 and not ``chip_smoke.py``, names them in an import statement.
 """
 
@@ -60,6 +62,22 @@ for data, extra in ((sys.argv[1], []),
     import numpy as np
     with np.load(data + "/out/proposals/synth003.npz") as z:
         assert z["proposal"].shape[1] == (7 if extra else 6), z["proposal"].shape
+
+from nerf_rpn_tpu_torch.cli import run_fcos
+data = sys.argv[1] + "/obb"
+common = ["--backbone_type", "swin_t", "--resolution", "32", "--num_convs", "1",
+          "--rotated_bbox", "--norm_reg_targets", "--centerness_on_reg",
+          "--iou_loss_type", "iou", "--pre_nms_top_n", "64", "--fpn_post_nms_top_n", "32",
+          "--device", "cpu", "--num_workers", "0", "--features_path", data,
+          "--boxes_path", data, "--dataset_split", data + "/split.npz"]
+logged = run_fcos.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                        "--save_path", data + "/fcos", *common])
+assert len(logged) == 2 and all(m["loss"] > 0 for m in logged), logged
+run_fcos.main(["--mode", "eval", "--checkpoint", data + "/fcos/model_best",
+               "--save_path", data + "/fcos_out", "--output_proposals", "--save_level_index",
+               *common])
+with np.load(data + "/fcos_out/proposals/synth003.npz") as z:
+    assert z["proposal"].shape[1] == 7 and "level_indices" in z.files
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("JAX_FREE_OK")
@@ -88,6 +106,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted(Path(REPO, "nerf_rpn_tpu_torch").rglob("*.py")) + [
         Path(REPO, "chip_smoke.py")]
     assert len(files) > 30
+    names = {str(f.relative_to(REPO)) for f in files}
+    for new in ("ops/rotated_iou.py", "ops/fcos_box.py", "models/fcos.py",
+                "cli/run_fcos.py"):
+        assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]
     assert not bad, bad

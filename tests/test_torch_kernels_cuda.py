@@ -341,6 +341,41 @@ def test_resolve_kernel_on_an_obb_graph_matches_sweep_twin(cuda):
     assert 0 < int(want.sum()) < int(valid.sum())
 
 
+# FCOS's cross-level problem at 160^3: one scene of 2500 + 2500 + 1000 + 125
+# candidates, padded to Np = 6144
+FCOS_N = 6125
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["aabb", "obb"])
+def test_kernels_at_the_fcos_problem(cuda, rotated):
+    """K3 (AABBs) and the resolve kernel at Np = 6144 against their twins,
+    and the keep-set of nms_mask on the card against the CPU path's."""
+    if rotated:
+        boxes, scores, valid = _obb_problem(1, FCOS_N, 21)
+    else:
+        rng = np.random.default_rng(21)
+        lo = rng.uniform(0, 150, (1, FCOS_N, 3))
+        boxes = torch.from_numpy(np.concatenate(
+            [lo, lo + rng.uniform(4, 60, (1, FCOS_N, 3))], -1).astype(np.float32))
+        scores = torch.from_numpy((rng.integers(0, 500, (1, FCOS_N)) / 500).astype(np.float32))
+        valid = torch.from_numpy(rng.random((1, FCOS_N)) > 0.1)
+    _, sboxes, svalid = sort_problems(boxes.to(cuda), scores.to(cuda), valid.to(cuda))
+    assert sboxes.shape[1] == 6144
+    if rotated:
+        graph = obb_suppression_graph(sboxes, 0.3)
+    else:
+        graph = aabb_suppression_graph(sboxes, 0.3)
+        assert torch.equal(graph, aabb_suppression_graph_reference(sboxes, 0.3))
+    assert int((graph != 0).sum()) > 0
+    alive = resolve_keep(graph, svalid)
+    torch.cuda.synchronize()
+    assert torch.equal(alive, resolve_keep_reference(graph, svalid))
+    got = nms_mask(boxes.to(cuda), scores.to(cuda), valid.to(cuda), 0.3)
+    want = nms_mask(boxes, scores, valid, 0.3)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
 def test_resolve_kernel_rejects_bad_shapes_and_dtypes(cuda):
     graph = aabb_suppression_graph(_nms_boxes(2, 256, 0).to(cuda), 0.3)
     svalid = torch.ones((2, 256), dtype=torch.bool, device=cuda)

@@ -5,7 +5,10 @@ JAX's ``rpn_losses(cfg, key, ...)`` samples its anchors with
 the same key to get JAX's indices and feeds them to the port's
 ``rpn_losses_at``.  Matches, padding masks and gathered delta rows must be
 exact; each loss term within 1e-6 relative, with the 2D projection term
-off and on.  Batch 2, so the batch-summed normalisers are exercised.
+off and on.  Batch 2, so the batch-summed normalisers are exercised.  The OBB form
+with the rotated IoU losses (``iou``, ``giou``) is held to JAX with its
+gradients; the IoU losses on AABBs are refused (JAX computes no AABB IoU
+there), and the focal loss of FCOS is held to its JAX form.
 """
 
 import jax
@@ -15,7 +18,9 @@ import pytest
 import torch
 
 from nerf_rpn_tpu.models import rpn as jrpn
+from nerf_rpn_tpu.ops import rotated_iou as jri
 from nerf_rpn_tpu.ops.aabb import pairwise_iou_aabb as jax_iou
+from nerf_rpn_tpu.ops.obb import obb2hbb_3d as jax_obb2hbb_3d
 from nerf_rpn_tpu.utils import target_assign as jta
 from nerf_rpn_tpu.utils.projection import project_points as jax_project
 from nerf_rpn_tpu_torch.models import rpn
@@ -145,3 +150,135 @@ def test_loss_primitives_match_jax():
 def test_unported_regression_losses_raise():
     with pytest.raises(NotImplementedError):
         rpn.RPNConfig(reg_loss_type="giou")
+
+
+def test_sigmoid_focal_loss_matches_jax():
+    from nerf_rpn_tpu.utils import losses as jl
+
+    from nerf_rpn_tpu_torch.utils.losses import sigmoid_focal_loss
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(0, 3, 1000).astype(np.float32)
+    t = (rng.random(1000) < 0.3).astype(np.float32)
+    for alpha in (0.25, -1.0):
+        np.testing.assert_allclose(
+            sigmoid_focal_loss(torch.from_numpy(x), torch.from_numpy(t), alpha).numpy(),
+            np.asarray(jl.sigmoid_focal_loss(jnp.asarray(x), jnp.asarray(t), alpha)),
+            rtol=1e-5, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def obb_setup():
+    """The OBB form of ``setup``: 8 midpoint-offset deltas an anchor and gt
+    OBBs around anchor centres, matched by their enclosing AABBs."""
+    rng = np.random.default_rng(6)
+    anchors, _, strides, counts = jrpn.build_level_tables(jrpn.RPNConfig(rotated=True),
+                                                         MESH, SHAPES)
+    anchors = anchors.astype(np.float32)
+    b, g = 2, 6
+    logits = [rng.normal(0, 1.5, (b, *s, A)).astype(np.float32) for s in SHAPES]
+    deltas = [rng.normal(0, 0.2, (b, *s, A * 8)).astype(np.float32) for s in SHAPES]
+    centres = anchors[rng.choice(len(anchors), (b, g))]
+    gt = np.zeros((b, g, 7), np.float32)
+    gt[..., :3] = 0.5 * (centres[..., :3] + centres[..., 3:])
+    gt[..., 3:6] = rng.uniform(4, 12, (b, g, 3))
+    gt[..., 6] = rng.uniform(-1.4, 1.4, (b, g))
+    mask = np.zeros((b, g), bool)
+    mask[0, :4] = True
+    mask[1, :2] = True
+    gt[~mask] = 0.0
+    ori = np.array([[32, 30, 32], [30, 32, 28]], np.int32)
+    pad = np.asarray(jrpn.dynamic_padding_masks(SHAPES, strides, A, jnp.asarray(ori)))
+    matches = []
+    for i in range(b):
+        hbb = jax_obb2hbb_3d(jnp.asarray(gt[i]))
+        iou = jnp.where(pad[i][None], jax_iou(hbb, jnp.asarray(anchors)), -1.0)
+        m = jta.match_anchors(iou, jnp.asarray(mask[i]), 0.35, 0.2)
+        matches.append(jnp.where(pad[i], m, -2))
+    return dict(anchors=anchors, counts=counts, logits=logits, deltas=deltas, gt=gt,
+                mask=mask, pad=pad, matches=np.array(jnp.stack(matches)))
+
+
+@pytest.mark.parametrize("loss_type", ["iou", "giou"])
+def test_obb_iou_losses_and_gradients_with_jax_indices(obb_setup, loss_type):
+    """``rpn_losses(RPNConfig(rotated=True, reg_loss_type=...))``: the box
+    term is the rotated IoU loss of the sampled rows' decoded proposals.
+    Loss terms within 1e-5 relative; the gradients with respect to the
+    objectness and every level's deltas within 1e-4 of their largest entry
+    (f32 sums in another order through the polygon clip)."""
+    s = obb_setup
+    b = s["gt"].shape[0]
+    key = jax.random.PRNGKey(7)
+    jcfg = jrpn.RPNConfig(rotated=True, reg_loss_type=loss_type, reg_loss_weight_2d=0.5)
+    cfg = rpn.RPNConfig(rotated=True, reg_loss_type=loss_type, reg_loss_weight_2d=0.5)
+    obj = np.concatenate([l.reshape(b, -1) for l in s["logits"]], 1)
+
+    def jax_total(o, d):
+        out = jrpn.rpn_losses(jcfg, key, o, list(d), jnp.asarray(s["anchors"]),
+                              jnp.asarray(s["gt"]), jnp.asarray(s["mask"]),
+                              padding_mask=jnp.asarray(s["pad"]), max_mesh_dim=32,
+                              level_counts=s["counts"], anchors_per_loc=A)
+        return sum(out.values()), out
+
+    (_, want), (g_obj, g_deltas) = jax.value_and_grad(
+        jax_total, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(obj), [jnp.asarray(d) for d in s["deltas"]])
+    indices = [torch.from_numpy(np.array(t)) for t in jta.sample_balanced_indices(
+        key, jnp.asarray(s["matches"]), 256, 0.5)]
+    assert int(indices[1].sum()) > 0
+    t_obj = torch.from_numpy(obj).requires_grad_()
+    t_deltas = [torch.from_numpy(d).requires_grad_() for d in s["deltas"]]
+    got = rpn.rpn_losses_at(cfg, t_obj, t_deltas, torch.from_numpy(s["anchors"]),
+                            torch.from_numpy(s["gt"]), torch.from_numpy(s["matches"]).long(),
+                            indices, max_mesh_dim=32, level_counts=s["counts"],
+                            anchors_per_loc=A)
+    for k, w in want.items():
+        assert np.isfinite(float(w)) and float(w) > 0, k
+        np.testing.assert_allclose(float(got[k]), float(w), rtol=1e-5, atol=0, err_msg=k)
+    sum(got.values()).backward()
+    for t, w in zip([t_obj, *t_deltas], [g_obj, *g_deltas]):
+        w = np.asarray(w)
+        assert np.isfinite(t.grad.numpy()).all()
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max())
+
+
+def test_aabb_iou_loss_is_refused_where_jax_reads_the_aabb_as_an_obb():
+    """JAX's ``_rotated_iou_loss`` on 6-column AABBs: column 6 is an empty
+    slice and the out-of-range column 4 of the 2D sub-box clamps to column
+    3, so it scores ``[x1, y1, x2, y2]`` as a rectangle at (x1, y1) of size
+    (x2, y2) turned by y2 radians, not the boxes' IoU.  The port refuses
+    the pair instead of training on that value."""
+    a = np.array([[0.0, 0.0, 0.0, 2.0, 2.0, 2.0]], np.float32)
+    b = np.array([[1.0, 1.0, 1.0, 5.0, 5.0, 5.0]], np.float32)  # AABB IoU 1 / 71
+    got = float(jrpn._rotated_iou_loss(jnp.asarray(a), jnp.asarray(b), "linear_iou")[0])
+    # what JAX computes: the rectangles (x1, y1, x2, y2, theta = y2) with z
+    # extent (z1 - z2 / 2, z1 + z2 / 2) and volume x2 * y2 * z2
+    ra = np.array([[0.0, 0.0, 0.0, 2.0, 2.0, 2.0, 2.0]], np.float32)
+    rb = np.array([[1.0, 1.0, 1.0, 5.0, 5.0, 5.0, 5.0]], np.float32)
+    ious, _, _, _, unions = jri.iou_rotated_3d(jnp.asarray(ra), jnp.asarray(rb), verbose=True)
+    want = 1.0 - (float(ious[0] * unions[0]) + 1.0) / (float(unions[0]) + 1.0)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert abs(float(ious[0]) - 1.0 / 71.0) > 0.03, float(ious[0])
+    with pytest.raises(NotImplementedError, match="rotated_bbox"):
+        rpn.RPNConfig(reg_loss_type="linear_iou")
+
+
+def test_run_rpn_trains_obbs_with_a_rotated_iou_loss(tmp_path):
+    """``run_rpn --rotated_bbox --reg_loss_type giou`` trains on the CPU."""
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    data = str(tmp_path)
+    write_synthetic_dataset(data, n_train=2, n_val=1, n_test=0, resolution=(32, 32, 32),
+                            rotated=True)
+    logged = run_rpn.main([
+        "--mode", "train", "--rotated_bbox", "--reg_loss_type", "giou",
+        "--backbone_type", "swin_t", "--resolution", "32", "--rpn_head_conv_depth", "1",
+        "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32",
+        "--device", "cpu", "--num_workers", "0", "--num_epochs", "1", "--log_interval", "1",
+        "--features_path", data, "--boxes_path", data, "--dataset_split",
+        data + "/split.npz", "--save_path", data + "/run"])
+    assert len(logged) == 2
+    for m in logged:
+        assert np.isfinite(m["loss_rpn_box_reg"]) and m["loss_rpn_box_reg"] > 0, m
+        assert np.isfinite(m["grad_norm"]), m
