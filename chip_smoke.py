@@ -133,6 +133,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # Swin-S eval bench shape 208x208x144: (stage, token grid, heads, C)
 EVAL_STAGES = [("stage0", (52, 52, 36), 3, 96), ("stage1", (26, 26, 18), 6, 192),
                ("stage2", (13, 13, 9), 12, 384), ("stage3", (7, 7, 5), 24, 768)]
+# Swin-S FCOS eval at 160^3 (run_fcos --mode benchmark): the same, batch 1
+FCOS_EVAL_STAGES = [("fcos stage0", (40, 40, 40), 3, 96), ("fcos stage1", (20, 20, 20), 6, 192),
+                    ("fcos stage2", (10, 10, 10), 12, 384), ("fcos stage3", (5, 5, 5), 24, 768)]
 
 
 def fail(msg: str) -> None:
@@ -293,9 +296,9 @@ def print_ptxas_report(proc, lib):
 
 def check_window_attention(torch, dev):
     """K1 against its twin at the shapes the main path runs it: the four
-    eval stages without a mask (the unshifted eval blocks) and the train
-    stage 0 with the real shift mask (160^3, batch 2: 2000 windows over a
-    (1000, 64, 64) mask)."""
+    eval stages of the RPN and of the FCOS bench without a mask (the
+    unshifted eval blocks) and the train stage 0 with the real shift mask
+    (160^3, batch 2: 2000 windows over a (1000, 64, 64) mask)."""
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
@@ -308,7 +311,7 @@ def check_window_attention(torch, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [(name, -(-s[0] // 4) * -(-s[1] // 4) * -(-s[2] // 4), heads, c, None)
-             for name, s, heads, c in EVAL_STAGES]
+             for name, s, heads, c in EVAL_STAGES + FCOS_EVAL_STAGES]
     cases.append(("train stage0", 2000, 3, 96,
                   shift_attn_mask((40, 40, 40), (4, 4, 4), (2, 2, 2))))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -699,11 +702,10 @@ FCOS_TRAIN_FLAGS = [*FCOS_FLAGS, "--center_sampling_radius", "1.5", "--iou_loss_
 FCOS_NMS_N, FCOS_NMS_NP = 6125, 6144
 
 
-def fcos_bench_eval_step(torch, rotated, box_bias=0.0):
+def fcos_bench_eval_step(torch, rotated):
     """The eval step of ``run_fcos --mode benchmark`` (Swin-S, bf16, 160^3,
-    random weights from seed 0; OBBs with ``rotated``), its random grid and
-    the scene's size: ``(eval_step, grids, ori)``.  ``box_bias`` is added to
-    the bias of the head's 6 distance channels."""
+    random weights from seed 0; OBBs with ``rotated``), its model, its
+    random grid and the scene's size: ``(eval_step, model, grids, ori)``."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.cli import run_fcos
@@ -711,15 +713,13 @@ def fcos_bench_eval_step(torch, rotated, box_bias=0.0):
     args = run_fcos.parse_args(["--mode", "benchmark", "--backbone_type", "swin_s", "--bf16",
                                 *FCOS_FLAGS, *(["--rotated_bbox"] if rotated else [])])
     trainer = run_fcos.Trainer(args)
-    with torch.no_grad():
-        trainer.model.fcos_head.bbox_pred.bias[:6] += box_bias
     shape = run_fcos.BENCH_SHAPE
     eval_step = trainer.eval_step(shape)
     rng = np.random.default_rng(args.seed)
     grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(
         trainer.device, trainer.dtype)
     ori = torch.tensor([shape], dtype=torch.int32, device=trainer.device)
-    return eval_step, grids, ori
+    return eval_step, trainer.model, grids, ori
 
 
 def device_busy(torch, fn):
@@ -765,9 +765,13 @@ def check_fcos_nms(torch):
     )
 
     rows = {}
-    for rotated, box_bias in ((False, 0.0), (True, 0.0), (False, 1.0), (True, 1.0)):
-        kind = ("obb" if rotated else "aabb") + ("_overlapping" if box_bias else "")
-        eval_step, grids, ori = fcos_bench_eval_step(torch, rotated, box_bias)
+    for rotated, overlapping in ((False, False), (False, True), (True, False), (True, True)):
+        kind = ("obb" if rotated else "aabb") + ("_overlapping" if overlapping else "")
+        if overlapping:  # the step reads the model's parameters: bump them in place
+            with torch.no_grad():
+                model.fcos_head.bbox_pred.bias[:6] += 1.0
+        else:
+            eval_step, model, grids, ori = fcos_bench_eval_step(torch, rotated)
         cls_f, reg_f, ctr_f, _ = eval_step.forward(grids)
         heads = (cls_f, reg_f, ctr_f, ori)
         boxes, scores, valid, thresh = capture_nms_problem(eval_step, *heads, module=fcos_lib)
@@ -823,7 +827,7 @@ def check_fcos_nms(torch):
                    nms_mask_busy_ms=busy_ms, nms_mask_kernels=busy_kernels)
         if not rotated and propose_syncs:
             fail(f"FCOS AABB propose synchronised {propose_syncs} times with the host")
-        if box_bias and not 0 < row["kept"] < row["valid"]:
+        if overlapping and not 0 < row["kept"] < row["valid"]:
             fail(f"FCOS {kind}: NMS kept {row['kept']} of {row['valid']}: it should suppress")
         print(f"fcos_nms_{kind}", json.dumps(row), flush=True)
         rows[kind] = row
@@ -831,9 +835,9 @@ def check_fcos_nms(torch):
 
 
 def check_fused_window_attention(torch, dev):
-    """K4 against its twin at the four eval stages, the mask table and ids
-    from the real shift mask, q/k/v as strided views of a packed qkv (as
-    the eval route passes them)."""
+    """K4 against its twin at the four eval stages of the RPN and of the
+    FCOS bench, the mask table and ids from the real shift mask, q/k/v as
+    strided views of a packed qkv (as the eval route passes them)."""
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_mask_patterns
@@ -847,7 +851,7 @@ def check_fused_window_attention(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(11)
     rows, main = [], None
-    for name, size, heads, c in EVAL_STAGES:
+    for name, size, heads, c in EVAL_STAGES + FCOS_EVAL_STAGES:
         pad = tuple(-(-s // 4) * 4 for s in size)
         table_np, ids_np = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
         table = torch.from_numpy(table_np).to(dev)
@@ -882,8 +886,9 @@ def check_fused_window_attention(torch, dev):
 
 
 def check_ln_partition_qkv(torch, dev):
-    """K5 against its twin at the four eval stages (the pad inside, shift
-    2 as on every odd block), the qkv weight as ``Linear.weight.t()``."""
+    """K5 against its twin at the four eval stages of the RPN and of the
+    FCOS bench (the pad inside, shift 2 as on every odd block), the qkv
+    weight as ``Linear.weight.t()``."""
     from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
         ln_partition_qkv,
         ln_partition_qkv_reference,
@@ -894,7 +899,7 @@ def check_ln_partition_qkv(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(12)
     rows, main = [], None
-    for name, size, _, c in EVAL_STAGES:
+    for name, size, _, c in EVAL_STAGES + FCOS_EVAL_STAGES:
         pad = tuple(-(-s // 4) * 4 for s in size)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((1, *size, c), generator=gen, device=dev).to(dtype)
@@ -926,8 +931,9 @@ def check_ln_partition_qkv(torch, dev):
 
 
 def check_fused_mlp(torch, dev):
-    """K6 against its twin on the tokens of the four eval stages, the
-    weights as the model passes them (``Linear.weight.t()``)."""
+    """K6 against its twin on the tokens of the four eval stages of the RPN
+    and of the FCOS bench, the weights as the model passes them
+    (``Linear.weight.t()``)."""
     from nerf_rpn_tpu_torch.ops.fused_mlp import (
         fused_mlp_block,
         fused_mlp_block_reference,
@@ -938,7 +944,7 @@ def check_fused_mlp(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(13)
     rows, main = [], None
-    for name, size, _, c in EVAL_STAGES:
+    for name, size, _, c in EVAL_STAGES + FCOS_EVAL_STAGES:
         tokens, hd = math.prod(size), 4 * c
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((tokens, c), generator=gen, device=dev).to(dtype)

@@ -90,6 +90,9 @@ def check_k1(out, ref, dtype):
     (300, 4, 64, 50),   # D = 16
     (300, 2, 128, 0),   # D = 64
     (40, 48, 384, 0),   # H = 48, D = 8: G = 6 in bf16
+    (1000, 3, 96, 0),   # FCOS eval at 160^3, stages 0-2 (stage 3 is W = 8 above)
+    (125, 6, 192, 0),
+    (27, 12, 384, 0),
 ])
 def test_window_attention_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
@@ -426,7 +429,11 @@ def check_close(got, want, dtype):
                                        ((8, 8, 8), 1, 24, 32),     # stage 3: G = 1, H = 24
                                        ((24, 24, 20), 1, 7, 32),   # H = 7
                                        ((24, 24, 20), 1, 4, 16),   # D = 16
-                                       ((24, 24, 20), 1, 2, 64)])  # D = 64
+                                       ((24, 24, 20), 1, 2, 64),   # D = 64
+                                       # FCOS eval at 160^3, stages 0-2
+                                       ((40, 40, 40), 1, 3, 32),
+                                       ((20, 20, 20), 1, 6, 32),
+                                       ((12, 12, 12), 1, 12, 32)])
 def test_fused_window_attention_kernel_matches_twin(cuda, pad, b, h, d, dtype):
     table, ids = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
     table = torch.from_numpy(table).to(cuda)
@@ -502,6 +509,10 @@ def _linear_weight_view(c, dtype, device, seed=9):
     (2, (9, 8, 11), 192, (2, 0, 2)),     # 3C = 576
     (1, (7, 7, 5), 768, (2, 2, 2)),      # stage 3: 8 windows
     (1, (13, 13, 9), 384, (2, 2, 2)),    # stage 2: 48 windows, G = 3 (bf16), 9 (f32)
+    (1, (40, 40, 40), 96, (2, 2, 2)),    # FCOS eval at 160^3, stages 0-3
+    (1, (20, 20, 20), 192, (2, 2, 2)),
+    (1, (10, 10, 10), 384, (2, 2, 2)),
+    (1, (5, 5, 5), 768, (2, 2, 2)),
 ])
 def test_ln_partition_qkv_kernel_at_the_planner_edges(cuda, b, size, c, shift, dtype):
     x = torch.randn((b, *size, c), generator=torch.Generator(cuda).manual_seed(10),
@@ -576,7 +587,9 @@ def _mlp_inputs(t, c, dtype, device, seed=8, hd=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,c", [(20000, 96), (1000, 96), (301, 384), (245, 768),
-                                 (40, 1536)])
+                                 (40, 1536),
+                                 # FCOS eval at 160^3, stages 0-3
+                                 (64000, 96), (8000, 192), (1000, 384), (125, 768)])
 def test_fused_mlp_kernel_matches_twin(cuda, t, c, dtype):
     args = _mlp_inputs(t, c, dtype, cuda)
     before = kernels.counts()["fused_mlp_block"]
@@ -681,3 +694,22 @@ def test_eval_kernels_reject_bad_shapes(cuda):
         fused_mlp_block(*args)
     with pytest.raises(TypeError):
         fused_mlp_block(args[0].half(), *args[1:])
+
+
+def test_global_norm_on_the_card_matches_the_cpu_form(cuda):
+    """The card's ``global_norm`` (``_foreach_norm``) against the CPU's
+    cascaded sums of squares on gradient leaves of the Swin-S FCOS model's
+    shapes, each leaf at its own scale, at 1e-5."""
+    from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF
+    from nerf_rpn_tpu_torch.train.state import global_norm
+
+    shapes = [p.shape for p in FCOSOverNeRF("swin_s", 4, rotated=True).parameters()]
+    rng = np.random.default_rng(23)
+    leaves = [torch.from_numpy((rng.standard_normal(s) * 10.0 ** rng.uniform(-4, 1))
+                               .astype(np.float32)) for s in shapes]
+    assert sum(t.numel() for t in leaves) > 40_000_000
+    want = global_norm(leaves)
+    got = global_norm([t.to(cuda) for t in leaves])
+    exact = np.sqrt(sum(float(np.sum(t.numpy().astype(np.float64) ** 2)) for t in leaves))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert abs(want.item() - exact) <= 1e-5 * exact
