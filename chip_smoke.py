@@ -96,7 +96,29 @@ nonzero before the result lines:
    train`` on the synthetic 160^3 OBB scenes of phase 13, finite loss
    terms, no dropped positives, K1 and K2 24 a step; then ``--mode eval
    --checkpoint <save>/model_best --output_proposals --save_level_index``;
-17. 20 timed FCOS train steps (ms a step, peak GiB).
+17. 20 timed FCOS train steps (ms a step, peak GiB);
+18. the ResNet / VGG small slice: ``resnet_tiny`` and ``vgg_AF`` (the
+   ``input_size >= 160`` stem) at 64^3, f32, the same weights and running
+   statistics (not 0 / 1) on the card and on the CPU: eval head outputs,
+   proposals from the same head outputs (as sets: rows whose sigmoids
+   differ by an ulp may trade places), and one RPN train step at batch 2
+   with one injected anchor sample, in f64 (loss terms, every gradient
+   leaf, the updated running statistics);
+19. the ResNet / VGG eval paths: ``run_rpn --mode benchmark --bf16
+   --pad_multiple 16`` with ``resnet``, ``vgg_AF`` and ``vgg_EF`` at
+   208x208x144 (``bench.py``'s three CNN rows) and ``run_fcos --mode
+   benchmark --backbone_type resnet`` at 160^3: forward, propose and whole
+   ms a scene, launches a scene K3 1, resolve 1, every Swin kernel 0;
+20. the ResNet train path: ``run_rpn --mode train --backbone_type resnet
+   --bf16`` on phase 10's 160^3 scenes (batch 2, one epoch, validation,
+   checkpoints), ``--mode eval --checkpoint <save>/model_best`` with its
+   restored running statistics equal to the saved ones, then 20 timed
+   train steps (ms a step, peak GiB; no hand kernel a step);
+21. the quality gate on the card (``nerf_rpn_tpu_torch.cli.quality_gate``,
+   ``rpn_aabb`` and ``fcos_obb``: resnet_tiny trained from scratch for 60
+   epochs on synthetic 32^3 scenes through ``run_rpn`` / ``run_fcos``):
+   AP@25, AP@50, Recall@25, the validation curve and the seconds of each
+   combo; the phase fails under a combo's gates.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -110,7 +132,7 @@ input read once, each output written once) over the memory rate and the
 operations over the peak rate for their type.
 
 Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
-eval, FCOS train) runs with the launch counts set to 0 just before it and
+eval, FCOS train, the CNN eval paths, the ResNet train path) runs with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is its sum over
 them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
@@ -1365,7 +1387,8 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
     device memory and, for one more step under ``torch.profiler``, the
     device-busy ms and kernels, at the train path's shape on its first
     batch (the FCOS step with ``fcos``, ``common`` then holding its
-    flags); K1 and K2 must run once per Swin block and step."""
+    flags); K1 and K2 must run once per Swin block and step, and no hand
+    kernel in a ResNet / VGG step."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
@@ -1415,17 +1438,19 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     per_step = {k: v / steps for k, v in kernels.counts().items() if v}
-    blocks = sum(SWIN_VARIANTS[args.backbone_type]["depths"])
-    if per_step != {"window_attention_fwd": blocks, "window_attention_bwd": blocks}:
-        fail(f"timed train steps: launches per step {per_step}, expected K1 and K2 "
-             f"{blocks} each")
+    # a Swin step runs K1 and K2 once a block; a CNN step no hand kernel
+    blocks = sum(SWIN_VARIANTS.get(args.backbone_type, {"depths": ()})["depths"])
+    want = {"window_attention_fwd": blocks, "window_attention_bwd": blocks} if blocks else {}
+    if per_step != want:
+        fail(f"timed train steps: launches per step {per_step}, expected {want}")
     ms = np.array([a.elapsed_time(b) for a, b in events])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     busy_ms, busy_kernels = device_busy(torch, lambda: step(state, batch, gen, drop))
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.all(np.isfinite(losses)):
         fail(f"timed train steps: non-finite losses {losses}")
-    row = {"head": "fcos" if fcos else "rpn", "rotated": args.rotated_bbox,
+    row = {"head": "fcos" if fcos else "rpn", "backbone": args.backbone_type,
+           "rotated": args.rotated_bbox,
            "shape": list(trainer.mesh_shape),
            "batch": args.batch_size, "steps": steps, "launches_per_step": per_step,
            "ms_per_step_mean": float(ms.mean()), "ms_per_step_median": float(np.median(ms)),
@@ -1435,6 +1460,341 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
     print("[train steps]", json.dumps(row), flush=True)
     return row
+
+
+# ---------------------------------------------------------------------------
+# The CNN backbones (ResNet / VGG) and the quality gate
+# ---------------------------------------------------------------------------
+
+# a ResNet / VGG eval scene runs K3 and the resolve kernel once (AABB
+# propose) and no Swin kernel; a train step runs none
+CNN_EVAL_LAUNCHES_PER_SCENE = {"aabb_suppression_graph": 1.0, "nms_resolve": 1.0}
+SWIN_KERNELS = ("window_attention_fwd", "window_attention_bwd", "fused_window_attention",
+                "ln_partition_qkv", "fused_mlp_block")
+# run_rpn --mode benchmark's scene (bench.py's resnet / vgg_AF / vgg_EF rows)
+CNN_BENCH_BACKBONES = ("resnet", "vgg_AF", "vgg_EF")
+
+
+def _cnn_pair(torch, dev, backbone, seed, x):
+    """The same ``backbone`` (f32, random weights, running statistics that
+    are not 0 / 1) on the CPU and on the card.  The class logits are
+    scaled to a largest |logit| of 4 on ``x`` (the init gives ~1e-4,
+    whose sigmoids tie to the ulp, and saturated ones tie at 1: the two
+    devices' sigmoids then order such rows differently), the deltas by
+    0.05 (boxes near their anchors)."""
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
+
+    cpu = NeRFRPN(backbone, conv_depth=2, resolution=160)
+    init_params(cpu, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.running_mean.copy_(torch.rand(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+        cpu.rpn_head.bbox_pred.weight.mul_(0.05)
+        logits = cpu.eval()(x)[1]
+        cpu.rpn_head.cls_logits.weight.mul_(4.0 / max(l.abs().max().item() for l in logits))
+    gpu = NeRFRPN(backbone, conv_depth=2, resolution=160)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu.to(dev)
+
+
+def same_proposal_sets(np, want, got, box_tol):
+    """The worst box error between two propose outputs that keep the same
+    proposals, or None.  Rows match by level, score (within 1e-6) and box
+    (within ``box_tol``): two scores within an ulp of each other -- one
+    device's sigmoid may tie what the other's separates -- may trade
+    places, so the rows are compared as sets, each matched once."""
+    worst = 0.0
+    for b in range(want["valid"].shape[0]):
+        w_valid, g_valid = want["valid"][b].cpu().numpy(), got["valid"][b].cpu().numpy()
+        if w_valid.sum() != g_valid.sum():
+            return None
+        w = [t[b].float().cpu().numpy()[w_valid] for t in (want["scores"], want["boxes"])]
+        g = [t[b].float().cpu().numpy()[g_valid] for t in (got["scores"], got["boxes"])]
+        wl = want["level_idx"][b].cpu().numpy()[w_valid]
+        gl = got["level_idx"][b].cpu().numpy()[g_valid]
+        free = np.ones(len(gl), bool)
+        for i in range(len(wl)):
+            err = np.abs(g[1] - w[1][i]).max(axis=1)
+            ok = free & (gl == wl[i]) & (np.abs(g[0] - w[0][i]) <= 1e-6) & (err <= box_tol)
+            if not ok.any():
+                return None
+            j = int(np.flatnonzero(ok)[np.argmin(err[ok])])
+            free[j] = False
+            worst = max(worst, float(err[j]))
+    return worst
+
+
+def _unlike_scenes(np, n, shape, seed):
+    """``n`` grids of unlike content: BatchNorm statistics over few deep
+    voxels of near-equal scenes would be all rounding."""
+    x = np.random.default_rng(seed).uniform(0, 1, (n, *shape, 4)).astype(np.float32)
+    for i in range(1, n):
+        x[i] *= np.linspace(0.2, 3.0, shape[0], dtype=np.float32)[:, None, None, None] * i
+        x[i, shape[0] // 4:, : shape[1] // 2, :, 3] += 2.0
+    return x
+
+
+def check_cnn_small_slice(torch, dev):
+    """``resnet_tiny`` and ``vgg_AF`` (the 160 stem rule) at 64^3, f32, the
+    same weights and running statistics on the card and on the CPU: eval
+    head outputs, proposals from the same head outputs, then one RPN train
+    step at batch 2 with one injected anchor sample, in f64 -- the loss
+    terms, every gradient leaf and the updated running statistics."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import (level_shapes_for, make_rpn_eval_step,
+                                                make_rpn_train_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, strides = (64, 64, 64), (4, 8, 16, 32)
+    cfg = rpn_lib.RPNConfig(pre_nms_top_n=600, post_nms_top_n=300)
+    x = torch.from_numpy(_unlike_scenes(np, 1, shape, 2))
+    ori = torch.tensor([[60, 56, 64]], dtype=torch.int32)
+    gt = np.zeros((2, 8, 6), np.float32)
+    gt[0, :3] = [[4, 6, 8, 28, 24, 36], [32, 32, 16, 56, 60, 40], [8, 40, 40, 24, 60, 62]]
+    gt[1, :2] = [[0, 0, 0, 40, 32, 24], [20, 24, 28, 36, 40, 48]]
+    batch = {"grids": torch.from_numpy(_unlike_scenes(np, 2, shape, 4)),
+             "gt_boxes": torch.from_numpy(gt), "gt_mask": torch.from_numpy(gt[..., 3] > 0),
+             "ori_sizes": torch.tensor([[64, 60, 64], [56, 64, 52]], dtype=torch.int32)}
+    shapes = level_shapes_for(shape, strides)
+    anchors, _, level_strides, _ = rpn_lib.build_level_tables(cfg, shape, shapes)
+    pad = rpn_lib.dynamic_padding_masks(shapes, level_strides, 13, batch["ori_sizes"])
+    matches = rpn_lib.assign_anchors(cfg, torch.from_numpy(anchors), batch["gt_boxes"],
+                                     batch["gt_mask"], pad)
+    indices = rpn_lib.sample_anchors(cfg, matches, torch.Generator().manual_seed(0))
+    for seed, backbone in enumerate(("resnet_tiny", "vgg_AF")):
+        cpu, gpu = _cnn_pair(torch, dev, backbone, seed, x)
+        kernels.reset_counts()
+        c_step = make_rpn_eval_step(cpu.eval(), cfg, shape)
+        g_step = make_rpn_eval_step(gpu.eval(), cfg, shape, device=dev)
+        _, c_obj, c_dl, _ = c_step.forward(x)
+        _, g_obj, g_dl, _ = g_step.forward(x.to(dev))
+        worst = 0.0
+        for c, g in zip(c_obj + c_dl, g_obj + g_dl):
+            err = (g.cpu() - c).abs().max().item()
+            worst = max(worst, err / (1.0 + c.abs().max().item()))
+            # f32 convolutions of other algorithms (TF32 off): 1e-4
+            if not err <= 1e-4 * (1.0 + c.abs().max().item()):
+                fail(f"{backbone} small slice: head outputs differ by {err}")
+        c_out = c_step.propose(c_obj, c_dl, ori)
+        g_out = g_step.propose([t.to(dev) for t in c_obj], [t.to(dev) for t in c_dl],
+                               ori.to(dev))
+        box_err = same_proposal_sets(np, c_out, g_out, 1e-6 * shape[0])
+        if box_err is None:
+            fail(f"{backbone} small slice: the proposals differ from the CPU run's")
+        launches = kernels.counts()
+        # the card's propose: K3 and the resolve kernel once (none on a CPU rehearsal)
+        if dev.type == "cuda" and (launches["aabb_suppression_graph"] != 1
+                                   or launches["nms_resolve"] != 1):
+            fail(f"{backbone} small slice: launches {launches}")
+        print(f"[cnn small slice] {backbone}: head max|err| / (1 + max) {worst:.3g}, proposals: "
+              f"the same set, boxes max|err| {box_err:.3g}, "
+              f"{int(c_out['valid'].sum())} valid", flush=True)
+
+        # the train step in f64: f32's E[x^2] - E[x]^2 over the deep stages'
+        # few values a channel is ill-conditioned (the CPU's own f32 step is
+        # 25% off its f64 step on a vgg_AF leaf), f64 is not
+        results = []
+        for d in (torch.device("cpu"), dev):
+            model = NeRFRPN(backbone, conv_depth=2, resolution=160, dtype=torch.float64)
+            model.load_state_dict(cpu.state_dict())
+            model.to(d, torch.float64)
+            state = TrainState(model, 1e-3, 10)
+            grads, apply = {}, state.apply_gradients
+
+            def capture(model=model, grads=grads, apply=apply):
+                grads.update({n: p.grad.detach().cpu().clone()
+                              for n, p in model.named_parameters()})
+                return apply()
+
+            state.apply_gradients = capture
+            step = make_rpn_train_step(model, cfg, shape, strides, device=d)
+            metrics = step(state, {k: v.to(d, torch.float64) if k == "grids" else v.to(d)
+                                   for k, v in batch.items()},
+                           torch.Generator(d).manual_seed(0), torch.Generator(d).manual_seed(1),
+                           indices=[t.to(d) for t in indices])
+            stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+                     if "running_" in n}
+            results.append(({k: float(v) for k, v in metrics.items()}, grads, stats))
+        (c_m, c_g, c_s), (g_m, g_g, g_s) = results
+        for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm"):
+            # 1e-6: the anchors and the box targets stay f32
+            if not (np.isfinite(g_m[k]) and abs(g_m[k] - c_m[k]) <= 1e-6 * abs(c_m[k])):
+                fail(f"{backbone} small train step: {k} GPU {g_m[k]} vs CPU {c_m[k]}")
+        worst, top = 0.0, max(v.abs().max().item() for v in c_g.values())
+        # a conv bias that feeds a BatchNorm cancels in its mean: its
+        # gradient is 0 but rounding on both devices
+        cancelled = {f"{name}.{i}.bias" for name, seq in cpu.named_modules()
+                     if isinstance(seq, torch.nn.Sequential)
+                     for i, (a, b) in enumerate(zip(seq, list(seq)[1:]))
+                     if isinstance(a, torch.nn.Conv3d) and a.bias is not None
+                     and isinstance(b, torch.nn.BatchNorm3d)}
+        for name, c in c_g.items():
+            scale = c.abs().max().item()
+            err = (g_g[name] - c).abs().max().item()
+            if name in cancelled:
+                if not max(scale, g_g[name].abs().max().item()) <= 1e-4 * top:
+                    fail(f"{backbone} small train step: gradient {name} of a bias ahead of a "
+                         f"BatchNorm is {scale} (largest leaf {top})")
+                continue
+            if scale == 0:
+                if err != 0:
+                    fail(f"{backbone} small train step: gradient {name} should be 0")
+                continue
+            worst = max(worst, err / scale)
+            # f64 sums of another order, amplified as f32's are: 1e-6
+            if not err <= 1e-6 * scale:
+                fail(f"{backbone} small train step: gradient {name} max|err| {err} "
+                     f"vs scale {scale}")
+        stat_worst = 0.0
+        for name, c in c_s.items():
+            err = (g_s[name] - c).abs().max().item() / c.abs().max().item()
+            stat_worst = max(stat_worst, err)
+            if not err <= 1e-9:
+                fail(f"{backbone} small train step: running statistic {name} differs "
+                     f"by {err} (relative)")
+        print(f"[cnn small train step] {backbone}: loss GPU {g_m['loss']:.6f} vs CPU "
+              f"{c_m['loss']:.6f}; worst gradient leaf max|err| / max|g| {worst:.3g} over "
+              f"{len(c_g)} leaves; running statistics max rel err {stat_worst:.3g} over "
+              f"{len(c_s)} buffers", flush=True)
+
+
+def run_cnn_benchmarks(torch):
+    """``run_rpn --mode benchmark --bf16 --pad_multiple 16`` with ``resnet``,
+    ``vgg_AF`` and ``vgg_EF`` at 208x208x144 (``bench.py``'s three CNN
+    inference rows, nothing cut), then ``run_fcos --mode benchmark
+    --backbone_type resnet`` at 160^3: ms a scene and the launches a scene
+    (K3 1, resolve 1, every Swin kernel 0)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
+
+    total = {}
+    runs = [(f"{b} eval", run_rpn, ["--backbone_type", b, "--pad_multiple", "16"])
+            for b in CNN_BENCH_BACKBONES]
+    runs.append(("fcos resnet eval", run_fcos, ["--backbone_type", "resnet", *FCOS_FLAGS]))
+    rows = {}
+    for path, cli, argv in runs:
+        kernels.reset_counts()
+        bench = cli.main(["--mode", "benchmark", "--bf16", "--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        times = [bench[k] for k in ("forward_ms", "propose_ms", "total_ms")]
+        if not all(np.isfinite(times)) or bench["valid_proposals"] <= 0:
+            fail(f"{path} benchmark {bench}")
+        scenes = bench["reps"] + bench["warmup"]
+        per_scene = {k: v / scenes for k, v in launches.items() if v}
+        if per_scene != CNN_EVAL_LAUNCHES_PER_SCENE:
+            fail(f"{path}: launches per scene {per_scene}, expected "
+                 f"{CNN_EVAL_LAUNCHES_PER_SCENE}")
+        print(f"[{path} path] benchmark {bench['shape']} bf16, {bench['reps']} reps: "
+              f"forward {bench['forward_ms']:.3f} ms/scene, propose "
+              f"{bench['propose_ms']:.3f} ms/scene, whole {bench['total_ms']:.3f} "
+              f"ms/scene (median {bench['total_median_ms']:.3f}, "
+              f"p{bench['tail_percentile']:.1f} {bench['total_tail_ms']:.3f}); launches "
+              f"per scene {json.dumps(per_scene)}", flush=True)
+        rows[path] = bench
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total, rows
+
+
+def run_cnn_train_path(torch, workdir, resolution=160, backbone="resnet", device="cuda"):
+    """``run_rpn --mode train --backbone_type resnet --bf16`` on the train
+    path's synthetic 160^3 scenes (batch 2, one epoch, validation eval,
+    checkpoints; no Swin kernel, K3 and the resolve kernel in the
+    validation eval), then ``--mode eval --checkpoint <save>/model_best``,
+    whose restored running statistics must equal the saved ones."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    path = f"{backbone} train"
+    data, common = write_train_data(workdir, resolution, backbone, device)
+    save = os.path.join(workdir, f"{backbone}_train")
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                           "--save_path", save, *common])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    train_s = time.perf_counter() - t0
+    keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm", "param_norm")
+    if len(logged) != 2:
+        fail(f"{path} path: expected 2 logged steps, got {len(logged)}")
+    for m in logged:
+        if not (np.all(np.isfinite([m[k] for k in keys])) and m["loss"] > 0):
+            fail(f"{path} path: bad metrics {m}")
+    for name in ("model_best", "epoch_1", "model_best.args.json"):
+        if not os.path.isfile(os.path.join(save, name)):
+            fail(f"{path} path: {name} was not written")
+    # the validation eval's 2 scenes: K3 and the resolve kernel once each
+    require_launches(launches, ("aabb_suppression_graph", "nms_resolve"), path,
+                     absent=SWIN_KERNELS)
+    saved = torch.load(os.path.join(save, "model_best"), map_location="cpu", weights_only=True)
+    stats = {k: v for k, v in saved["backbone_state_dict"].items()
+             if "running_" in k or k.endswith("num_batches_tracked")}
+    if not stats or any(int(v) != 2 for k, v in stats.items() if k.endswith("tracked")):
+        fail(f"{path} path: the checkpoint's BatchNorm statistics do not show 2 steps")
+    print(f"[{path} path] 1 epoch, 2 steps + validation eval in {train_s:.1f} s; losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in logged)
+          + f"; {len(stats)} BatchNorm buffers saved", flush=True)
+
+    kernels.reset_counts()
+    argv = ["--mode", "eval", "--checkpoint", os.path.join(save, "model_best"),
+            "--save_path", save + "_eval_ckpt", "--output_proposals", *common]
+    trainer = run_rpn.Trainer(run_rpn.parse_args(argv))
+    restored = {k: v.cpu() for k, v in trainer.model.backbone.state_dict().items() if k in stats}
+    if restored.keys() != stats.keys() or not all(torch.equal(restored[k], v)
+                                                  for k, v in stats.items()):
+        fail(f"{path} eval from the checkpoint: restored running statistics differ")
+    recalls, _ = trainer.eval(run_rpn.common.build_datasets(trainer.args, "eval", False)[2])
+    torch.cuda.synchronize()
+    eval_launches = kernels.counts()
+    files = sorted(os.listdir(os.path.join(save + "_eval_ckpt", "proposals")))
+    if len(files) != 2 or not np.all(np.isfinite(recalls)):
+        fail(f"{path} eval from the checkpoint: files {files}, recalls {recalls}")
+    print(f"[{path} path] eval --checkpoint model_best: running statistics restored equal "
+          f"({len(stats)} buffers), recall@50 {recalls[0]:.4f} on 2 scenes", flush=True)
+    require_launches(eval_launches, ("aabb_suppression_graph", "nms_resolve"),
+                     f"{path} eval-from-checkpoint", absent=SWIN_KERNELS)
+    for k, v in eval_launches.items():
+        launches[k] += v
+    return launches, data, common
+
+
+def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb")):
+    """The port's train-to-quality gate on the card (``cli/quality_gate.py``
+    through ``run_rpn`` / ``run_fcos``, resnet_tiny, f32, 60 epochs at
+    32^3): AP@25, AP@50, Recall@25, the validation Recall@50 curve and the
+    seconds of each combo; the phase fails under a combo's gates."""
+    from nerf_rpn_tpu_torch.cli import quality_gate
+
+    rows = {}
+    for combo in combos:
+        t0 = time.perf_counter()
+        ap25, ap50, r25, _, curve = quality_gate.run_combo(combo, workdir, device="cuda")
+        row = {"combo": combo, "ap25": ap25, "ap50": ap50, "recall25": r25,
+               "gate_ap25": quality_gate.GATES[combo],
+               "gate_ap50": quality_gate.GATES_AP50[combo],
+               "val_recall50_curve": curve, "seconds": time.perf_counter() - t0}
+        row["pass"] = ap25 >= row["gate_ap25"] and ap50 >= row["gate_ap50"]
+        print("[quality gate]", json.dumps(row), flush=True)
+        rows[combo] = row
+    failed = [c for c, r in rows.items() if not r["pass"]]
+    if failed:
+        fail(f"quality gate: {failed} below their gates")
+    return rows
 
 
 def main() -> None:
@@ -1544,6 +1904,23 @@ def main() -> None:
         t0 = time.perf_counter()
         time_train_steps(torch, data, common, fcos=True)
         phase_done(torch, "timed FCOS train steps", t0)
+
+        t0 = time.perf_counter()
+        check_cnn_small_slice(torch, dev)
+        phase_done(torch, "ResNet / VGG small slice and train step vs CPU", t0)
+
+        t0 = time.perf_counter()
+        paths["cnn eval"], _ = run_cnn_benchmarks(torch)
+        phase_done(torch, "ResNet / VGG eval paths", t0)
+
+        t0 = time.perf_counter()
+        paths["resnet train"], data, common = run_cnn_train_path(torch, work)
+        time_train_steps(torch, data, common)
+        phase_done(torch, "ResNet train path and timed train steps", t0)
+
+        t0 = time.perf_counter()
+        run_quality_gate(torch, work)
+        phase_done(torch, "quality gate", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

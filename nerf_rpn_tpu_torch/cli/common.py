@@ -91,6 +91,21 @@ def build_datasets(args, mode: str, augment: bool):
     return None, None, make(test_scenes, False)
 
 
+def eval_datasets(args, evaluate):
+    """``--mode eval``: ``evaluate(test_set)``, or with ``--output_all``
+    ``evaluate`` on the train, validation and test scenes in turn (each
+    writes its report and dumps over the last); returns the last result."""
+    if not args.output_all:
+        return evaluate(build_datasets(args, "eval", augment=False)[2])
+    train_set, val_set, _ = build_datasets(args, "train", augment=False)
+    _, _, test_set = build_datasets(args, "eval", augment=False)
+    result = None
+    for ds in (train_set, val_set, test_set):
+        if ds is not None and len(ds):
+            result = evaluate(ds)
+    return result
+
+
 def device_batch(batch: dict, device: torch.device, dtype: torch.dtype) -> dict:
     """Host batch (numpy) -> a train step's device tensors, the grids in
     the compute dtype."""

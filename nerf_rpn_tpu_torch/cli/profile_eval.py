@@ -1,4 +1,4 @@
-"""Where the eval step's time goes on the GPU: Swin-S at the bench shape.
+"""Where the eval step's time goes on the GPU, at the bench shape.
 
 Builds the anchor RPN (random weights from ``--seed``; OBBs with
 ``--rotated_bbox``) and the eval step of ``run_rpn`` at 200x200x130 padded
@@ -7,9 +7,11 @@ step of ``run_fcos`` at 160^3 (``test_fcos.sh``'s head flags), then:
 
 1. times ``--scenes`` scenes after 10 warm-up scenes with CUDA events,
    split into forward and propose (ms per scene, mean and median);
-2. times 10 more forwards by layer -- each stage's Swin blocks and patch
-   merge, the FPN neck, the detection head -- with CUDA events from forward
-   hooks (ms per scene);
+2. times 10 more forwards by layer -- Swin: each stage's blocks and patch
+   merge; ResNet / VGG (``--backbone_type resnet|vgg_AF|vgg_EF``): the
+   stem and each stage; then the FPN neck and the detection head -- with
+   CUDA events around the modules (forward hooks) and the backbone's stem
+   and top-down methods (ms per scene);
 3. runs ``--profiled`` more scenes under ``torch.profiler`` and prints, per
    scene: the device time of every kernel name (top ``--top``), the
    launches, the device-busy time (the union of kernel intervals) and its
@@ -62,32 +64,70 @@ def _union_us(intervals) -> float:
     return total
 
 
-def layer_times(model, forward, scenes: int = 10) -> dict[str, float]:
-    """Device ms per scene of each layer group, from CUDA events that
-    forward hooks record around every module of the group."""
-    from nerf_rpn_tpu_torch.models.swin import PatchMerging3D
+def layer_groups(model):
+    """The layer groups of the eval forward: ``{module: name}`` timed by
+    forward hooks, and ``[(owner, method name, name)]`` for the parts of a
+    CNN backbone that are methods rather than modules (its stem, and the
+    ResNet's built-in FPN)."""
+    from nerf_rpn_tpu_torch.models.resnet import ResNetFPN
+    from nerf_rpn_tpu_torch.models.swin import PatchMerging3D, SwinFPN
+    from nerf_rpn_tpu_torch.models.vgg import VGGFPN
 
+    bb = model.backbone
     head = model.fcos_head if hasattr(model, "fcos_head") else model.rpn_head
-    groups = {model.backbone.fpn_neck: "fpn neck", head: "head"}
-    for i, stage in enumerate(model.backbone.stages):
-        for layer in stage:
-            groups[layer] = f"stage{i} " + ("merge" if isinstance(layer, PatchMerging3D)
-                                            else "blocks")
-    spans, handles = [], []
-    for module, name in groups.items():
-        def pre(m, inp, name=name):
-            spans.append([name, torch.cuda.Event(enable_timing=True), None])
-            spans[-1][1].record()
+    modules, methods = {head: "head"}, []
+    if isinstance(bb, SwinFPN):
+        modules[bb.fpn_neck] = "fpn neck"
+        for i, stage in enumerate(bb.stages):
+            for layer in stage:
+                modules[layer] = f"stage{i} " + ("merge" if isinstance(layer, PatchMerging3D)
+                                                 else "blocks")
+    elif isinstance(bb, ResNetFPN):
+        methods += [(bb, "stem", "stem"), (bb, "top_down", "fpn neck")]
+        modules.update({stage: f"stage{i}" for i, stage in enumerate(bb.layers)})
+    elif isinstance(bb, VGGFPN):
+        methods.append((bb, "stem", "stem"))
+        modules[bb.fpn_neck] = "fpn neck"
+        modules.update({stage: f"stage{i}"
+                        for i, stage in enumerate(bb.layers[bb.stem_len:])})
+    else:
+        raise ValueError(f"no layer groups for {type(bb).__name__}")
+    return modules, methods
 
-        def post(m, inp, out):
-            spans[-1][2] = torch.cuda.Event(enable_timing=True)
-            spans[-1][2].record()
-        handles += [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
-    for _ in range(scenes):
-        forward()
-    torch.cuda.synchronize()
-    for h in handles:
-        h.remove()
+
+def layer_times(model, forward, scenes: int = 10) -> dict[str, float]:
+    """Device ms per scene of each layer group, from CUDA events recorded
+    around every module (forward hooks) and method of the group."""
+    modules, methods = layer_groups(model)
+    spans, handles = [], []
+
+    def start(name):
+        spans.append([name, torch.cuda.Event(enable_timing=True), None])
+        spans[-1][1].record()
+
+    def stop():
+        spans[-1][2] = torch.cuda.Event(enable_timing=True)
+        spans[-1][2].record()
+
+    for module, name in modules.items():
+        handles += [module.register_forward_pre_hook(lambda m, inp, name=name: start(name)),
+                    module.register_forward_hook(lambda m, inp, out: stop())]
+    for owner, attr, name in methods:
+        def timed(*a, fn=getattr(owner, attr), name=name):
+            start(name)
+            out = fn(*a)
+            stop()
+            return out
+        setattr(owner, attr, timed)  # an instance attribute over the method
+    try:
+        for _ in range(scenes):
+            forward()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+        for owner, attr, _ in methods:
+            delattr(owner, attr)
     out = defaultdict(float)
     for name, a, b in spans:
         out[name] += a.elapsed_time(b) / scenes

@@ -1,9 +1,10 @@
 """Anchor-free FCOS command line, torch port: ``--mode train | eval | benchmark``.
 
-Port of ``nerf_rpn_tpu/cli/run_fcos.py`` for the Swin backbones with
+Port of ``nerf_rpn_tpu/cli/run_fcos.py`` for every backbone of the JAX
+table (Swin, ``resnet`` / ``resnet_tiny``, ``vgg_AF`` / ``vgg_EF``) with
 axis-aligned boxes, or oriented ones with ``--rotated_bbox`` (6 distances
 and 2 midpoint offsets a location), in f32 or ``--bf16``, on one device.
-The flags are the JAX CLI's, plus ``--weights`` (a flax params npz) and
+The flags are the JAX CLI's, plus ``--weights`` (a flax variables npz) and
 ``--device`` (``cuda``, the default, raises without a GPU; ``cpu`` only
 when asked for), as in ``run_rpn``.
 
@@ -13,17 +14,19 @@ optax's one-cycle schedule and clip, a log line every ``--log_interval``
 steps (with a warning where the loss dropped positives beyond its gather
 capacity), a validation eval every ``--eval_interval`` epochs and
 ``epoch_N`` / ``model_best`` checkpoints (``torch.save``; the head under
-``fcos_state_dict``, the reference layout).  ``--mode eval`` writes the
-Recall/AP report, and with ``--output_proposals`` (``--save_level_index``,
-``--filter``) and ``--output_voxel_scores`` the npz dumps.  ``--mode
-benchmark`` times the eval step on a random 160^3 grid (the reference
-protocol) on the card.
+``fcos_state_dict``, the reference layout).  ``--checkpoint`` loads such a
+file, only its backbone with ``--load_backbone_only``.  ``--mode eval``
+writes the Recall/AP report, and with ``--output_proposals``
+(``--save_level_index``, ``--filter``) and ``--output_voxel_scores`` the npz
+dumps, over the test scenes or, with ``--output_all``, over the train,
+validation and test scenes in turn.  ``--mode benchmark`` times the eval
+step on a random 160^3 grid (the reference protocol) on the card.
+``--conv_at_start`` is accepted and, as in the JAX driver, reaches no
+module.  VGG below ``--resolution`` 160 raises a ``ValueError``: its levels
+do not sit at the FCOS strides (4, 8, 16, 32).
 
 Refused with ``NotImplementedError``: ``--gpus`` and ``--wandb`` (ROADMAP
-"DDP"), the ResNet / VGG backbones (ROADMAP "ResNet / VGG backbones, then
-the quality gate on the port"), and ``--output_all``,
-``--load_backbone_only`` and ``--conv_at_start`` (ROADMAP "The rest of the
-drivers' flags").
+"DDP").
 
 Example (``scripts/train_fcos.sh``'s configuration, batch 2 a card)::
 
@@ -52,7 +55,8 @@ from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF, init_params
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
-from nerf_rpn_tpu_torch.train.steps import make_fcos_eval_step, make_fcos_train_step
+from nerf_rpn_tpu_torch.train.steps import (check_level_strides, make_fcos_eval_step,
+                                               make_fcos_train_step)
 
 STRIDES = (4, 8, 16, 32)
 BENCH_SHAPE = (160, 160, 160)
@@ -108,7 +112,8 @@ def parse_args(argv=None):
     p.add_argument("--iou_loss_type", default="iou",
                    choices=["iou", "linear_iou", "giou", "diou", "smooth_l1"])
     p.add_argument("--use_additional_l1_loss", action="store_true")
-    p.add_argument("--conv_at_start", action="store_true")
+    p.add_argument("--conv_at_start", action="store_true",
+                   help="Accepted as the JAX driver accepts it; no module reads it.")
     p.add_argument("--proj2d_loss_weight", type=float, default=0.0)
     p.add_argument("--pre_nms_top_n", type=int, default=2500)
     p.add_argument("--fpn_post_nms_top_n", type=int, default=2500)
@@ -116,7 +121,8 @@ def parse_args(argv=None):
     p.add_argument("--pre_nms_thresh", type=float, default=0.0)
     p.add_argument("--min_size", type=float, default=0.0)
     p.add_argument("--ap_top_n", type=int, default=None)
-    p.add_argument("--output_all", action="store_true")
+    p.add_argument("--output_all", action="store_true",
+                   help="--mode eval: evaluate the train, validation and test scenes.")
     p.add_argument("--pad_multiple", type=int, default=32)
     p.add_argument("--max_gt", type=int, default=64)
     p.add_argument("--num_workers", type=int, default=4,
@@ -136,12 +142,6 @@ def parse_args(argv=None):
         raise NotImplementedError(
             "--gpus (multi-GPU training) and --wandb are not ported to torch yet "
             "(ROADMAP.md: \"DDP\")")
-    refused = [f"--{f}" for f in ("output_all", "load_backbone_only", "conv_at_start")
-               if getattr(args, f)]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)} not ported to torch yet "
-            "(ROADMAP.md: \"The rest of the drivers' flags\")")
     return args
 
 
@@ -162,15 +162,16 @@ class Trainer:
         self.box_dim = 7 if args.rotated_bbox else 6
         self.model = FCOSOverNeRF(args.backbone_type, args.num_convs, args.rotated_bbox,
                                   args.norm_reg_targets, args.centerness_on_reg, STRIDES,
-                                  self.dtype)
+                                  self.dtype, resolution=args.resolution)
+        check_level_strides(self.model, STRIDES)
         if args.weights:
-            sd = weights_lib.from_jax_params(weights_lib.load_npz(args.weights))
-            self.model.load_state_dict(sd, strict=True)
+            weights_lib.load_weights_npz(self.model, args.weights)
             self.logger.info(f"Loaded weights {args.weights}")
         else:
             init_params(self.model, torch.Generator().manual_seed(args.seed))
         if args.checkpoint:
-            ckpt_lib.restore_checkpoint(self.model, args.checkpoint)
+            ckpt_lib.restore_checkpoint(self.model, args.checkpoint,
+                                        backbone_only=args.load_backbone_only)
             self.logger.info(f"Loaded checkpoint {args.checkpoint}")
         self.model.to(self.device).eval()
         self.cfg = FCOSConfig(
@@ -314,8 +315,7 @@ def main(argv=None):
     if args.mode == "train":
         return trainer.train_loop()
     if args.mode == "eval":
-        _, _, test_set = common.build_datasets(args, "eval", augment=False)
-        return trainer.eval(test_set)
+        return common.eval_datasets(args, trainer.eval)
     return trainer.benchmark()
 
 

@@ -1,15 +1,17 @@
 """Anchor NeRF-RPN command line, torch port: ``--mode train | eval | benchmark``.
 
-Port of ``nerf_rpn_tpu/cli/run_rpn.py`` for the Swin backbones with
-axis-aligned boxes, or oriented ones with ``--rotated_bbox`` (the
-midpoint-offset coder, 8 deltas an anchor), with the smooth-L1 box loss
-or, for OBBs, ``--reg_loss_type iou|linear_iou|giou|diou``, in f32 or
-``--bf16``, on one device.  The flags are the JAX CLI's flags that these modes read, plus:
+Port of ``nerf_rpn_tpu/cli/run_rpn.py`` for every backbone of the JAX
+table (Swin, ``resnet`` / ``resnet_tiny`` and ``vgg_AF`` / ``vgg_EF``, whose
+stem follows ``--resolution``) with axis-aligned boxes, or oriented ones
+with ``--rotated_bbox`` (the midpoint-offset coder, 8 deltas an anchor),
+with the smooth-L1 box loss or, for OBBs, ``--reg_loss_type
+iou|linear_iou|giou|diou``, in f32 or ``--bf16``, on one device.  The
+flags are the JAX CLI's flags, plus:
 
-- ``--weights <npz>``: a flax params tree flattened to ``a/b/c`` keys
-  (``nerf_rpn_tpu_torch.weights.save_npz``); without it (and without
-  ``--checkpoint``) the weights are drawn from ``--seed`` through a
-  ``torch.Generator``;
+- ``--weights <npz>``: a flax variables tree flattened to ``a/b/c`` keys
+  (``nerf_rpn_tpu_torch.weights.save_npz``; params and, for the CNN
+  backbones, ``batch_stats``); without it (and without ``--checkpoint``)
+  the weights are drawn from ``--seed`` through a ``torch.Generator``;
 - ``--device``: ``cuda`` (the default) or ``cpu``.  Without a GPU the
   default raises; the CPU runs only when asked for with ``--device cpu``.
 
@@ -18,16 +20,24 @@ augmented batches (``drop_last``), AdamW with optax's one-cycle schedule
 and clip, a log line every ``--log_interval`` steps, a validation eval
 every ``--eval_interval`` epochs, ``epoch_N`` and ``model_best`` (by the
 last validation recall) checkpoints in ``--save_path`` (``torch.save``,
-the reference layout), pruned to ``--keep_checkpoints``.  ``--checkpoint``
-(with ``--load_backbone_only``) loads such a file for train and eval.
+the reference layout, BatchNorm statistics included), pruned to
+``--keep_checkpoints``.  ``--checkpoint`` (with ``--load_backbone_only``)
+loads such a file for train and eval.  ``--mode eval`` takes
+``--output_all`` (train, validation and test scenes in turn) and
+``--save_results`` (the FPN levels and proposals that the RCNN stage
+reads, under ``--save_results_path`` or ``<save_path>/results``);
+``--check_arch`` builds the model, logs its parameter count and stops.
+The backbones' levels must sit at strides (4, 8, 16, 32): VGG below
+``--resolution`` 160 has a stride-1 stem and raises a ``ValueError``
+(the JAX driver fails at its first eval there).
 
 Datasets, ``unmask_proposals``, the proposals npz and the Recall/AP report
 with its ``eval.json`` are the port's copies of the JAX package's host code
 (``cli/common.py``, ``data/``, ``evaluation/metrics.py``).
 Refused: an IoU ``--reg_loss_type`` without ``--rotated_bbox`` (the JAX
-package computes no AABB IoU there).  Not ported yet: multi-GPU training (``--gpus``), ``--wandb``,
-``--check_arch``, ``--save_results`` and ``--output_all``; orbax and
-``.msgpack`` checkpoints are not read.
+package computes no AABB IoU there).  Not ported yet: multi-GPU training
+(``--gpus``) and ``--wandb``; orbax and ``.msgpack`` checkpoints are not
+read.
 
 Example::
 
@@ -55,7 +65,8 @@ from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
-from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step, make_rpn_train_step
+from nerf_rpn_tpu_torch.train.steps import (check_level_strides, make_rpn_eval_step,
+                                               make_rpn_train_step)
 
 STRIDES = (4, 8, 16, 32)
 BENCH_SHAPE = (200, 200, 130)
@@ -118,6 +129,14 @@ def parse_args(argv=None):
     p.add_argument("--rpn_score_thresh", type=float, default=0.0)
     p.add_argument("--reg_loss_type", default="smooth_l1",
                    choices=["smooth_l1", "iou", "linear_iou", "giou", "diou"])
+    p.add_argument("--check_arch", action="store_true",
+                   help="Build the model, log its parameter count and stop.")
+    p.add_argument("--save_results", action="store_true",
+                   help="--mode eval: write the FPN levels and proposals of each scene "
+                        "(the RCNN stage's input).")
+    p.add_argument("--save_results_path", default="")
+    p.add_argument("--output_all", action="store_true",
+                   help="--mode eval: evaluate the train, validation and test scenes.")
     p.add_argument("--pad_multiple", type=int, default=32)
     p.add_argument("--max_gt", type=int, default=64)
     p.add_argument("--num_workers", type=int, default=4,
@@ -157,10 +176,11 @@ class Trainer:
         self.mesh_shape = (side, side, side)
         self.box_dim = 7 if args.rotated_bbox else 6
         self.model = NeRFRPN(args.backbone_type, conv_depth=args.rpn_head_conv_depth,
-                             rotated=args.rotated_bbox, dtype=self.dtype)
+                             rotated=args.rotated_bbox, dtype=self.dtype,
+                             resolution=args.resolution)
+        check_level_strides(self.model, STRIDES)
         if args.weights:
-            sd = weights_lib.from_jax_params(weights_lib.load_npz(args.weights))
-            self.model.load_state_dict(sd, strict=True)
+            weights_lib.load_weights_npz(self.model, args.weights)
             self.logger.info(f"Loaded weights {args.weights}")
         else:
             init_params(self.model, torch.Generator().manual_seed(args.seed))
@@ -192,9 +212,14 @@ class Trainer:
             reg_loss_weight_2d=a.reg_loss_weight_2d,
         )
 
-    def eval_step(self, mesh_shape):
+    def eval_step(self, mesh_shape, return_features: bool = False):
         return make_rpn_eval_step(self.model, self.cfg, mesh_shape, STRIDES,
-                                  device=self.device)
+                                  device=self.device, return_features=return_features)
+
+    def param_count(self) -> int:
+        """The number of trained values (flax's count of ``params``: the
+        BatchNorms' running statistics are buffers)."""
+        return sum(p.numel() for p in self.model.parameters())
 
     # -- train --------------------------------------------------------------
 
@@ -250,9 +275,33 @@ class Trainer:
 
     # -- eval ---------------------------------------------------------------
 
+    def save_results(self, names, out, levels):
+        """The JAX driver's ``_save_results`` files for the RCNN stage: per
+        scene ``features/{name}.npz`` (``level_features``, an object array of
+        the flattened f32 (C, X, Y, Z) levels, and ``resolution``, their
+        shapes) and ``proposals/{name}.npz`` (the valid proposals'
+        ``proposals[:, :box_dim]`` and ``level_indices``)."""
+        args = self.args
+        root = args.save_results_path or os.path.join(args.save_path, "results")
+        feat_dir = os.path.join(root, "features")
+        roi_dir = os.path.join(root, "proposals")
+        os.makedirs(feat_dir, exist_ok=True)
+        os.makedirs(roi_dir, exist_ok=True)
+        feats = [f.cpu().numpy() for f in out["features"]]
+        boxes = out["boxes"].float().cpu().numpy()
+        valid = out["valid"].cpu().numpy()
+        for i, name in enumerate(names):
+            per_level = [np.moveaxis(f[i], -1, 0) for f in feats]
+            np.savez(os.path.join(feat_dir, f"{name}.npz"),
+                     level_features=np.array([f.reshape(-1).astype(object) for f in per_level],
+                                             dtype=object),
+                     resolution=np.array([f.shape for f in per_level]))
+            np.savez(os.path.join(roi_dir, f"{name}.npz"),
+                     proposals=boxes[i][valid[i]][:, :self.box_dim], level_indices=levels[i])
+
     def eval(self, dataset, write_json: bool = True):
         args = self.args
-        eval_step = self.eval_step(self.mesh_shape)
+        eval_step = self.eval_step(self.mesh_shape, return_features=args.save_results)
         it = batch_iterator(
             dataset, args.batch_size, shuffle=False,
             pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=self.box_dim,
@@ -265,8 +314,10 @@ class Trainer:
             out = eval_step(grids, ori)
             host = {k: v.float().cpu().numpy() if v.is_floating_point()
                     else v.cpu().numpy()
-                    for k, v in out.items() if k != "voxel_scores"}
-            props, scs, _ = common.unmask_proposals(host, self.box_dim)
+                    for k, v in out.items() if k not in ("voxel_scores", "features")}
+            props, scs, lvls = common.unmask_proposals(host, self.box_dim)
+            if args.save_results:
+                self.save_results(names, out, lvls)
             proposals_list.extend(props)
             scores_list.extend(scs)
             scenes_list.extend(names)
@@ -320,11 +371,14 @@ class Trainer:
 def main(argv=None):
     args = parse_args(argv)
     trainer = Trainer(args)
+    if args.check_arch:
+        n = trainer.param_count()
+        trainer.logger.info(f"Model builds OK; {n / 1e6:.2f}M params")
+        return n
     if args.mode == "train":
         return trainer.train_loop()
     if args.mode == "eval":
-        _, _, test_set = common.build_datasets(args, "eval", augment=False)
-        return trainer.eval(test_set)
+        return common.eval_datasets(args, trainer.eval)
     return trainer.benchmark()
 
 

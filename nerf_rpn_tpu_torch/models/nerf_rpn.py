@@ -1,9 +1,11 @@
 """Backbone + detection head (port of ``nerf_rpn_tpu/models/nerf_rpn.py``).
 
-``NeRFRPN`` is the backbone and the anchor RPN head, ``FCOSOverNeRF`` the
-backbone and the anchor-free FCOS head.  Only the Swin backbones are
-ported; ResNet and VGG raise ``NotImplementedError`` (ROADMAP.md:
-"ResNet / VGG backbones, then the quality gate on the port").
+``NeRFRPN`` is a backbone and the anchor RPN head, ``FCOSOverNeRF`` a
+backbone and the anchor-free FCOS head.  ``build_backbone`` has the JAX
+package's table: the Swin variants, ``resnet`` / ``resnet_tiny``
+(``models/resnet.py``) and ``vgg_AF`` / ``vgg_EF`` (``models/vgg.py``, whose
+stem depends on ``resolution``).  The heads take their width from the
+backbone (``resnet_tiny`` gives 32 channels, the others 256).
 """
 
 from __future__ import annotations
@@ -15,16 +17,23 @@ import torch
 from torch import nn
 
 from nerf_rpn_tpu_torch.models.heads import FCOSHead3D, RPNHead3D
+from nerf_rpn_tpu_torch.models.resnet import ResNetFPN256
 from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS, SwinFPN
+from nerf_rpn_tpu_torch.models.vgg import VGGFPN
 
-
-def build_backbone(backbone_type: str, dtype: torch.dtype = torch.float32) -> nn.Module:
+def build_backbone(backbone_type: str, resolution: int = 160,
+                   dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The JAX package's table (``nerf_rpn_tpu/models/nerf_rpn.py:25-53``)."""
+    if backbone_type == "resnet":
+        return ResNetFPN256((3, 4, 6, 3), is_max_pool=True, dtype=dtype)
+    if backbone_type == "resnet_tiny":
+        # the CI / quality-gate variant: the same topology, minimal width and depth
+        return ResNetFPN256((1, 1, 1, 1), base_width=8, out_channels=32, is_max_pool=True,
+                            dtype=dtype)
+    if backbone_type in ("vgg_AF", "vgg_EF"):
+        return VGGFPN(cfg=backbone_type[4:], input_size=resolution, dtype=dtype)
     if backbone_type in SWIN_VARIANTS:
         return SwinFPN(**SWIN_VARIANTS[backbone_type], dtype=dtype)
-    if backbone_type in ("resnet", "resnet_tiny", "vgg_AF", "vgg_EF"):
-        raise NotImplementedError(
-            f"backbone {backbone_type!r} is not ported to torch yet (ROADMAP.md: "
-            "\"ResNet / VGG backbones, then the quality gate on the port\")")
     raise ValueError(f"Unknown backbone {backbone_type}")
 
 
@@ -34,19 +43,20 @@ class NeRFRPN(nn.Module):
 
     def __init__(self, backbone_type: str = "swin_s", num_anchors: int = 13,
                  conv_depth: int = 4, rotated: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, resolution: int = 160):
         super().__init__()
         self.backbone_type = backbone_type
         self.num_anchors = num_anchors
         self.conv_depth = conv_depth
         self.rotated = rotated
         self.dtype = dtype
-        self.backbone = build_backbone(backbone_type, dtype)
-        self.rpn_head = RPNHead3D(256, num_anchors, conv_depth, rotated, dtype)
+        self.backbone = build_backbone(backbone_type, resolution, dtype)
+        self.rpn_head = RPNHead3D(self.backbone.out_channels, num_anchors, conv_depth,
+                                  rotated, dtype)
 
     def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
-        """``generator`` draws the backbone's stochastic-depth masks in
-        train mode (unused in eval)."""
+        """``generator`` draws the Swin backbone's stochastic-depth masks in
+        train mode (unused in eval and by the CNN backbones)."""
         features = list(self.backbone(grids, generator))
         logits, deltas = self.rpn_head(features)
         return features, logits, deltas
@@ -61,21 +71,21 @@ class FCOSOverNeRF(nn.Module):
                  rotated: bool = False, norm_reg_targets: bool = True,
                  centerness_on_reg: bool = True,
                  fpn_strides: Sequence[int] = (4, 8, 16, 32),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, resolution: int = 160):
         super().__init__()
         self.backbone_type = backbone_type
         self.num_convs = num_convs
         self.rotated = rotated
         self.fpn_strides = tuple(fpn_strides)
         self.dtype = dtype
-        self.backbone = build_backbone(backbone_type, dtype)
-        self.fcos_head = FCOSHead3D(256, len(self.fpn_strides), num_convs, rotated,
-                                    centerness_on_reg, norm_reg_targets, self.fpn_strides,
-                                    dtype)
+        self.backbone = build_backbone(backbone_type, resolution, dtype)
+        self.fcos_head = FCOSHead3D(self.backbone.out_channels, len(self.fpn_strides),
+                                    num_convs, rotated, centerness_on_reg, norm_reg_targets,
+                                    self.fpn_strides, dtype)
 
     def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
-        """``generator`` draws the backbone's stochastic-depth masks in
-        train mode (unused in eval)."""
+        """``generator`` draws the Swin backbone's stochastic-depth masks in
+        train mode (unused in eval and by the CNN backbones)."""
         features = list(self.backbone(grids, generator))
         cls, reg, ctr = self.fcos_head(features)
         return features, cls, reg, ctr
@@ -97,12 +107,21 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     LayerNorm scales, relative-position tables from
     ``truncated_normal(0.02)`` (cut at +-0.04, no rescale) and N(0, 0.01)
     RPN-head and FCOS-head convs (flax ``normal(0.01)``, not truncated).
-    The FCOS head's GroupNorms start at weight 1 and bias 0, its scales at
-    1, and its class logits' bias at -log((1 - p) / p), p = 0.01 (the focal
-    loss's prior)."""
+    BatchNorms, found by module type, start at weight 1, bias 0, running
+    mean 0 and running variance 1.  The FCOS head's GroupNorms start at
+    weight 1 and bias 0, its scales at 1, and its class logits' bias at
+    -log((1 - p) / p), p = 0.01 (the focal loss's prior)."""
+    batch_norms = {f"{name}.{leaf}" for name, m in model.named_modules()
+                   if isinstance(m, nn.BatchNorm3d)
+                   for leaf in ("weight", "bias")}
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm3d):
+            m.reset_running_stats()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("fcos_head."):
+        if name in batch_norms:
+            p.fill_(1.0 if leaf == "weight" else 0.0)
+        elif name.startswith("fcos_head."):
             if p.dim() == 5:
                 p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
             elif name == "fcos_head.cls_logits.bias":

@@ -351,6 +351,8 @@ class SwinFPN(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.out_channels = out_channels
+        self.strides = tuple(patch_size[0] * 2 ** i for i in range(len(depths)))
         dims = [embed_dim * (2 ** i) if expand_dim else embed_dim
                 for i in range(len(depths))]
         for dim, heads in zip(dims, num_heads):

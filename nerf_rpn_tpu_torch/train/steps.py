@@ -11,10 +11,19 @@ draw from separate generators, as the JAX step splits ``key`` and
 
 ``eval_step(grids, ori_sizes)`` returns the same dict as the JAX step:
 boxes / scores / level_idx / valid from ``generate_proposals_levels`` plus
-``voxel_scores``.  It is two parts, exposed as ``eval_step.forward`` (grids
--> per-level head outputs) and ``eval_step.propose`` (head outputs ->
-proposals), which the benchmark times separately.  The JAX package's split
-compile units exist for the TPU compiler and are not ported.
+``voxel_scores`` (and the FPN levels with ``return_features``).  It is two
+parts, exposed as ``eval_step.forward`` (grids -> per-level head outputs)
+and ``eval_step.propose`` (head outputs -> proposals), which the benchmark
+times separately.  The JAX package's split compile units exist for the
+TPU compiler and are not ported.
+
+A model with BatchNorms (the ResNet and VGG backbones) normalises with the
+batch's statistics in the train steps and moves its running statistics
+once a step, as the JAX steps' ``mutable=["batch_stats"]`` apply does --
+with ``--freeze_backbone`` too, since the JAX step applies the whole model
+with ``train=True`` -- and normalises with the running statistics in the
+eval steps.  Every step checks that the backbone's levels sit at the
+strides of its tables (``check_level_strides``).
 
 The FCOS steps have the same shape.  ``train_step(state, batch,
 drop_generator)`` takes one generator only, for stochastic depth: FCOS's
@@ -43,7 +52,24 @@ def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
     return [tuple(-(-int(m) // s) for m in mesh_shape) for s in strides]
 
 
+def check_level_strides(model, strides: Sequence[int]) -> None:
+    """Raise where the backbone's levels do not sit at ``strides``, which
+    the anchor and location tables assume.  VGG below an ``input_size`` of
+    160 has a stride-1 stem, so its levels sit at strides (1, 2, 4, 8);
+    the JAX package's steps take the fixed (4, 8, 16, 32) there, and its
+    eval step fails with a broadcast error while its train step trains on
+    tables that do not match the head's outputs."""
+    have = tuple(model.backbone.strides)
+    if have != tuple(strides):
+        raise ValueError(
+            f"the {model.backbone_type} backbone's levels sit at strides {have}, not at "
+            f"the {tuple(strides)} that the anchor and location tables assume (a VGG "
+            "backbone below --resolution 160 has a stride-1 stem); the JAX package's "
+            "eval step fails here and its train step trains on mismatched tables")
+
+
 def _level_tables(model, cfg: RPNConfig, mesh_shape, strides):
+    check_level_strides(model, strides)
     if model.rotated != cfg.rotated:
         raise ValueError(f"the model predicts {'OBB' if model.rotated else 'AABB'} deltas "
                          f"and the RPN config codes {'OBBs' if cfg.rotated else 'AABBs'}")
@@ -102,9 +128,10 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
 
 def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                        strides: Sequence[int] = (4, 8, 16, 32),
-                       device: torch.device | str = "cpu"):
+                       device: torch.device | str = "cpu", return_features: bool = False):
     """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict,
-    with boxes (B, K, ``cfg.box_dim``)."""
+    with boxes (B, K, ``cfg.box_dim``); with ``return_features`` also the
+    FPN levels in f32 under ``features`` (``run_rpn --save_results``)."""
     shapes, anchors_np, level_strides, counts = _level_tables(
         model, cfg, mesh_shape, strides)
     anchors_per_loc = model.num_anchors
@@ -137,9 +164,11 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
             cfg, obj_l, dl_l, level_anchors, grid, padding_masks=pads)
 
     def eval_step(grids: torch.Tensor, ori_sizes: torch.Tensor):
-        _, obj, dl, vox = forward(grids)
+        feats, obj, dl, vox = forward(grids)
         out = propose(obj, dl, ori_sizes)
         out["voxel_scores"] = vox
+        if return_features:
+            out["features"] = [f.float() for f in feats]
         return out
 
     eval_step.forward = forward
@@ -156,6 +185,7 @@ def _fcos_tables(model, cfg: FCOSConfig, mesh_shape, device):
     """Locations, strides and size-of-interest ranges of every level on the
     device (made once, so that no step copies them from the host), and the
     level counts."""
+    check_level_strides(model, cfg.fpn_strides)
     if model.rotated != cfg.rotated:
         raise ValueError(f"the model predicts {'OBB' if model.rotated else 'AABB'} targets "
                          f"and the FCOS config codes {'OBBs' if cfg.rotated else 'AABBs'}")

@@ -1,24 +1,33 @@
-"""Flax parameter tree <-> torch ``state_dict`` for the anchor RPN and FCOS.
+"""Flax variables <-> torch ``state_dict`` for the anchor RPN and FCOS.
 
 The JAX package's params ``{"backbone": ..., "rpn_head": ...}`` map onto
-this package's ``NeRFRPN`` (Swin backbone), and ``{"backbone": ...,
-"fcos_head": ...}`` onto its ``FCOSOverNeRF``, one leaf at a time:
+this package's ``NeRFRPN``, and ``{"backbone": ..., "fcos_head": ...}``
+onto its ``FCOSOverNeRF``, one leaf at a time:
 
 - conv kernels (kx, ky, kz, in, out) -> weight (out, in, kx, ky, kz);
 - dense kernels (in, out) -> weight (out, in);
-- LayerNorm and GroupNorm ``scale`` -> ``weight``; biases and the
-  relative-position tables unchanged;
+- LayerNorm, GroupNorm and BatchNorm ``scale`` -> ``weight``; biases and
+  the relative-position tables unchanged;
+- the ``batch_stats`` collection's ``mean`` / ``var`` -> a BatchNorm's
+  ``running_mean`` / ``running_var`` (and a ``num_batches_tracked`` of 0,
+  which flax does not keep);
 - the FCOS head's ``{cls,bbox}_tower_{d}_conv`` / ``_gn`` ->
   ``{cls,bbox}_tower.{3d}`` / ``.{3d+1}`` and its per-level ``scale_{l}``
   (a scalar) -> ``scales.{l}.scale`` (shape (1,)), the reference keys.
 
-Module names follow the reference torch keys (see ``models/swin.py``), so
-``nerf_rpn_tpu.tools.convert_weights.convert_swin_fpn`` applied to the
-backbone part of a port ``state_dict`` gives the flax tree back.  RPN-head
-channels stay in the JAX package's anchor order.
+Module names follow the reference torch keys, so
+``nerf_rpn_tpu.tools.convert_weights.convert_backbone`` applied to the
+backbone part of a port ``state_dict`` gives the flax trees back.  The Swin
+backbone's names map by rule; a CNN backbone (``models/resnet.py``,
+``models/vgg.py``) gives its table through ``flax_names()`` -- VGG's
+depends on its configuration -- so the functions take the port's
+``backbone`` module (default: the Swin rules).  RPN-head channels stay in
+the JAX package's anchor order.
 
 ``save_npz`` / ``load_npz`` store a flax tree flattened to ``a/b/c`` keys
-(the format of ``run_rpn --weights``).
+(the format of ``--weights``): the params tree alone, or ``{"params":
+..., "batch_stats": ...}`` for a model with BatchNorms;
+``load_variables`` reads either.
 """
 
 from __future__ import annotations
@@ -112,12 +121,32 @@ def unflatten_tree(flat: dict[tuple, np.ndarray]) -> dict:
     return tree
 
 
-def from_jax_params(params: dict) -> dict[str, torch.Tensor]:
-    """Flax params tree (numpy leaves) -> torch ``state_dict``."""
+def _backbone_table(backbone) -> dict[str, tuple[str, ...]] | None:
+    """Torch module path -> flax module path (both from the model's root)
+    of a backbone that gives its table, else None (the Swin rules)."""
+    if backbone is None or not hasattr(backbone, "flax_names"):
+        return None
+    return {f"backbone.{k}": ("backbone", *v.split("/"))
+            for k, v in backbone.flax_names().items()}
+
+
+def from_jax_params(params: dict, batch_stats: dict | None = None,
+                    backbone=None) -> dict[str, torch.Tensor]:
+    """Flax params tree (numpy leaves), and its ``batch_stats`` tree where
+    the model has BatchNorms, -> torch ``state_dict``.  ``backbone``: the
+    port's backbone module, for the names of a CNN backbone."""
+    table = _backbone_table(backbone)
+    to_torch = {v: k for k, v in table.items()} if table else {}
+
+    def module_key(mod):
+        if tuple(mod) in to_torch:
+            return to_torch[tuple(mod)]
+        return ".".join(_flax_module_to_torch(list(mod)))
+
     sd = {}
     for path, v in flatten_tree(params).items():
         *mod, leaf = path
-        key = ".".join(_flax_module_to_torch(list(mod)))
+        key = module_key(mod)
         v = np.array(v, np.float32)
         if leaf == "kernel":
             v = v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v.T
@@ -129,15 +158,28 @@ def from_jax_params(params: dict) -> dict[str, torch.Tensor]:
         else:
             name = leaf
         sd[f"{key}.{name}"] = torch.from_numpy(np.ascontiguousarray(v))
+    for path, v in flatten_tree(batch_stats or {}).items():
+        *mod, leaf = path
+        key = module_key(mod)
+        sd[f"{key}.running_{leaf}"] = torch.from_numpy(np.array(v, np.float32))
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
 
-def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
-    """Inverse of :func:`from_jax_params` (numpy leaves)."""
-    flat = {}
+def to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict:
+    """Inverse of :func:`from_jax_params`: ``{"params": ..., "batch_stats":
+    ...}`` (numpy leaves; ``batch_stats`` empty without BatchNorms)."""
+    table = _backbone_table(backbone) or {}
+    params, stats = {}, {}
     for key, t in state_dict.items():
         *mod, leaf = key.split(".")
+        fmod = table.get(".".join(mod)) or tuple(_torch_module_to_flax(mod))
+        if leaf == "num_batches_tracked":
+            continue
         v = t.detach().cpu().float().numpy()
+        if leaf in ("running_mean", "running_var"):
+            stats[(*fmod, leaf[len("running_"):])] = np.ascontiguousarray(v)
+            continue
         if leaf == "scale":  # an FCOS level's Scale, a scalar in flax
             v = v.reshape(())
         elif leaf == "weight":
@@ -146,15 +188,38 @@ def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
             else:
                 v = v.transpose(2, 3, 4, 1, 0) if v.ndim == 5 else v.T
                 leaf = "kernel"
-        flat[(*_torch_module_to_flax(mod), leaf)] = np.ascontiguousarray(v)
-    return unflatten_tree(flat)
+        params[(*fmod, leaf)] = np.ascontiguousarray(v)
+    return {"params": unflatten_tree(params), "batch_stats": unflatten_tree(stats)}
 
 
-def save_npz(path: str, params: dict) -> None:
-    """Save a flax params tree flattened to ``a/b/c`` keys."""
-    np.savez(path, **{"/".join(k): v for k, v in flatten_tree(params).items()})
+def to_jax_params(state_dict: dict[str, torch.Tensor], backbone=None) -> dict:
+    """The params tree of :func:`to_jax_variables`."""
+    return to_jax_variables(state_dict, backbone)["params"]
+
+
+def save_npz(path: str, params: dict, batch_stats: dict | None = None) -> None:
+    """Save a flax params tree flattened to ``a/b/c`` keys; with
+    ``batch_stats``, the tree ``{"params": ..., "batch_stats": ...}``."""
+    tree = params if batch_stats is None else {"params": params, "batch_stats": batch_stats}
+    np.savez(path, **{"/".join(k): v for k, v in flatten_tree(tree).items()})
 
 
 def load_npz(path: str) -> dict:
     with np.load(path) as z:
         return unflatten_tree({tuple(k.split("/")): z[k] for k in z.files})
+
+
+def load_variables(path: str) -> tuple[dict, dict]:
+    """(params, batch_stats) of a ``save_npz`` file; a params-only file
+    (a model without BatchNorms) gives empty ``batch_stats``."""
+    tree = load_npz(path)
+    if "params" in tree:
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
+
+
+def load_weights_npz(model: torch.nn.Module, path: str) -> None:
+    """Load a ``save_npz`` file into ``model`` (strict: a model with
+    BatchNorms needs the file's ``batch_stats``)."""
+    params, stats = load_variables(path)
+    model.load_state_dict(from_jax_params(params, stats, model.backbone), strict=True)

@@ -7,8 +7,12 @@ slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
 then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
 (``--rotated_bbox``, the 2D projection loss on), then ``run_fcos --mode
 train`` and ``--mode eval --checkpoint model_best`` on the OBB scenes
-(``train_fcos.sh``'s loss flags) -- and checks that none of them reached
-``sys.modules``.  An AST scan shows that no file of the port,
+(``train_fcos.sh``'s loss flags), then with ``resnet_tiny``: ``run_rpn
+--check_arch``, ``--mode train`` and ``--mode eval --save_results
+--output_all`` (the RCNN stage's files checked against the JAX driver's
+layout), ``run_fcos --load_backbone_only --output_all --conv_at_start``
+from that checkpoint, and one epoch of the quality gate -- and checks that
+none of them reached ``sys.modules``.  An AST scan shows that no file of the port,
 and not ``chip_smoke.py``, names them in an import statement.
 """
 
@@ -78,6 +82,49 @@ run_fcos.main(["--mode", "eval", "--checkpoint", data + "/fcos/model_best",
                *common])
 with np.load(data + "/fcos_out/proposals/synth003.npz") as z:
     assert z["proposal"].shape[1] == 7 and "level_indices" in z.files
+# the CNN backbones (BatchNorm statistics in the checkpoint), the drivers'
+# other flags and the quality gate
+data = sys.argv[1]
+common = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--rpn_head_conv_depth", "1",
+          "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32", "--device", "cpu",
+          "--num_workers", "0", "--features_path", data, "--boxes_path", data,
+          "--dataset_split", data + "/split.npz"]
+assert run_rpn.main(["--check_arch", *common]) > 0
+logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                       "--batch_size", "2", "--save_path", data + "/cnn", *common])
+assert len(logged) == 1 and logged[0]["loss"] > 0, logged
+import torch
+ckpt = torch.load(data + "/cnn/model_best", weights_only=True)
+assert int(ckpt["backbone_state_dict"]["bn1.num_batches_tracked"]) == 1
+run_rpn.main(["--mode", "eval", "--checkpoint", data + "/cnn/model_best", "--save_path",
+              data + "/cnn_out", "--save_results", "--output_all", *common])
+scenes = ["synth000", "synth001", "synth002", "synth003"]
+for sub in ("features", "proposals"):
+    assert sorted(os.listdir(f"{data}/cnn_out/results/{sub}")) == [s + ".npz" for s in scenes]
+with np.load(data + "/cnn_out/results/features/synth003.npz", allow_pickle=True) as z:
+    assert sorted(z.files) == ["level_features", "resolution"]
+    lf, res = z["level_features"], z["resolution"]
+    assert lf.dtype == object and lf.shape == (4,)
+    assert res.tolist() == [[32, 8, 8, 8], [32, 4, 4, 4], [32, 2, 2, 2], [32, 1, 1, 1]]
+    assert all(f.shape == (int(np.prod(r)),) for f, r in zip(lf, res))
+with np.load(data + "/cnn_out/results/proposals/synth003.npz") as z:
+    assert sorted(z.files) == ["level_indices", "proposals"]
+    assert z["proposals"].dtype == np.float32 and z["proposals"].shape[1] == 6
+    assert z["level_indices"].dtype == np.int32
+    assert z["level_indices"].shape == (z["proposals"].shape[0],)
+fc = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--num_convs", "1",
+      "--pre_nms_top_n", "64", "--fpn_post_nms_top_n", "32", "--device", "cpu",
+      "--num_workers", "0", "--features_path", data, "--boxes_path", data,
+      "--dataset_split", data + "/split.npz", "--conv_at_start"]
+run_fcos.main(["--mode", "eval", "--checkpoint", data + "/cnn/model_best", "--load_backbone_only",
+               "--output_all", "--output_proposals", "--save_path", data + "/cnn_fcos", *fc])
+assert sorted(os.listdir(data + "/cnn_fcos/proposals")) == [s + ".npz" for s in scenes]
+from nerf_rpn_tpu_torch.cli import quality_gate
+assert quality_gate.main(["--device", "cpu", "--combos", "rpn_aabb", "--num_epochs", "1",
+                          "--work_dir", data + "/gate"]) in (0, 1)
+import json
+with open(data + "/gate/gate_results.json") as f:
+    assert set(json.load(f)) == {"rpn_aabb"}
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("JAX_FREE_OK")
@@ -108,7 +155,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 30
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("ops/rotated_iou.py", "ops/fcos_box.py", "models/fcos.py",
-                "cli/run_fcos.py"):
+                "cli/run_fcos.py", "ops/pooling.py", "models/resnet.py", "models/vgg.py",
+                "cli/quality_gate.py"):
         assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]

@@ -713,3 +713,38 @@ def test_global_norm_on_the_card_matches_the_cpu_form(cuda):
     exact = np.sqrt(sum(float(np.sum(t.numpy().astype(np.float64) ** 2)) for t in leaves))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
     assert abs(want.item() - exact) <= 1e-5 * exact
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("train", [False, True])
+def test_batch_norm_helper_on_the_card_matches_the_cpu_form(cuda, train, dtype):
+    """``models/layers.batch_norm`` (flax's BatchNorm) on the card against
+    the same call on the CPU, at resnet's stem (B 2 at 20x20x14, 64
+    channels) and at resnet_tiny's stage 3 (B 4 at 1^3, 256 channels):
+    outputs within 1e-5 of the largest (f32) or 2 bf16 ulps of it, the
+    running statistics within 1e-5 (relative), one update a train call."""
+    from nerf_rpn_tpu_torch.models.layers import batch_norm, bn3d
+
+    for shape in [(2, 20, 20, 14, 64), (4, 1, 1, 1, 256)]:
+        rng = np.random.default_rng(shape[0])
+        x = torch.from_numpy(rng.normal(0.5, 2.0, shape).astype(np.float32)).to(dtype)
+        c = shape[-1]
+        bns = []
+        for _ in range(2):
+            bn = bn3d(c).train(train)
+            with torch.no_grad():
+                bn.weight.copy_(torch.from_numpy(np.linspace(0.5, 1.5, c, dtype=np.float32)))
+                bn.bias.copy_(torch.from_numpy(np.linspace(-0.3, 0.3, c, dtype=np.float32)))
+                bn.running_mean.fill_(0.2)
+                bn.running_var.fill_(1.5)
+            bns.append(bn)
+        want = batch_norm(x, bns[0], dtype)
+        got = batch_norm(x.to(cuda), bns[1].to(cuda), dtype)
+        assert got.dtype == dtype
+        scale = want.float().abs().max().item()
+        tol = 1e-5 * scale if dtype == torch.float32 else 2 * 2.0 ** -7 * scale
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+        for name in ("running_mean", "running_var"):
+            torch.testing.assert_close(getattr(bns[1], name).cpu(), getattr(bns[0], name),
+                                       rtol=1e-5, atol=1e-6)
+        assert int(bns[1].num_batches_tracked) == int(train)

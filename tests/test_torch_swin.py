@@ -134,8 +134,8 @@ def test_window_partition_round_trip_matches_jax():
 def test_unsupported_backbones_raise():
     with pytest.raises(ValueError, match="divisible"):
         build_backbone("swin_b")  # fails to initialise in JAX too
-    with pytest.raises(NotImplementedError):
-        build_backbone("resnet")
+    with pytest.raises(ValueError, match="Unknown"):
+        build_backbone("resnet18")
 
 
 def test_cuda_request_without_gpu_raises():
