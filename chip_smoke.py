@@ -102,8 +102,9 @@ nonzero before the result lines:
    statistics (not 0 / 1) on the card and on the CPU: eval head outputs,
    proposals from the same head outputs (as sets: rows whose sigmoids
    differ by an ulp may trade places), and one RPN train step at batch 2
-   with one injected anchor sample, in f64 (loss terms, every gradient
-   leaf, the updated running statistics);
+   with one injected anchor sample, in f64 and in f32 (loss terms,
+   ``grad_norm``, every gradient leaf, the updated running statistics;
+   ``CNN_TRAIN_STEP_LIMITS``);
 19. the ResNet / VGG eval paths: ``run_rpn --mode benchmark --bf16
    --pad_multiple 16`` with ``resnet``, ``vgg_AF`` and ``vgg_EF`` at
    208x208x144 (``bench.py``'s three CNN rows) and ``run_fcos --mode
@@ -116,9 +117,12 @@ nonzero before the result lines:
    train steps (ms a step, peak GiB; no hand kernel a step);
 21. the quality gate on the card (``nerf_rpn_tpu_torch.cli.quality_gate``,
    ``rpn_aabb`` and ``fcos_obb``: resnet_tiny trained from scratch for 60
-   epochs on synthetic 32^3 scenes through ``run_rpn`` / ``run_fcos``):
-   AP@25, AP@50, Recall@25, the validation curve and the seconds of each
-   combo; the phase fails under a combo's gates.
+   epochs on synthetic 32^3 scenes through ``run_rpn`` / ``run_fcos``),
+   under torch's deterministic algorithms: AP@25, AP@50, Recall@25, the
+   validation curve and the seconds of each run; seeds 0, 1, ... run until
+   a combo has cleared the script's gates as often as the JAX package's
+   own gate does on seeds 0-5, and at least once (``JAX_GATE_PASSES``);
+   the phase fails if it does not.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -1541,16 +1545,13 @@ def check_cnn_small_slice(torch, dev):
     """``resnet_tiny`` and ``vgg_AF`` (the 160 stem rule) at 64^3, f32, the
     same weights and running statistics on the card and on the CPU: eval
     head outputs, proposals from the same head outputs, then one RPN train
-    step at batch 2 with one injected anchor sample, in f64 -- the loss
-    terms, every gradient leaf and the updated running statistics."""
+    step at batch 2 with one injected anchor sample, in f64 and in f32 --
+    the loss terms, every gradient leaf and the updated running statistics."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.models import rpn as rpn_lib
-    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN
-    from nerf_rpn_tpu_torch.train.state import TrainState
-    from nerf_rpn_tpu_torch.train.steps import (level_shapes_for, make_rpn_eval_step,
-                                                make_rpn_train_step)
+    from nerf_rpn_tpu_torch.train.steps import level_shapes_for, make_rpn_eval_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1599,72 +1600,116 @@ def check_cnn_small_slice(torch, dev):
               f"the same set, boxes max|err| {box_err:.3g}, "
               f"{int(c_out['valid'].sum())} valid", flush=True)
 
-        # the train step in f64: f32's E[x^2] - E[x]^2 over the deep stages'
-        # few values a channel is ill-conditioned (the CPU's own f32 step is
-        # 25% off its f64 step on a vgg_AF leaf), f64 is not
-        results = []
-        for d in (torch.device("cpu"), dev):
-            model = NeRFRPN(backbone, conv_depth=2, resolution=160, dtype=torch.float64)
-            model.load_state_dict(cpu.state_dict())
-            model.to(d, torch.float64)
-            state = TrainState(model, 1e-3, 10)
-            grads, apply = {}, state.apply_gradients
+        cpu_grads = {}
+        for dtype in (torch.float64, torch.float32):
+            readings, cpu_grads[dtype] = _cnn_train_step_readings(
+                torch, dev, cpu, cfg, shape, strides, batch, indices, dtype)
+            compared = readings.pop("compared")
+            if dtype == torch.float32:
+                # for scale: how far the CPU's own f32 step is from its f64 step
+                off = [((cpu_grads[dtype][n] - cpu_grads[torch.float64][n]).abs().max()
+                        / cpu_grads[torch.float64][n].abs().max()).item() for n in compared]
+                readings["cpu_f32_off_f64_median_leaf"] = float(np.median(off))
+                readings["cpu_f32_off_f64_worst_leaf"] = max(off)
+            limits = CNN_TRAIN_STEP_LIMITS[dtype_name(dtype)]
+            print(f"[cnn small train step] {backbone} {dtype_name(dtype)}: "
+                  + json.dumps(readings), flush=True)
+            for key, limit in limits.items():
+                if not readings[key] <= limit:
+                    fail(f"{backbone} small train step, {dtype_name(dtype)}: {key} "
+                         f"{readings[key]} over its limit {limit}")
 
-            def capture(model=model, grads=grads, apply=apply):
-                grads.update({n: p.grad.detach().cpu().clone()
-                              for n, p in model.named_parameters()})
-                return apply()
 
-            state.apply_gradients = capture
-            step = make_rpn_train_step(model, cfg, shape, strides, device=d)
-            metrics = step(state, {k: v.to(d, torch.float64) if k == "grids" else v.to(d)
-                                   for k, v in batch.items()},
-                           torch.Generator(d).manual_seed(0), torch.Generator(d).manual_seed(1),
-                           indices=[t.to(d) for t in indices])
-            stats = {n: b.detach().cpu().clone() for n, b in model.named_buffers()
-                     if "running_" in n}
-            results.append(({k: float(v) for k, v in metrics.items()}, grads, stats))
-        (c_m, c_g, c_s), (g_m, g_g, g_s) = results
-        for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm"):
-            # 1e-6: the anchors and the box targets stay f32
-            if not (np.isfinite(g_m[k]) and abs(g_m[k] - c_m[k]) <= 1e-6 * abs(c_m[k])):
-                fail(f"{backbone} small train step: {k} GPU {g_m[k]} vs CPU {c_m[k]}")
-        worst, top = 0.0, max(v.abs().max().item() for v in c_g.values())
-        # a conv bias that feeds a BatchNorm cancels in its mean: its
-        # gradient is 0 but rounding on both devices
-        cancelled = {f"{name}.{i}.bias" for name, seq in cpu.named_modules()
-                     if isinstance(seq, torch.nn.Sequential)
-                     for i, (a, b) in enumerate(zip(seq, list(seq)[1:]))
-                     if isinstance(a, torch.nn.Conv3d) and a.bias is not None
-                     and isinstance(b, torch.nn.BatchNorm3d)}
-        for name, c in c_g.items():
-            scale = c.abs().max().item()
-            err = (g_g[name] - c).abs().max().item()
-            if name in cancelled:
-                if not max(scale, g_g[name].abs().max().item()) <= 1e-4 * top:
-                    fail(f"{backbone} small train step: gradient {name} of a bias ahead of a "
-                         f"BatchNorm is {scale} (largest leaf {top})")
-                continue
-            if scale == 0:
-                if err != 0:
-                    fail(f"{backbone} small train step: gradient {name} should be 0")
-                continue
-            worst = max(worst, err / scale)
-            # f64 sums of another order, amplified as f32's are: 1e-6
-            if not err <= 1e-6 * scale:
-                fail(f"{backbone} small train step: gradient {name} max|err| {err} "
-                     f"vs scale {scale}")
-        stat_worst = 0.0
-        for name, c in c_s.items():
-            err = (g_s[name] - c).abs().max().item() / c.abs().max().item()
-            stat_worst = max(stat_worst, err)
-            if not err <= 1e-9:
-                fail(f"{backbone} small train step: running statistic {name} differs "
-                     f"by {err} (relative)")
-        print(f"[cnn small train step] {backbone}: loss GPU {g_m['loss']:.6f} vs CPU "
-              f"{c_m['loss']:.6f}; worst gradient leaf max|err| / max|g| {worst:.3g} over "
-              f"{len(c_g)} leaves; running statistics max rel err {stat_worst:.3g} over "
-              f"{len(c_s)} buffers", flush=True)
+# The card's train step against the CPU's on the same weights, batch and
+# anchor sample.  f64 holds the arithmetic tight.  f32 is the precision the
+# drivers train in; there flax's E[x^2] - E[x]^2 over the deep stages' few
+# values a channel is ill-conditioned (``cpu_f32_off_f64_*`` prints how far
+# the CPU's own f32 step is from its f64 step), so the f32 gradient limits
+# sit ~3.5x over the card's readings (PERF.md, PR 13: worst leaf 2.8e-2 and
+# median 3.1e-4 on vgg_AF), and the loss terms and running statistics stay
+# tight.  Each reading is relative: a loss term to the CPU's value, a
+# gradient leaf and a running statistic to the CPU's largest entry of that
+# leaf, the gradient of a conv bias ahead of a BatchNorm (0 but for
+# rounding: the bias cancels in the batch mean) to the largest entry of any
+# leaf.
+CNN_TRAIN_STEP_LIMITS = {
+    "float64": {"loss_terms": 1e-6, "grad_norm": 1e-6, "grad_worst_leaf": 1e-6,
+                "grad_median_leaf": 1e-6, "cancelled_bias_grad": 1e-4, "running_stats": 1e-9},
+    "float32": {"loss_terms": 1e-5, "grad_norm": 1e-4, "grad_worst_leaf": 0.1,
+                "grad_median_leaf": 1e-3, "cancelled_bias_grad": 1e-4, "running_stats": 1e-5},
+}
+
+
+def _cnn_train_step_readings(torch, dev, cpu, cfg, shape, strides, batch, indices, dtype):
+    """One RPN train step of ``cpu``'s weights in ``dtype`` on the CPU and on
+    the card, with the anchor sample ``indices`` injected; returns the
+    worst relative differences (see ``CNN_TRAIN_STEP_LIMITS``), the worst
+    gradient leaf's name and the compared leaves, and the CPU's
+    gradients."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
+
+    results = []
+    for d in (torch.device("cpu"), dev):
+        model = NeRFRPN(cpu.backbone_type, conv_depth=2, resolution=160, dtype=dtype)
+        model.load_state_dict(cpu.state_dict())
+        model.to(d, dtype)
+        state = TrainState(model, 1e-3, 10)
+        grads, apply = {}, state.apply_gradients
+
+        def capture(model=model, grads=grads, apply=apply):
+            # a copy: the update that follows may scale the gradients in place
+            grads.update({n: p.grad.detach().to("cpu", torch.float64, copy=True)
+                          for n, p in model.named_parameters()})
+            return apply()
+
+        state.apply_gradients = capture
+        step = make_rpn_train_step(model, cfg, shape, strides, device=d)
+        metrics = step(state, {k: v.to(d, dtype) if k == "grids" else v.to(d)
+                               for k, v in batch.items()},
+                       torch.Generator(d).manual_seed(0), torch.Generator(d).manual_seed(1),
+                       indices=[t.to(d) for t in indices])
+        stats = {n: b.detach().to("cpu", torch.float64, copy=True) for n, b in model.named_buffers()
+                 if "running_" in n}
+        results.append(({k: float(v) for k, v in metrics.items()}, grads, stats))
+    (c_m, c_g, c_s), (g_m, g_g, g_s) = results
+    rel = {}
+    for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm"):
+        if not np.isfinite(g_m[k]):
+            fail(f"{cpu.backbone_type} small train step: {k} is {g_m[k]} on the card")
+        rel[k] = abs(g_m[k] - c_m[k]) / abs(c_m[k])
+    top = max(v.abs().max().item() for v in c_g.values())
+    # a conv bias that feeds a BatchNorm cancels in its mean
+    cancelled = {f"{name}.{i}.bias" for name, seq in cpu.named_modules()
+                 if isinstance(seq, torch.nn.Sequential)
+                 for i, (a, b) in enumerate(zip(seq, list(seq)[1:]))
+                 if isinstance(a, torch.nn.Conv3d) and a.bias is not None
+                 and isinstance(b, torch.nn.BatchNorm3d)}
+    leaf_errs, cancelled_worst = {}, 0.0
+    for name, c in c_g.items():
+        scale = c.abs().max().item()
+        err = (g_g[name] - c).abs().max().item()
+        if name in cancelled:
+            cancelled_worst = max(cancelled_worst, scale / top, g_g[name].abs().max().item() / top)
+            continue
+        if scale == 0:
+            if err != 0:
+                fail(f"{cpu.backbone_type} small train step: gradient {name} should be 0")
+            continue
+        leaf_errs[name] = err / scale
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    stat_err = max((g_s[n] - c).abs().max().item() / c.abs().max().item()
+                   for n, c in c_s.items())
+    return {"loss_terms": max(rel["loss"], rel["loss_objectness"], rel["loss_rpn_box_reg"]),
+            "grad_norm": rel["grad_norm"], "grad_worst_leaf": leaf_errs[worst_leaf],
+            "grad_median_leaf": float(np.median(list(leaf_errs.values()))),
+            "cancelled_bias_grad": cancelled_worst, "running_stats": stat_err,
+            "worst_leaf": worst_leaf, "leaves": len(leaf_errs), "buffers": len(c_s),
+            "compared": sorted(leaf_errs), "loss_cpu": c_m["loss"],
+            "loss_card": g_m["loss"]}, c_g
 
 
 def run_cnn_benchmarks(torch):
@@ -1773,28 +1818,59 @@ def run_cnn_train_path(torch, workdir, resolution=160, backbone="resnet", device
     return launches, data, common
 
 
+# The gate's seeds, and on how many of them the JAX package's own gate
+# clears each combo (``scripts/synthetic_quality_gate.py --combos <combo>
+# --seed <s>`` on the CPU; PERF.md, PR 13).  One seed cannot decide: over
+# these seeds the recipe's AP@50 spreads over 0.40-0.99 (rpn_aabb) and
+# 0.06-0.82 (fcos_obb) in the JAX package itself (its ``model_best`` is the
+# first epoch at the best validation Recall@50 of four scenes, and AP is
+# taken over eight).
+GATE_SEEDS = (0, 1, 2, 3, 4, 5)
+JAX_GATE_PASSES = {"rpn_aabb": 2, "fcos_obb": 1}
+
+
 def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb")):
     """The port's train-to-quality gate on the card (``cli/quality_gate.py``
     through ``run_rpn`` / ``run_fcos``, resnet_tiny, f32, 60 epochs at
-    32^3): AP@25, AP@50, Recall@25, the validation Recall@50 curve and the
-    seconds of each combo; the phase fails under a combo's gates."""
+    32^3), under torch's deterministic algorithms as the gate's CLI runs
+    on the card (one seed, one result): AP@25, AP@50, Recall@25, the
+    validation Recall@50 curve and the seconds of each run.  Seeds run in
+    ``GATE_SEEDS``' order until a combo has cleared its gates (the
+    script's thresholds) as many times as the JAX package's gate does on
+    those seeds (``JAX_GATE_PASSES``), and at least once; the phase fails
+    if it does not."""
     from nerf_rpn_tpu_torch.cli import quality_gate
 
     rows = {}
-    for combo in combos:
-        t0 = time.perf_counter()
-        ap25, ap50, r25, _, curve = quality_gate.run_combo(combo, workdir, device="cuda")
-        row = {"combo": combo, "ap25": ap25, "ap50": ap50, "recall25": r25,
-               "gate_ap25": quality_gate.GATES[combo],
-               "gate_ap50": quality_gate.GATES_AP50[combo],
-               "val_recall50_curve": curve, "seconds": time.perf_counter() - t0}
-        row["pass"] = ap25 >= row["gate_ap25"] and ap50 >= row["gate_ap50"]
-        print("[quality gate]", json.dumps(row), flush=True)
-        rows[combo] = row
-    failed = [c for c, r in rows.items() if not r["pass"]]
-    if failed:
-        fail(f"quality gate: {failed} below their gates")
+    quality_gate.use_deterministic_algorithms()
+    try:
+        for combo in combos:
+            # and at least once, whatever the JAX count
+            need, rows[combo] = max(1, JAX_GATE_PASSES[combo]), []
+            for seed in GATE_SEEDS:
+                rows[combo].append(_gate_row(quality_gate, combo, seed, workdir))
+                if sum(r["pass"] for r in rows[combo]) >= need:
+                    break
+            else:
+                fail(f"quality gate: {combo} cleared its gates at "
+                     f"{sum(r['pass'] for r in rows[combo])} of seeds {GATE_SEEDS}, not "
+                     f"{need} (the JAX package's gate: {JAX_GATE_PASSES[combo]})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
     return rows
+
+
+def _gate_row(quality_gate, combo, seed, workdir):
+    t0 = time.perf_counter()
+    ap25, ap50, r25, _, curve = quality_gate.run_combo(
+        combo, os.path.join(workdir, f"gate_seed{seed}"), device="cuda", seed=seed)
+    row = {"combo": combo, "seed": seed, "ap25": ap25, "ap50": ap50, "recall25": r25,
+           "gate_ap25": quality_gate.GATES[combo], "gate_ap50": quality_gate.GATES_AP50[combo],
+           "val_recall50_curve": curve, "seconds": time.perf_counter() - t0}
+    row["pass"] = ap25 >= row["gate_ap25"] and ap50 >= row["gate_ap50"]
+    print("[quality gate]", json.dumps(row), flush=True)
+    return row
 
 
 def main() -> None:

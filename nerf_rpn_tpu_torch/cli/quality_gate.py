@@ -21,6 +21,11 @@ Usage::
 
 One JSON line per combo (AP@25, AP@50, Recall@25, the validation
 Recall@50 curve, seconds); exits 1 when a combo misses its gate.
+
+On the card the gate runs torch's deterministic algorithms, so one seed
+gives one result: otherwise the atomics of the backward passes change the
+last bits of each step, and sixty epochs turn them into another detector
+whose AP@50 spreads as the seeds' do.
 """
 
 from __future__ import annotations
@@ -49,6 +54,19 @@ GATES_AP50 = {
     "fcos_obb": 0.8,
     "rpn_aabb_r200": 0.8,
 }
+
+
+def use_deterministic_algorithms() -> None:
+    """Same seed, same result on the card: cuDNN's deterministic
+    convolutions and torch's deterministic mode, which raises on an op that
+    has no deterministic form.  cuBLAS reads its workspace setting at its
+    first call, so ``main`` sets it before torch starts."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
 
 
 def _common_data_args(data_dir, device):
@@ -181,6 +199,8 @@ def main(argv=None) -> int:
     p.add_argument("--work_dir", default=None, help="Defaults to a fresh temp dir.")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
+    if args.device == "cuda":
+        use_deterministic_algorithms()
 
     work_dir = args.work_dir or tempfile.mkdtemp(prefix="nerf_rpn_gate_")
     print(f"work dir: {work_dir}", flush=True)

@@ -55,7 +55,7 @@ from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF, init_params
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
-from nerf_rpn_tpu_torch.train.steps import (check_level_strides, make_fcos_eval_step,
+from nerf_rpn_tpu_torch.train.steps import (make_fcos_eval_step,
                                                make_fcos_train_step)
 
 STRIDES = (4, 8, 16, 32)
@@ -163,7 +163,6 @@ class Trainer:
         self.model = FCOSOverNeRF(args.backbone_type, args.num_convs, args.rotated_bbox,
                                   args.norm_reg_targets, args.centerness_on_reg, STRIDES,
                                   self.dtype, resolution=args.resolution)
-        check_level_strides(self.model, STRIDES)
         if args.weights:
             weights_lib.load_weights_npz(self.model, args.weights)
             self.logger.info(f"Loaded weights {args.weights}")

@@ -65,7 +65,7 @@ from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
-from nerf_rpn_tpu_torch.train.steps import (check_level_strides, make_rpn_eval_step,
+from nerf_rpn_tpu_torch.train.steps import (make_rpn_eval_step,
                                                make_rpn_train_step)
 
 STRIDES = (4, 8, 16, 32)
@@ -178,7 +178,6 @@ class Trainer:
         self.model = NeRFRPN(args.backbone_type, conv_depth=args.rpn_head_conv_depth,
                              rotated=args.rotated_bbox, dtype=self.dtype,
                              resolution=args.resolution)
-        check_level_strides(self.model, STRIDES)
         if args.weights:
             weights_lib.load_weights_npz(self.model, args.weights)
             self.logger.info(f"Loaded weights {args.weights}")

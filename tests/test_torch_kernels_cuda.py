@@ -748,3 +748,34 @@ def test_batch_norm_helper_on_the_card_matches_the_cpu_form(cuda, train, dtype):
             torch.testing.assert_close(getattr(bns[1], name).cpu(), getattr(bns[0], name),
                                        rtol=1e-5, atol=1e-6)
         assert int(bns[1].num_batches_tracked) == int(train)
+
+
+@pytest.mark.parametrize("pool", ["stem_pool", "max_pool_2x2x2"])
+def test_pools_under_deterministic_mode_match_the_cpu(cuda, pool):
+    """Under ``torch.use_deterministic_algorithms(True)`` (the quality
+    gate's mode on the card) a pool that needs a gradient runs its backward
+    through ``index_put_``: forward equal to the CPU's, gradient within 1e-6
+    (relative) of it, and bit-identical between two runs."""
+    from nerf_rpn_tpu_torch.ops import pooling
+
+    fn = getattr(pooling, pool)
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (2, 21, 20, 14, 8))
+                         .astype(np.float32)).clamp(min=0)
+    g_cpu = x.clone().requires_grad_()
+    y_cpu = fn(g_cpu)
+    up = torch.randn(y_cpu.shape, generator=torch.Generator().manual_seed(1))
+    y_cpu.backward(up)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = []
+        for _ in range(2):
+            xc = x.to(cuda).requires_grad_()
+            y = fn(xc)
+            assert torch.equal(y.cpu(), y_cpu.detach())
+            y.backward(up.to(cuda))
+            grads.append(xc.grad.cpu())
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], g_cpu.grad, rtol=1e-6, atol=1e-6)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nerf_rpn_tpu.ops import pooling as jpool
 from nerf_rpn_tpu_torch.ops import pooling
@@ -68,3 +69,27 @@ def test_stem_pool_equals_jax(shape, dtypes):
     _equal(got, jpool.max_pool_3x3x3_s2_p1(j))
     _equal(got, fnn.max_pool(j, (3, 3, 3), strides=(2, 2, 2),
                              padding=((1, 1), (1, 1), (1, 1))))
+
+
+@pytest.mark.parametrize("pool", [(2, 2, 0, True), (2, 2, 0, False), (3, 2, 1, False)],
+                         ids=["ceil", "floor", "stem"])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if min(s[1:4]) >= 2])
+def test_index_put_backward_equals_max_pool3d_backward(shape, pool):
+    """The backward that deterministic mode routes the card's pools through
+    (``index_put_`` with ``accumulate=True``) gives ``F.max_pool3d``'s
+    forward and gradient: within 1e-6 (relative), the sums of up to eight
+    windows' gradients in another order."""
+    kernel, stride, padding, ceil_mode = pool
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).normal(0, 1, shape)
+                         .astype(np.float32)).permute(0, 4, 1, 2, 3)
+    # ReLU-like ties: a max's gradient goes to one input of the window
+    x = x.clamp(min=0).requires_grad_()
+    x2 = x.detach().clone().requires_grad_()
+    want = F.max_pool3d(x, kernel, stride, padding, ceil_mode=ceil_mode)
+    got = pooling._MaxPool3dIndexPut.apply(x2, kernel, stride, padding, ceil_mode)
+    assert torch.equal(got, want)
+    g = torch.randn(want.shape, generator=torch.Generator().manual_seed(1))
+    want.backward(g)
+    got.backward(g)
+    torch.testing.assert_close(x2.grad, x.grad, rtol=1e-6, atol=1e-6)
+    assert x.grad.abs().sum() > 0

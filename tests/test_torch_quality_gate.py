@@ -57,3 +57,22 @@ def _run_gate(combo, tmp_path):
 @pytest.mark.parametrize("combo", ["rpn_aabb", "rpn_obb", "fcos_aabb", "fcos_obb"])
 def test_quality_gate_on_the_cpu(combo, tmp_path):
     _run_gate(combo, tmp_path)
+
+
+def test_deterministic_mode_sets_torch_and_cudnn(monkeypatch):
+    """The card's gate runs torch's deterministic algorithms (one seed, one
+    result): the helper turns on torch's mode and cuDNN's deterministic
+    convolutions and gives cuBLAS a fixed workspace setting."""
+    import torch
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    was = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    try:
+        quality_gate.use_deterministic_algorithms()
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was[1:]

@@ -33,7 +33,8 @@ from nerf_rpn_tpu.train.state import TrainState as JTrainState
 from nerf_rpn_tpu.train.steps import make_fcos_eval_step as jax_fcos_step
 from nerf_rpn_tpu.train.steps import make_rpn_eval_step as jax_rpn_step
 from nerf_rpn_tpu_torch import weights
-from nerf_rpn_tpu_torch.cli import run_rpn
+from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
+from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF, NeRFRPN
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
@@ -180,12 +181,13 @@ def test_save_results_writes_the_jax_drivers_files(rpn_case, tmp_path):
                     np.testing.assert_array_equal(j[k], p[k])
 
 
-def test_vgg_below_160_fails_in_jax_and_raises_in_the_port():
+def test_vgg_below_160_fails_in_jax_and_raises_in_the_port(tmp_path):
     """``vgg_AF`` at ``--resolution`` 16 has a stride-1 stem: its levels
     are 16^3 ... 2^3 where the anchor tables of strides (4, 8, 16, 32)
     expect 4^3 ... 1^3.  The JAX eval step fails with a broadcast error;
     the port raises a ValueError that says why, in the step and in both
-    drivers."""
+    drivers' eval on a one-scene dataset (``--check_arch`` builds and
+    counts the model, as JAX's does)."""
     shape = (16, 16, 16)
     jm = JNeRFRPN(backbone_type="vgg_AF", resolution=16, conv_depth=1)
     v = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *shape, 4))))
@@ -200,8 +202,12 @@ def test_vgg_below_160_fails_in_jax_and_raises_in_the_port():
         port = NeRFRPN("vgg_AF", conv_depth=1, resolution=16)
     with pytest.raises(ValueError, match=r"strides \(1, 2, 4, 8\).*stride-1 stem"):
         make_rpn_eval_step(port, RPNConfig(), shape)
-    for cli in ("run_rpn", "run_fcos"):
-        mod = __import__(f"nerf_rpn_tpu_torch.cli.{cli}", fromlist=["main"])
+    data = str(tmp_path / "data")
+    write_synthetic_dataset(data, n_train=1, n_val=1, n_test=1)
+    args = ["--device", "cpu", "--backbone_type", "vgg_AF", "--resolution", "32",
+            "--features_path", data, "--boxes_path", data,
+            "--dataset_split", os.path.join(data, "split.npz"), "--save_path", str(tmp_path)]
+    assert run_rpn.main(["--check_arch", *args]) > 0
+    for cli in (run_rpn, run_fcos):
         with pytest.raises(ValueError, match="stride-1 stem"):
-            mod.main(["--mode", "eval", "--device", "cpu", "--backbone_type", "vgg_AF",
-                      "--resolution", "32"])
+            cli.main(["--mode", "eval", *args])

@@ -174,6 +174,12 @@ def test_benchmark_mode_needs_a_gpu():
     (["--backbone_type", "vgg_AF", "--resolution", "32"], ValueError),
     (["--backbone_type", "swin_t", "--reg_loss_type", "iou"], NotImplementedError),
 ])
-def test_cli_rejects_unported_options(argv, exc):
+def test_cli_rejects_unported_options(argv, exc, tmp_path):
+    """On a one-scene dataset: VGG below 160 is refused where the eval
+    step is built, the AABB IoU loss where the driver builds its RPN
+    config."""
+    write_synthetic_dataset(str(tmp_path), n_train=1, n_val=1, n_test=1)
+    data = ["--features_path", str(tmp_path), "--boxes_path", str(tmp_path),
+            "--dataset_split", str(tmp_path / "split.npz"), "--save_path", str(tmp_path)]
     with pytest.raises(exc):
-        run_rpn.main(["--mode", "eval", "--device", "cpu", *argv])
+        run_rpn.main(["--mode", "eval", "--device", "cpu", *data, *argv])

@@ -13,8 +13,10 @@ parameters and the new running statistics -- and the same with
 backbone's updates but its forward still moves the running statistics.
 
 Tolerances: the loss terms and norms within 1e-4 (relative), each
-gradient leaf within 1e-3 of its largest entry, the running statistics
-within 1e-4 of each leaf's largest: train-mode BatchNorm divides by batch
+gradient leaf within 1e-3 of its largest entry, the updated parameters
+within one Adam step and, where the gradient is clear, within 1e-3 of a
+step, the running statistics within 1e-4 of each leaf's largest:
+train-mode BatchNorm divides by batch
 variances that f32 sums of another order move by an ulp of E[x^2]
 (``tests/test_torch_backbones.py``).
 """
@@ -191,3 +193,17 @@ def test_updated_params_and_running_statistics(steps):
         # one Adam step: entries with |g| near eps may step either way
         np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=0,
                                    atol=2 * lr0 + 1e-6, err_msg=name)
+        # entries with a clear gradient (BatchNorm scales and biases
+        # included) must take the same step: 1e-3 of a step, plus the f32
+        # rounding of the parameter itself
+        g = r["got_grads"][name]
+        clear = g.abs() > 1e-2 * g.abs().max()
+        assert clear.any(), name
+        step_port = (p - before[name])[clear]
+        step_jax = (want[name] - before[name])[clear]
+        assert step_jax.abs().min().item() > 0.5 * lr0, name
+        atol = 1e-3 * lr0 + 2.0 ** -22 * before[name].abs().max().item()
+        assert torch.allclose(step_port, step_jax, rtol=0, atol=atol), (
+            name, (step_port - step_jax).abs().max().item(), atol)
+    # the clear-gradient check reached the backbone's BatchNorm scales
+    assert freeze or any(".bn" in n and n.endswith(".weight") for n in r["got_grads"])
