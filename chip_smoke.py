@@ -122,7 +122,34 @@ nonzero before the result lines:
    validation curve and the seconds of each run; seeds 0, 1, ... run until
    a combo has cleared the script's gates as often as the JAX package's
    own gate does on seeds 0-5, and at least once (``JAX_GATE_PASSES``);
-   the phase fails if it does not.
+   the phase fails if it does not; and the ``rcnn`` combo (``resnet_tiny``
+   fine-tuned for 40 epochs through ``run_rpn_detect`` on the scenes'
+   generated RoIs; AP@25, AP@50 and the classification accuracy), the
+   same way;
+22. the RCNN small slice, card against CPU, same weights (f32, TF32 off):
+   the features mode at ``train_rcnn.sh``'s head (256 channels, 3^3,
+   ``--is_add_layer --is_flatten``), AABB and OBB, on random FPN levels of
+   a 200x200x136 scene pair -- pooled features, eval scores and refined
+   boxes, the filter's keep-sets and orders on the same inputs (equal);
+   fine-tune ``resnet_tiny`` at 32^3 -- eval outputs, and one train step
+   with an injected RoI sample in f64 and in f32 (phase 18's limits);
+23. ``train_rcnn.sh``'s path: synthetic OBB scenes at 200x200x130 (4
+   train, 2 validation, 2 test), their RoIs and FPN levels from ``run_rpn
+   --mode eval --rotated_bbox --save_results --output_all`` with phase
+   13's OBB ``model_best``, ``run_rpn_detect --mode train`` with every
+   flag of the script (Swin-S fine-tuned from that checkpoint through
+   ``--pretrained``, f32, one epoch, validation, checkpoints; the sampled
+   RoIs' fg / bg counts), ``--mode eval --checkpoint <save>/model_best
+   --output_proposals``, with the launches asserted (a train step K1 24,
+   K2 24; an eval batch K5 24, K6 24, K4 12, K1 12, resolve once a scene,
+   K3 never); then 20 timed fine-tune train steps (ms a step, peak GiB)
+   and the eval a scene at batch 1 by part (backbone, RoI align, head,
+   filter; device-busy ms);
+24. the features mode: ``run_rpn_detect`` without ``--fine_tune`` on
+   phase 23's saved levels (Swin-S, 256 channels), OBB and AABB (the
+   enclosing boxes), on 2 train, 1 validation and 2 test scenes, one epoch
+   and an eval each; then RoI align alone at 2 x 1024 RoIs: device ms
+   against the bound of the feature rows its samples touch.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -136,8 +163,9 @@ input read once, each output written once) over the memory rate and the
 operations over the peak rate for their type.
 
 Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
-eval, FCOS train, the CNN eval paths, the ResNet train path) runs with the launch counts set to 0 just before it and
-read just after; a kernel's ``launches`` in the record is its sum over
+eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
+fine-tune and features paths) runs with the launch counts set to 0 just
+before it and read just after; a kernel's ``launches`` in the record is its sum over
 them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
@@ -1818,6 +1846,617 @@ def run_cnn_train_path(torch, workdir, resolution=160, backbone="resnet", device
     return launches, data, common
 
 
+# ---------------------------------------------------------------------------
+# The RCNN second stage (run_rpn_detect)
+# ---------------------------------------------------------------------------
+
+# ``scripts/train_rcnn.sh``'s flags (its run length, logging and eval
+# intervals aside: one epoch, a log line a step)
+RCNN_TRAIN_FLAGS = ["--fine_tune", "--backbone_type", "swin", "--lr", "1e-4",
+                    "--reg_loss_weight", "5.", "--weight_decay", "1e-4", "--clip_grad_norm", "1",
+                    "--keep_checkpoints", "5", "--n_classes", "2", "--output_size", "3", "3", "3",
+                    "--spatial_scale", "4", "8", "16", "32", "--is_add_layer", "--is_flatten",
+                    "--rotated_bbox", "--cls_batch_size", "256", "--batch_size", "2",
+                    "--fg_threshold", "0.25", "--bg_threshold", "0.25",
+                    "--backbone_input_dim", "4", "--resolution", "200"]
+SCALES = (4, 8, 16, 32)
+
+
+def _rcnn_batch(torch, feats, rois, levels, dev):
+    """A features-mode batch: per-level (B, X, Y, Z, C) features, (B, R, D)
+    RoIs and levels, all valid, one gt box a scene (the first RoI)."""
+    b, r = rois.shape[:2]
+    return {"features": [f.to(dev) for f in feats], "rois": torch.from_numpy(rois).to(dev),
+            "roi_levels": torch.from_numpy(levels).to(dev),
+            "roi_valid": torch.ones((b, r), dtype=torch.bool, device=dev),
+            "gt_boxes": torch.from_numpy(rois[:, :2].copy()).to(dev),
+            "gt_mask": torch.ones((b, 2), dtype=torch.bool, device=dev)}
+
+
+def _random_rois(np, rng, b, r, mesh, rotated, size=(8, 60)):
+    """``r`` RoIs a scene in a ``mesh``-sized grid (mesh units) with sides
+    in ``size``, and their FPN levels (``--remap``'s mapper)."""
+    from nerf_rpn_tpu_torch.ops.roi_align import map_rois_to_levels_np
+
+    mesh = np.asarray(mesh, np.float32)
+    size = rng.uniform(*size, (b, r, 3)).astype(np.float32)
+    ctr = rng.uniform(0, 1, (b, r, 3)).astype(np.float32) * mesh
+    if rotated:
+        rois = np.concatenate([ctr, size, rng.uniform(-1.5, 1.5, (b, r, 1)).astype(np.float32)],
+                              -1)
+    else:
+        rois = np.concatenate([ctr - size / 2, ctr + size / 2], -1)
+    return rois, map_rois_to_levels_np(rois, 0, 3, canonical_scale=64)
+
+
+def check_rcnn_small_slice(torch, dev):
+    """The RCNN second stage on the card against the CPU, same weights
+    (f32, TF32 off).  Features mode at ``train_rcnn.sh``'s head (256
+    channels, 3^3, ``--is_add_layer --is_flatten``), AABB and OBB, on
+    random FPN levels of a 200x200x136 scene pair: pooled features, eval
+    scores and refined boxes, and the filter's keep-sets and orders on the
+    same inputs (equal).  Fine-tune ``resnet_tiny`` at 32^3: eval scores
+    and boxes, then one train step with an injected sample in f64 and in
+    f32 (loss terms, every gradient leaf, running statistics; phase 18's
+    limits)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.models.detector import RCNNConfig, RCNNDetector, RCNNHead
+    from nerf_rpn_tpu_torch.models.nerf_rpn import build_backbone, init_params
+    from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
+    from nerf_rpn_tpu_torch.train.steps import make_rcnn_eval_step, make_rcnn_filter_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_dev = torch.device("cpu")
+    rng = np.random.default_rng(7)
+    mesh = (200, 200, 136)
+    feats = [torch.from_numpy(rng.standard_normal((2, *(-(-m // s) for m in mesh), 256))
+                              .astype(np.float32)) for s in SCALES]
+    for rotated in (False, True):
+        form = "obb" if rotated else "aabb"
+        cfg = RCNNConfig(rotated=rotated, output_size=(3, 3, 3), fg_threshold=0.25,
+                         bg_threshold=0.25, pool_mode="max")
+        cpu = RCNNDetector(RCNNHead(256, 2, rotated, True, True, (3, 3, 3)))
+        init_params(cpu, torch.Generator().manual_seed(3 + rotated))
+        gpu = RCNNDetector(RCNNHead(256, 2, rotated, True, True, (3, 3, 3)))
+        gpu.load_state_dict(cpu.state_dict())
+        gpu.to(dev)
+        rois, levels = _random_rois(np, rng, 2, 64, mesh, rotated)
+        c_batch = _rcnn_batch(torch, feats, rois, levels, cpu_dev)
+        g_batch = _rcnn_batch(torch, feats, rois, levels, dev)
+        args = (SCALES, cfg.output_size, cfg.sampling_ratio, cfg.pool_mode, rotated,
+                cfg.enlarge_scale)
+        c_pool = multilevel_roi_align_batched(c_batch["features"], c_batch["rois"],
+                                              c_batch["roi_levels"], c_batch["roi_valid"], *args)
+        g_pool = multilevel_roi_align_batched(g_batch["features"], g_batch["rois"],
+                                              g_batch["roi_levels"], g_batch["roi_valid"], *args)
+        pool_err = (g_pool.cpu() - c_pool).abs().max().item() / c_pool.abs().max().item()
+        # the same gathers; sample coordinates from cos/sin of an ulp apart
+        if not pool_err <= 1e-5:
+            fail(f"rcnn small slice {form}: pooled features differ by {pool_err}")
+        c_out = make_rcnn_eval_step(cpu.eval(), cfg, SCALES)(c_batch)
+        g_out = make_rcnn_eval_step(gpu.eval(), cfg, SCALES)(g_batch)
+        errs = {}
+        for k in ("scores", "refined_boxes"):
+            c, g = c_out[k], g_out[k].cpu()
+            errs[k] = ((g - c).abs().amax(-1) / (1.0 + c.abs().amax(-1))).max().item()
+            # f32 through two 3^3 convs (cuDNN vs the CPU's sum orders)
+            if not errs[k] <= 1e-4:
+                fail(f"rcnn small slice {form}: {k} differ by {errs[k]}")
+        if not torch.equal(g_out["labels"].cpu(), c_out["labels"]):
+            fail(f"rcnn small slice {form}: labels differ")
+        mesh_sizes = torch.tensor([mesh, mesh], dtype=torch.float32)
+        filt = make_rcnn_filter_step(cfg, 0.5, 0.1, 300)
+        inputs = (c_out["refined_boxes"], c_out["scores"], c_out["valid"], mesh_sizes)
+        kernels.reset_counts()
+        g_f = filt(*(t.to(dev) for t in inputs))
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        c_f = filt(*inputs)
+        if not (torch.equal(g_f[1].cpu(), c_f[1]) and torch.equal(g_f[2].cpu(), c_f[2])
+                and (g_f[0].cpu() - c_f[0]).abs().max().item() <= 1e-6 * mesh[0]):
+            fail(f"rcnn small slice {form}: the filter's keep, order or boxes differ from "
+                 "the CPU's")
+        want = {"nms_resolve": 2, "aabb_suppression_graph": 0 if rotated else 2}
+        if dev.type == "cuda" and any(launches[k] != v for k, v in want.items()):
+            fail(f"rcnn small slice {form}: filter launches {launches}, expected {want}")
+        print(f"[rcnn small slice] features {form}: pooled max|err|/max {pool_err:.3g}, "
+              f"scores {errs['scores']:.3g}, refined boxes {errs['refined_boxes']:.3g}, "
+              f"filter: keep and order equal ({int(c_f[1].sum())} kept of 128)", flush=True)
+
+    # fine-tune resnet_tiny at 32^3
+    cfg = RCNNConfig(output_size=(2, 2, 2), fg_threshold=0.3, bg_threshold=0.25)
+    cpu = RCNNDetector(RCNNHead(32, 2, False, False, True, (2, 2, 2)),
+                       build_backbone("resnet_tiny", 32))
+    init_params(cpu, torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.running_mean.copy_(torch.rand(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    gpu = RCNNDetector(RCNNHead(32, 2, False, False, True, (2, 2, 2)),
+                       build_backbone("resnet_tiny", 32))
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    rois, levels = _random_rois(np, rng, 2, 48, (32, 32, 32), False, size=(3, 12))
+    gt = np.stack([rois[0, :2], rois[1, :2]]) + 0.5
+    rois[:, 2:6] = np.repeat(gt, 2, 1) + rng.uniform(-0.6, 0.6, (2, 4, 6)).astype(np.float32)
+    host = {"grids": torch.from_numpy(_unlike_scenes(np, 2, (32, 32, 32), 9)),
+            "rois": torch.from_numpy(rois), "roi_levels": torch.from_numpy(levels),
+            "roi_valid": torch.ones((2, 48), dtype=torch.bool), "gt_boxes": torch.from_numpy(gt),
+            "gt_mask": torch.ones((2, 2), dtype=torch.bool)}
+    c_out = make_rcnn_eval_step(cpu.eval(), cfg, SCALES)(host)
+    g_out = make_rcnn_eval_step(gpu.eval(), cfg, SCALES)({k: v.to(dev) for k, v in host.items()})
+    errs = {k: ((g_out[k].cpu() - c_out[k]).abs().amax(-1)
+                / (1.0 + c_out[k].abs().amax(-1))).max().item()
+            for k in ("scores", "refined_boxes")}
+    if not max(errs.values()) <= 1e-4:
+        fail(f"rcnn small slice fine-tune: eval outputs differ {errs}")
+    print(f"[rcnn small slice] fine-tune resnet_tiny eval: scores {errs['scores']:.3g}, "
+          f"refined boxes {errs['refined_boxes']:.3g}", flush=True)
+    from nerf_rpn_tpu_torch.models.detector import sample_rois
+    indices = sample_rois(cfg, torch.Generator().manual_seed(0), host["rois"],
+                          host["roi_levels"], host["roi_valid"], host["gt_boxes"],
+                          host["gt_mask"], 16)["indices"]
+    runs = {dtype: _rcnn_train_steps(torch, dev, cpu, cfg, host, indices, dtype)
+            for dtype in (torch.float64, torch.float32)}
+    for dtype, (c_run, g_run) in runs.items():
+        readings = _rcnn_step_readings(np, c_run, g_run)
+        limits = dict(CNN_TRAIN_STEP_LIMITS[dtype_name(dtype)])
+        if dtype == torch.float32:
+            # the last level is 1^3 at 32^3: its train-mode BatchNorm
+            # normalises 2 values a channel, so f32 is far from exact on
+            # any device.  The card's f32 step may be as far from the CPU's
+            # as twice the CPU's own f32 step is from its f64 step.
+            own = _rcnn_step_readings(np, runs[torch.float64][0], c_run)
+            readings.update({f"cpu_f32_off_f64_{k}": own[k] for k in limits if k in own})
+            limits = {k: max(v, 2 * own[k]) for k, v in limits.items() if k in own}
+        print(f"[rcnn small train step] resnet_tiny {dtype_name(dtype)}: "
+              + json.dumps({**readings, "limits": limits}), flush=True)
+        for key, limit in limits.items():
+            if key in readings and not readings[key] <= limit:
+                fail(f"rcnn small train step, {dtype_name(dtype)}: {key} {readings[key]} over "
+                     f"its limit {limit}")
+
+
+def _rcnn_train_steps(torch, dev, cpu, cfg, host, indices, dtype):
+    """One fine-tune RCNN train step of ``cpu``'s weights in ``dtype`` with
+    the RoI sample ``indices``, on the CPU and on the card: for each, its
+    metrics, gradients and running statistics (f64 CPU copies)."""
+    from nerf_rpn_tpu_torch.models.detector import RCNNDetector, RCNNHead
+    from nerf_rpn_tpu_torch.models.nerf_rpn import build_backbone
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rcnn_train_step
+
+    results = []
+    for d in (torch.device("cpu"), dev):
+        model = RCNNDetector(RCNNHead(32, 2, False, False, True, (2, 2, 2), dtype),
+                             build_backbone("resnet_tiny", 32, dtype))
+        model.load_state_dict(cpu.state_dict())
+        model.to(d, dtype)
+        state = TrainState(model, 1e-3, 10)
+        grads, apply = {}, state.apply_gradients
+
+        def capture(model=model, grads=grads, apply=apply):
+            # a copy: the update that follows may scale the gradients in place
+            grads.update({n: p.grad.detach().to("cpu", torch.float64, copy=True)
+                          for n, p in model.named_parameters()})
+            return apply()
+
+        state.apply_gradients = capture
+        step = make_rcnn_train_step(model, cfg, SCALES, 16, reg_loss_weight=5.0)
+        batch = {k: v.to(d, dtype) if v.is_floating_point() else v.to(d)
+                 for k, v in host.items()}
+        metrics = step(state, batch, None, indices=indices.to(d))
+        stats = {n: b.detach().to("cpu", torch.float64, copy=True)
+                 for n, b in model.named_buffers() if "running_" in n}
+        results.append(({k: float(v) for k, v in metrics.items()}, grads, stats))
+    return results
+
+
+def _rcnn_step_readings(np, ref, got):
+    """The worst relative differences of train-step result ``got`` from
+    ``ref`` (as ``_cnn_train_step_readings``: loss terms to the value, a
+    gradient leaf and a running statistic to ``ref``'s largest entry)."""
+    (c_m, c_g, c_s), (g_m, g_g, g_s) = ref, got
+    rel = {}
+    for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm"):
+        if not np.isfinite(g_m[k]):
+            fail(f"rcnn small train step: {k} is {g_m[k]}")
+        rel[k] = abs(g_m[k] - c_m[k]) / abs(c_m[k])
+    leaf_errs = {n: (g_g[n] - c).abs().max().item() / c.abs().max().item()
+                 for n, c in c_g.items() if c.abs().max().item() > 0}
+    worst_leaf = max(leaf_errs, key=leaf_errs.get)
+    return {"loss_terms": max(rel["loss"], rel["loss_objectness"], rel["loss_rpn_box_reg"]),
+            "grad_norm": rel["grad_norm"], "grad_worst_leaf": leaf_errs[worst_leaf],
+            "grad_median_leaf": float(np.median(list(leaf_errs.values()))),
+            "running_stats": max((g_s[n] - c).abs().max().item() / c.abs().max().item()
+                                 for n, c in c_s.items()),
+            "worst_leaf": worst_leaf, "leaves": len(leaf_errs), "fg_rois": g_m["fg_rois"],
+            "bg_rois": g_m["bg_rois"], "loss_ref": c_m["loss"], "loss": g_m["loss"]}
+
+
+def _rcnn_common(data, rois, save, scenes_dir=None):
+    """``run_rpn_detect``'s data arguments: grids or saved features from
+    ``scenes_dir`` (default ``data``), gt boxes and the split from
+    ``data`` (a later ``--dataset_split`` overrides it)."""
+    return ["--features_path", scenes_dir or data, "--boxes_path", data, "--rois_path", rois,
+            "--dataset_split", os.path.join(data, "split.npz"), "--save_path", save,
+            "--device", "cuda"]
+
+
+def _rcnn_launch_check(launches, path, steps, eval_batches, eval_scenes):
+    """A train step runs K1 and K2 once a Swin block (24 each); an eval
+    batch K5 24, K6 24, K4 12 and K1 12 (the backbone's eval route), and
+    its filter the resolve kernel once a scene; OBBs never run K3."""
+    want = {"window_attention_fwd": 24 * steps + 12 * eval_batches,
+            "window_attention_bwd": 24 * steps, "ln_partition_qkv": 24 * eval_batches,
+            "fused_mlp_block": 24 * eval_batches, "fused_window_attention": 12 * eval_batches,
+            "nms_resolve": eval_scenes, "aabb_suppression_graph": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{path}: launches {got}, expected {want}")
+    print(f"[{path}] launches {json.dumps(got)} ({steps} train steps, {eval_batches} eval "
+          f"batches of {eval_scenes} scenes)", flush=True)
+
+
+def run_rcnn_path(torch, workdir, rpn_ckpt):
+    """``train_rcnn.sh``'s path: synthetic OBB scenes at 200x200x130 (4
+    train, 2 validation, 2 test); their proposals and FPN levels from
+    ``run_rpn --mode eval --rotated_bbox --save_results --output_all`` with
+    the OBB RPN's ``model_best`` (``rpn_ckpt``); ``run_rpn_detect --mode
+    train`` with every flag of the script, ``--pretrained rpn_ckpt``, one
+    epoch with validation and checkpoints; ``--mode eval --checkpoint
+    <save>/model_best --output_proposals``.  Returns the launches and the
+    paths later phases read."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn, run_rpn_detect
+    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    path = "rcnn train"
+    data = os.path.join(workdir, "data200_obb")
+    write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2, resolution=(200, 200, 130),
+                            seed=3, rotated=True, box_size=(20.0, 50.0))
+    results = os.path.join(workdir, "rpn200_obb", "results")
+    t0 = time.perf_counter()
+    run_rpn.main(["--mode", "eval", "--checkpoint", rpn_ckpt, "--backbone_type", "swin_s",
+                  "--bf16", "--rotated_bbox", "--resolution", "200", "--pad_multiple", "16",
+                  "--device", "cuda",
+                  "--features_path", data, "--boxes_path", data,
+                  "--dataset_split", os.path.join(data, "split.npz"),
+                  "--save_path", os.path.dirname(results), "--save_results", "--output_all"])
+    torch.cuda.synchronize()
+    n_rois = []
+    for name in sorted(os.listdir(os.path.join(results, "proposals"))):
+        with np.load(os.path.join(results, "proposals", name)) as z:
+            n_rois.append(len(z["proposals"]))
+    if len(n_rois) != 8 or min(n_rois) == 0:
+        fail(f"{path}: stage-1 proposals of {len(n_rois)} scenes, {n_rois} RoIs")
+    print(f"[{path}] stage 1 (run_rpn --save_results, OBB Swin-S model_best): {n_rois} RoIs "
+          f"a scene in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    save = os.path.join(workdir, "rcnn")
+    common = [*_rcnn_common(data, os.path.join(results, "proposals"), save), *RCNN_TRAIN_FLAGS]
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                                  "--eval_interval", "1", "--pretrained", rpn_ckpt, *common])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm", "param_norm")
+    if len(logged) != 2 or not all(np.all(np.isfinite([m[k] for k in keys])) for m in logged):
+        fail(f"{path}: logged {logged}")
+    for name in ("model_best", "epoch_1", "model_best.args.json", "eval.json"):
+        if not os.path.isfile(os.path.join(save, name)):
+            fail(f"{path}: {name} was not written")
+    print(f"[{path}] 1 epoch, 2 steps + validation eval in {time.perf_counter() - t0:.1f} s; "
+          + "; ".join(f"loss {m['loss']:.4f} (obj {m['loss_objectness']:.4f}, reg "
+                      f"{m['loss_rpn_box_reg']:.4f}), sampled RoIs fg {m['fg_rois']:.0f} / bg "
+                      f"{m['bg_rois']:.0f}" for m in logged), flush=True)
+    _rcnn_launch_check(launches, path, steps=2, eval_batches=1, eval_scenes=2)
+
+    kernels.reset_counts()
+    out = os.path.join(workdir, "rcnn_eval")
+    common_eval = [*_rcnn_common(data, os.path.join(results, "proposals"), out),
+                   *RCNN_TRAIN_FLAGS]
+    report = run_rpn_detect.main(["--mode", "eval", "--checkpoint",
+                                  os.path.join(save, "model_best"), "--output_proposals",
+                                  *common_eval])
+    torch.cuda.synchronize()
+    eval_launches = kernels.counts()
+    files = sorted(os.listdir(os.path.join(out, "proposals")))
+    metrics = [report["ap_25"]["ap"], report["ap_50"]["ap"],
+               *report["classification"].values()]
+    if len(files) != 2 or not np.all(np.isfinite(metrics)):
+        fail(f"{path} eval: files {files}, metrics {report}")
+    for name in files:
+        with np.load(os.path.join(out, "proposals", name)) as z:
+            if z["proposal"].ndim != 2 or z["proposal"].shape[1] != 7:
+                fail(f"{path} eval: {name} proposals {z['proposal'].shape}")
+    print(f"[{path}] eval --checkpoint model_best: AP@25 {report['ap_25']['ap']:.4f}, AP@50 "
+          f"{report['ap_50']['ap']:.4f}, classification {json.dumps(report['classification'])}"
+          f" on 2 scenes", flush=True)
+    _rcnn_launch_check(eval_launches, f"{path} eval-from-checkpoint", steps=0, eval_batches=1,
+                       eval_scenes=2)
+    for k, v in eval_launches.items():
+        launches[k] += v
+    return launches, data, results, common
+
+
+def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
+    """The fine-tune RCNN train step at ``train_rcnn.sh``'s shape: device
+    ms a step (CUDA events), peak GiB, launches a step (K1 24, K2 24) and
+    one profiled step's device-busy ms; then the eval a scene (batch 1):
+    ms of the backbone, RoI align, head (+ softmax and decode) and filter
+    by CUDA events, the device-busy ms of one whole scene, and its launches
+    (K5 24, K6 24, K4 12, K1 12, resolve 1, K3 0)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn_detect
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import (make_rcnn_eval_step, make_rcnn_filter_step,
+                                                   make_rcnn_train_step, rcnn_pool)
+
+    args = run_rpn_detect.parse_args(["--mode", "train", *common, "--num_workers", "0"])
+    trainer = run_rpn_detect.Trainer(args)
+    train_scenes, _, test_scenes = run_rpn_detect.load_split(args.dataset_split)
+    train_set = trainer.dataset(train_scenes)
+    host, _ = next(iter(trainer.batches(train_set)))
+    batch = trainer.device_batch(host)
+    state = TrainState(trainer.model, args.lr, steps + warmup, args.weight_decay,
+                       args.clip_grad_norm)
+    step = make_rcnn_train_step(trainer.model, trainer.cfg, trainer.spatial_scales,
+                                args.cls_batch_size // args.batch_size,
+                                reg_loss_weight=args.reg_loss_weight)
+    gen = torch.Generator(trainer.device).manual_seed(0)
+    drop = torch.Generator(trainer.device).manual_seed(1)
+    for _ in range(warmup):
+        step(state, batch, gen, drop)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(steps)]
+    losses = []
+    for a, b in events:
+        a.record()
+        losses.append(step(state, batch, gen, drop)["loss"])
+        b.record()
+    torch.cuda.synchronize()
+    per_step = {k: v / steps for k, v in kernels.counts().items() if v}
+    if per_step != {"window_attention_fwd": 24, "window_attention_bwd": 24}:
+        fail(f"timed rcnn train steps: launches per step {per_step}")
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy_ms, busy_kernels = device_busy(torch, lambda: step(state, batch, gen, drop))
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"timed rcnn train steps: losses {losses}")
+    row = {"shape": list(batch["grids"].shape[1:4]), "batch": args.batch_size, "steps": steps,
+           "launches_per_step": per_step, "ms_per_step_mean": float(ms.mean()),
+           "ms_per_step_median": float(np.median(ms)), "ms_per_step_min": float(ms.min()),
+           "ms_per_step_max": float(ms.max()), "peak_mem_gib": peak,
+           "device_busy_ms_one_step": busy_ms, "kernels_one_step": busy_kernels,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    print("[rcnn train steps]", json.dumps(row), flush=True)
+
+    # the eval a scene, by part
+    trainer.args.batch_size = 1
+    eval_step = make_rcnn_eval_step(trainer.model, trainer.cfg, trainer.spatial_scales)
+    filt = make_rcnn_filter_step(trainer.cfg, args.filter_score_threhold, args.nms_thresh,
+                                 int(args.filter_num_threhold))
+    cfg, model = trainer.cfg, trainer.model
+    test_set = trainer.dataset(test_scenes)
+    hosts = [h for h, _ in trainer.batches(test_set)]
+    scene = [trainer.device_batch(h) for h in hosts]
+    mesh = [torch.tensor(h["feat_shapes"] * trainer.spatial_scales[0], dtype=torch.float32,
+                         device=trainer.device) for h in hosts]
+
+    @torch.inference_mode()
+    def parts(i):
+        b = scene[i % len(scene)]
+        feats = eval_step.features(b)
+        yield "backbone"
+        pooled = rcnn_pool(cfg, feats, b["rois"], b["roi_levels"], b["roi_valid"],
+                            trainer.spatial_scales)
+        yield "roi_align"
+        deltas, scores = model.head(pooled.flatten(0, 1))
+        probs = torch.softmax(scores, -1)[None]
+        boxes = cfg.decode(deltas[None], b["rois"])
+        yield "head"
+        filt(boxes, probs, b["roi_valid"], mesh[i % len(scene)])
+        yield "filter"
+
+    def whole(i):
+        for _ in parts(i):
+            pass
+
+    for i in range(3):
+        whole(i)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    names = ("backbone", "roi_align", "head", "filter")
+    part_ms = {k: [] for k in names}
+    scene_ms = []
+    for i in range(scenes):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        for j, _ in enumerate(parts(i)):
+            ev[j + 1].record()
+        torch.cuda.synchronize()
+        for j, k in enumerate(names):
+            part_ms[k].append(ev[j].elapsed_time(ev[j + 1]))
+        scene_ms.append(ev[0].elapsed_time(ev[4]))
+    per_scene = {k: v / scenes for k, v in kernels.counts().items() if v}
+    want = {k: v for k, v in OBB_EVAL_LAUNCHES_PER_SCENE.items()}
+    if per_scene != want:
+        fail(f"rcnn eval: launches per scene {per_scene}, expected {want}")
+    busy, n_kernels = device_busy(torch, lambda: whole(0))
+    eval_row = {"scene_ms_mean": float(np.mean(scene_ms)),
+                "scene_ms_median": float(np.median(scene_ms)),
+                **{f"{k}_ms_mean": float(np.mean(v)) for k, v in part_ms.items()},
+                "device_busy_ms_one_scene": busy, "kernels_one_scene": n_kernels,
+                "rois_a_scene": int(scene[0]["roi_valid"].sum()), "launches_per_scene": per_scene}
+    print("[rcnn eval a scene]", json.dumps(eval_row), flush=True)
+    return row, eval_row
+
+
+def _features_split(np, data, workdir):
+    """Phase 24's split of phase 23's scenes: its first 2 train scenes, its
+    first validation scene and its 2 test scenes (a scene's saved levels
+    load in ~9 s: ``level_features`` holds its values as Python floats,
+    the JAX driver's layout)."""
+    with np.load(os.path.join(data, "split.npz")) as z:
+        split = {"train_scenes": z["train_scenes"][:2], "val_scenes": z["val_scenes"][:1],
+                 "test_scenes": z["test_scenes"]}
+    path = os.path.join(workdir, "split_features.npz")
+    np.savez(path, **split)
+    return path, split
+
+
+def _aabb_copy(np, data, results, workdir):
+    """The AABB form of phase 23's data: the gt OBBs' and the RoIs'
+    enclosing boxes, beside the same saved levels."""
+    import torch as _torch
+
+    from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d
+
+    out = os.path.join(workdir, "aabb_from_obb")
+    rois = os.path.join(out, "rois")
+    os.makedirs(rois, exist_ok=True)
+    for name in os.listdir(data):
+        if name.endswith(".npy"):
+            gt = _torch.from_numpy(np.load(os.path.join(data, name)))
+            np.save(os.path.join(out, name), obb2hbb_3d(gt).numpy())
+    for name in os.listdir(os.path.join(results, "proposals")):
+        with np.load(os.path.join(results, "proposals", name)) as z:
+            box = obb2hbb_3d(_torch.from_numpy(z["proposals"])).numpy()
+            np.savez(os.path.join(rois, name), proposals=box, level_indices=z["level_indices"])
+    return out, rois
+
+
+def run_rcnn_features_path(torch, workdir, data, results):
+    """``run_rpn_detect`` without ``--fine_tune`` on phase 23's saved FPN
+    levels (Swin-S, 256 channels), OBB and AABB (the enclosing boxes of the
+    same gt and RoIs), on 2 train, 1 validation and 2 test scenes: one
+    epoch with validation, then ``--mode eval --checkpoint model_best``;
+    no hand kernel but the filter's (resolve once a scene, K3 once a scene
+    for AABBs).  Then RoI align alone at 2 x 1024 RoIs of these levels
+    (the OBB RoIs and their enclosing boxes): device ms (``time_one``)
+    against its bound (the feature rows its samples touch, read once, the
+    RoIs and the output; 136 f32 operations a bin and channel),
+    ``train_rcnn.sh``'s 3^3 bins and 2^3 samples, max (the driver's
+    default) and avg."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn_detect
+    from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d
+    from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
+
+    feats_dir = os.path.join(results, "features")
+    split, scenes = _features_split(np, data, workdir)
+    aabb_data, aabb_rois = _aabb_copy(np, data, results, workdir)
+    launches, common_of = None, {}
+    for form, d, rois in (("obb", data, os.path.join(results, "proposals")),
+                          ("aabb", aabb_data, aabb_rois)):
+        path = f"rcnn features {form}"
+        save = os.path.join(workdir, f"rcnn_features_{form}")
+        common = [*_rcnn_common(d, rois, save, feats_dir), "--dataset_split", split,
+                  "--output_size", "3", "3", "3", "--is_add_layer", "--is_flatten",
+                  "--cls_batch_size", "256", "--batch_size", "2", "--fg_threshold", "0.25",
+                  "--bg_threshold", "0.25", *(["--rotated_bbox"] if form == "obb" else [])]
+        common_of[form] = common
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1",
+                                      "--log_interval", "1", *common])
+        report = run_rpn_detect.main(["--mode", "eval", "--checkpoint",
+                                      os.path.join(save, "model_best"), *common])
+        torch.cuda.synchronize()
+        got = kernels.counts()
+        if len(logged) != 1 or not np.isfinite(logged[0]["loss"]):
+            fail(f"{path}: logged {logged}")
+        if not np.isfinite(report["classification"]["accuracy"]):
+            fail(f"{path}: eval {report}")
+        # the validation batch (1 scene, padded to 2) and the 2 test scenes
+        want = {"nms_resolve": 4, "aabb_suppression_graph": 4 if form == "aabb" else 0}
+        if any(got[k] != v for k, v in want.items()) or any(got[k] for k in SWIN_KERNELS):
+            fail(f"{path}: launches {got}, expected {want} and no Swin kernel")
+        m = logged[0]
+        print(f"[{path}] 1 epoch + eval in {time.perf_counter() - t0:.1f} s; loss "
+              f"{m['loss']:.4f} (fg {m['fg_rois']:.0f} / bg {m['bg_rois']:.0f}); AP@25 "
+              f"{report['ap_25']['ap']:.4f}, accuracy {report['classification']['accuracy']:.4f}",
+              flush=True)
+        launches = got if launches is None else {k: launches[k] + v for k, v in got.items()}
+
+    # RoI align alone at 2 x 1024 RoIs: the OBB RoIs and their enclosing boxes
+    trainer = run_rpn_detect.Trainer(run_rpn_detect.parse_args(
+        ["--mode", "eval", *common_of["obb"], "--num_workers", "0"]))
+    host, _ = next(iter(trainer.batches(trainer.dataset(list(scenes["train_scenes"])))))
+    b = trainer.device_batch(host)
+    rows = {}
+    for form in ("obb", "aabb"):
+        rotated = form == "obb"
+        rois = b["rois"] if rotated else obb2hbb_3d(b["rois"])
+        for mode in ("max", "avg"):
+            def align(rois=rois, mode=mode, rotated=rotated):
+                return multilevel_roi_align_batched(
+                    b["features"], rois, b["roi_levels"], b["roi_valid"], SCALES, (3, 3, 3),
+                    2, mode, rotated, 0.2)
+            ms = time_one(torch, align)
+            out = align()
+            if not torch.isfinite(out).all():
+                fail(f"RoI align {form} {mode}: the output is not finite")
+            moved, touched = _roi_align_bytes(torch, b, rois, rotated, out)
+            # a value of a bin: 8 samples x 8 corners (multiply, add), then
+            # the samples' reduce
+            ops = out.numel() * (8 * 8 * 2 + 8)
+            rows[f"{form} {mode}"] = {"rois": int(b["roi_valid"].sum()), "ms": ms,
+                                      "touched_rows": touched, "bytes": moved,
+                                      **bound(moved, ops, "float32")}
+    print(f"[rcnn features] RoI align at {tuple(b['rois'].shape[:2])}, f32, 256 channels: "
+          + json.dumps(rows), flush=True)
+    return launches, rows
+
+
+def _roi_align_bytes(torch, b, rois, rotated, out):
+    """Bytes RoI align must move on these inputs: each feature row that a
+    sample's corner touches read once (C f32 values), the RoIs and levels
+    read once, the output written once; and the number of those rows."""
+    from nerf_rpn_tpu_torch.ops import roi_align as ra
+
+    feats = b["features"]
+    bs, r = rois.shape[:2]
+    dims = [f.shape[1:4] for f in feats]
+    sizes = [d[0] * d[1] * d[2] for d in dims]
+    offsets = [sum(s * bs for s in sizes[:i]) for i in range(len(sizes))]
+    obb = ra._as_obb(rois.reshape(bs * r, -1).float(), rotated, 0.2)
+    lvl = b["roi_levels"].reshape(-1).clamp(0, len(feats) - 1).long()
+    scale = torch.tensor(SCALES, dtype=torch.float32, device=obb.device)[lvl]
+    obb = torch.cat([obb[:, :6] / scale[:, None], obb[:, 6:]], -1)
+    pts = ra.roi_sample_points(obb, (3, 3, 3), 2)
+    rows = []
+    scene = torch.arange(bs, device=obb.device).repeat_interleave(r)
+    for li, (d, off, size) in enumerate(zip(dims, offsets, sizes)):
+        sel = lvl == li
+        if not sel.any():
+            continue
+        base = off + scene[sel] * size
+        for xi, yi, zi, _ in ra._corners(pts[sel], *d):
+            rows.append((base.reshape(-1, *(1,) * 4) + (xi * d[1] + yi) * d[2] + zi).reshape(-1))
+    touched = int(torch.unique(torch.cat(rows)).numel())
+    c = feats[0].shape[-1]
+    moved = touched * c * feats[0].element_size() + nbytes(rois, b["roi_levels"], out)
+    return moved, touched
+
+
 # The gate's seeds, and on how many of them the JAX package's own gate
 # clears each combo (``scripts/synthetic_quality_gate.py --combos <combo>
 # --seed <s>`` on the CPU; PERF.md, PR 13).  One seed cannot decide: over
@@ -1826,10 +2465,10 @@ def run_cnn_train_path(torch, workdir, resolution=160, backbone="resnet", device
 # first epoch at the best validation Recall@50 of four scenes, and AP is
 # taken over eight).
 GATE_SEEDS = (0, 1, 2, 3, 4, 5)
-JAX_GATE_PASSES = {"rpn_aabb": 2, "fcos_obb": 1}
+JAX_GATE_PASSES = {"rpn_aabb": 2, "fcos_obb": 1, "rcnn": 3}
 
 
-def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb")):
+def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb", "rcnn")):
     """The port's train-to-quality gate on the card (``cli/quality_gate.py``
     through ``run_rpn`` / ``run_fcos``, resnet_tiny, f32, 60 epochs at
     32^3), under torch's deterministic algorithms as the gate's CLI runs
@@ -1863,12 +2502,13 @@ def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb")):
 
 def _gate_row(quality_gate, combo, seed, workdir):
     t0 = time.perf_counter()
-    ap25, ap50, r25, _, curve = quality_gate.run_combo(
+    ap25, ap50, aux, _, curve = quality_gate.run_combo(
         combo, os.path.join(workdir, f"gate_seed{seed}"), device="cuda", seed=seed)
-    row = {"combo": combo, "seed": seed, "ap25": ap25, "ap50": ap50, "recall25": r25,
+    row = {"combo": combo, "seed": seed, "ap25": ap25, "ap50": ap50,
+           "cls_accuracy" if combo == "rcnn" else "recall25": aux,
            "gate_ap25": quality_gate.GATES[combo], "gate_ap50": quality_gate.GATES_AP50[combo],
            "val_recall50_curve": curve, "seconds": time.perf_counter() - t0}
-    row["pass"] = ap25 >= row["gate_ap25"] and ap50 >= row["gate_ap50"]
+    row["pass"] = quality_gate.passes(combo, ap25, ap50, aux)
     print("[quality gate]", json.dumps(row), flush=True)
     return row
 
@@ -1997,6 +2637,20 @@ def main() -> None:
         t0 = time.perf_counter()
         run_quality_gate(torch, work)
         phase_done(torch, "quality gate", t0)
+
+        t0 = time.perf_counter()
+        check_rcnn_small_slice(torch, dev)
+        phase_done(torch, "RCNN small slice and train step vs CPU", t0)
+
+        t0 = time.perf_counter()
+        paths["rcnn fine-tune"], data, results, common = run_rcnn_path(
+            torch, work, os.path.join(work, "obb_train", "model_best"))
+        time_rcnn_steps(torch, common)
+        phase_done(torch, "RCNN fine-tune path (train_rcnn.sh) and timed steps", t0)
+
+        t0 = time.perf_counter()
+        paths["rcnn features"], _ = run_rcnn_features_path(torch, work, data, results)
+        phase_done(torch, "RCNN features path and RoI align", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

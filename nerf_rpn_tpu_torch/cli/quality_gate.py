@@ -10,17 +10,21 @@ the gates below (the script's own).  It is the check that catches "the
 loss goes down but the detector never localizes".
 
 Combos: ``rpn_aabb``, ``rpn_obb``, ``fcos_aabb``, ``fcos_obb`` (32^3
-scenes, 60 epochs, minutes each on the CPU) and ``rpn_aabb_r200``
-(200x200x130 scenes padded to 208x208x144, sized for the GPU; opt-in).
-The RCNN combo waits for the port's RCNN stage.
+scenes, 60 epochs, minutes each on the CPU), ``rcnn`` (the second stage
+fine-tuned from scratch with ``resnet_tiny`` for 40 epochs through
+``run_rpn_detect`` on the scenes' generated RoIs,
+``data/synthetic.write_synthetic_rois``; gated on AP@25, AP@50 and the
+objectness classification accuracy) and ``rpn_aabb_r200`` (200x200x130
+scenes padded to 208x208x144, sized for the GPU; opt-in).
 
 Usage::
 
     python -m nerf_rpn_tpu_torch.cli.quality_gate [--device cuda|cpu] \\
         [--combos rpn_aabb fcos_obb] [--work_dir DIR]
 
-One JSON line per combo (AP@25, AP@50, Recall@25, the validation
-Recall@50 curve, seconds); exits 1 when a combo misses its gate.
+One JSON line per combo (AP@25, AP@50, Recall@25 -- for ``rcnn`` the
+classification accuracy -- the validation Recall@50 curve, seconds);
+exits 1 when a combo misses its gate.
 
 On the card the gate runs torch's deterministic algorithms, so one seed
 gives one result: otherwise the atomics of the backward passes change the
@@ -45,13 +49,16 @@ GATES = {
     "rpn_obb": 0.7,
     "fcos_aabb": 0.9,
     "fcos_obb": 0.8,
+    "rcnn": 0.8,
     "rpn_aabb_r200": 0.9,
 }
+RCNN_ACCURACY_GATE = 0.9
 GATES_AP50 = {
     "rpn_aabb": 0.8,
     "rpn_obb": 0.5,
     "fcos_aabb": 0.8,
     "fcos_obb": 0.8,
+    "rcnn": 0.8,
     "rpn_aabb_r200": 0.8,
 }
 
@@ -149,6 +156,37 @@ def run_fcos_gate(data_dir, save_path, rotated, device, num_epochs=60, seed=0):
     return _train_then_eval(run_fcos, common, _train_args(num_epochs, 4, 5, seed), save_path)
 
 
+def run_rcnn_gate(data_dir, save_path, device, num_epochs=40, seed=0):
+    """Train + eval the second stage through ``run_rpn_detect``, fine-tuned
+    from scratch on the synthetic scenes and their generated RoIs
+    (jittered-gt positives, far negatives); returns eval.json."""
+    from nerf_rpn_tpu_torch.cli import run_rpn_detect
+
+    common = [
+        "--features_path", data_dir,
+        "--boxes_path", data_dir,
+        "--rois_path", os.path.join(data_dir, "rois"),
+        "--dataset_split", os.path.join(data_dir, "split.npz"),
+        "--save_path", save_path,
+        "--device", device,
+        "--fine_tune", "--remap",
+        "--backbone_type", "resnet_tiny",
+        "--feature_input_dim", "32",
+        "--resolution", "32",
+        "--output_size", "2", "2", "2",
+        "--is_flatten",
+        "--max_rois", "20",
+        "--cls_batch_size", "64",
+        "--batch_size", "4",
+        "--nms_thresh", "0.3",
+        "--filter_score_threhold", "0.5",
+        "--filter_num_threhold", "20",
+    ]
+    train = ["--num_epochs", str(num_epochs), "--lr", "3e-3", "--eval_interval", "5",
+             "--log_to_file", "--seed", str(seed)]
+    return _train_then_eval(run_rpn_detect, common, train, save_path)
+
+
 def parse_recall_curve(log_path):
     """Validation Recall@50 per eval from the driver's log file (one 'Top N:
     Recall@50 x' line per --eval_interval epochs)."""
@@ -164,9 +202,10 @@ def parse_recall_curve(log_path):
 
 
 def run_combo(combo, work_dir, device="cuda", num_epochs=60, seed=0):
-    """Write the data, train, evaluate; returns (AP@25, AP@50, Recall@25,
-    eval.json, validation Recall@50 curve)."""
-    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
+    """Write the data, train, evaluate; returns (AP@25, AP@50, Recall@25 --
+    for ``rcnn`` the classification accuracy --, eval.json, validation
+    Recall@50 curve)."""
+    from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset, write_synthetic_rois
 
     if combo not in GATES:
         raise ValueError(f"unknown combo {combo!r}; the port runs {sorted(GATES)}")
@@ -178,6 +217,12 @@ def run_combo(combo, work_dir, device="cuda", num_epochs=60, seed=0):
                                 resolution=(200, 200, 130), box_size=(24.0, 72.0),
                                 max_boxes=4, seed=seed)
         results = run_rpn_gate_r200(data_dir, save_path, device, num_epochs, seed)
+    elif combo == "rcnn":
+        write_synthetic_dataset(data_dir, seed=seed)
+        write_synthetic_rois(data_dir, os.path.join(data_dir, "rois"), seed=seed)
+        results = run_rcnn_gate(data_dir, save_path, device, min(num_epochs, 40), seed)
+        return (results["ap_25"]["ap"], results["ap_50"]["ap"],
+                results["classification"]["accuracy"], results, [])
     else:
         write_synthetic_dataset(data_dir, rotated=rotated, seed=seed)
         runner = run_rpn_gate if combo.startswith("rpn") else run_fcos_gate
@@ -186,6 +231,13 @@ def run_combo(combo, work_dir, device="cuda", num_epochs=60, seed=0):
     log = "run_rpn_torch.log" if combo.startswith("rpn") else "run_fcos_torch.log"
     curve = parse_recall_curve(os.path.join(save_path, log))
     return results["ap_25"]["ap"], results["ap_50"]["ap"], r25, results, curve
+
+
+def passes(combo, ap25, ap50, aux) -> bool:
+    """The script's gates: AP@25 and AP@50, and for ``rcnn`` the
+    classification accuracy (``aux``) too."""
+    ok = ap25 >= GATES[combo] and ap50 >= GATES_AP50[combo]
+    return ok and (combo != "rcnn" or aux >= RCNN_ACCURACY_GATE)
 
 
 def main(argv=None) -> int:
@@ -207,12 +259,13 @@ def main(argv=None) -> int:
     failures, summary = [], {}
     for combo in args.combos:
         t0 = time.time()
-        ap25, ap50, r25, _, curve = run_combo(combo, work_dir, args.device, args.num_epochs,
+        ap25, ap50, aux, _, curve = run_combo(combo, work_dir, args.device, args.num_epochs,
                                               args.seed)
-        ok = ap25 >= GATES[combo] and ap50 >= GATES_AP50[combo]
+        ok = passes(combo, ap25, ap50, aux)
         summary[combo] = {
             "combo": combo, "device": args.device, "ap25": ap25, "ap50": ap50,
-            "recall25": r25, "gate_ap25": GATES[combo], "gate_ap50": GATES_AP50[combo],
+            "cls_accuracy" if combo == "rcnn" else "recall25": aux,
+            "gate_ap25": GATES[combo], "gate_ap50": GATES_AP50[combo],
             "pass": ok, "val_recall50_curve": curve, "seconds": time.time() - t0,
         }
         print(json.dumps(summary[combo]), flush=True)

@@ -1,8 +1,9 @@
 """Recall / AR / AP of AABB and OBB proposals (host-side numpy).
 
-Copy, for the torch port, of the part of
-``nerf_rpn_tpu/evaluation/metrics.py`` that the eval report
-(``cli/common.report_metrics``) and the proposal filter call.
+Copy, for the torch port, of ``nerf_rpn_tpu/evaluation/metrics.py``: the
+recall, precision and AP functions of the eval reports
+(``cli/common.report_metrics``, ``cli/run_rpn_detect.py``) and the stage-2
+classification metrics.
 Parity target: reference ``nerf_rpn/eval.py`` -- Detectron-style greedy
 one-to-one matching for recall (:14-81) and VOC AP with the precision
 envelope + delta-recall summation (:319-395).  The IoU of oriented
@@ -97,6 +98,49 @@ def evaluate_box_proposals_recall(
     }
 
 
+def evaluate_box_proposals_precision(
+    proposals_list, scores_list, gt_boxes_list,
+    score_thresh=0.0, thresholds=None, limit=None,
+):
+    """Precision over IoU thresholds (reference ``eval.py:84-162``)."""
+    box_overlaps = []
+    num_det = 0
+    for proposals, scores, gt in zip(proposals_list, scores_list, gt_boxes_list):
+        keep = scores >= score_thresh
+        proposals, scores = proposals[keep], scores[keep]
+        order = np.argsort(-scores)
+        proposals = proposals[order]
+        if proposals.shape[0] == 0:
+            continue
+        if limit is not None and len(proposals) > limit:
+            proposals = proposals[:limit]
+        num_det += proposals.shape[0]
+        overlaps = _pairwise_iou_np(proposals, gt)
+        matched = _greedy_match_overlaps(overlaps, match_axis=1)
+        per_box = np.zeros(proposals.shape[0], np.float32)
+        per_box[: min(proposals.shape[0], gt.shape[0])] = matched[
+            : min(proposals.shape[0], gt.shape[0])
+        ]
+        box_overlaps.append(per_box)
+    box_overlaps = (
+        np.concatenate(box_overlaps) if box_overlaps else np.zeros(0, np.float32)
+    )
+    box_overlaps.sort()
+    if thresholds is None:
+        thresholds = np.arange(0.5, 0.95 + 1e-5, 0.05, np.float32)
+    thresholds = np.asarray(thresholds, np.float32)
+    precisions = np.array(
+        [(box_overlaps >= t).sum() / max(num_det, 1) for t in thresholds],
+        np.float32,
+    )
+    return {
+        "ap": float(precisions.mean()),
+        "precisions": precisions,
+        "thresholds": thresholds,
+        "num_det": num_det,
+    }
+
+
 def evaluate_box_proposals_ap(
     proposals_list, scores_list, gt_boxes_list, iou_thresh=0.25, top_k=None
 ):
@@ -153,3 +197,85 @@ def evaluate_box_proposals_ap(
     ap = float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
     return {"ap": ap, "precisions": precisions, "recalls": recalls,
             "thresholds": iou_thresh, "num_det": tpc + fpc}
+
+
+def evaluate_box_proposals_average_precision(
+    proposals_list, scores_list, gt_boxes_list, iou_thresh=0.25, top_k=None
+):
+    """Confidence-sweep AP variant (reference ``eval.py:228-316``)."""
+    box_overlaps, box_scores = [], []
+    num_gt = sum(g.shape[0] for g in gt_boxes_list)
+    for proposals, scores, gt in zip(proposals_list, scores_list, gt_boxes_list):
+        if scores.ndim > 1:
+            scores = scores[..., 1]
+        order = np.argsort(-scores)
+        proposals, scores = proposals[order], scores[order]
+        if proposals.shape[0] == 0:
+            continue
+        if top_k is not None and len(proposals) > top_k:
+            proposals, scores = proposals[:top_k], scores[:top_k]
+        overlaps = _pairwise_iou_np(proposals, gt)
+        n_match = min(proposals.shape[0], gt.shape[0])
+        ov = overlaps.copy()
+        per_box = np.zeros(proposals.shape[0], np.float32)
+        per_score = np.zeros(proposals.shape[0], np.float32)
+        for j in range(n_match):
+            flat = ov.argmax()
+            bi, gi = np.unravel_index(flat, ov.shape)
+            per_box[j] = ov[bi, gi]
+            per_score[j] = scores[bi]
+            ov[bi, :] = -1
+            ov[:, gi] = -1
+        box_overlaps.append(per_box)
+        box_scores.append(per_score)
+    box_overlaps = np.concatenate(box_overlaps) if box_overlaps else np.zeros(0)
+    box_scores = np.concatenate(box_scores) if box_scores else np.zeros(0)
+
+    conf = np.arange(0.01, 0.99 + 1e-5, 0.01, np.float32)
+    precisions = np.zeros_like(conf)
+    recalls = np.zeros_like(conf)
+    for i, t in enumerate(conf):
+        sel = box_scores >= t
+        nd = sel.sum()
+        hits = (box_overlaps[sel] >= iou_thresh).sum()
+        precisions[i] = hits / nd if nd > 0 else 0.0
+        recalls[i] = hits / num_gt if num_gt > 0 else 0.0
+    ap = float(np.sum((recalls[:-1] - recalls[1:]) * precisions[:-1]))
+    return {"ap": ap, "precisions": precisions, "recalls": recalls,
+            "thresholds": iou_thresh, "score_thresh": conf}
+
+
+# ---------------------------------------------------------------------------
+# Stage-2 classification metrics (reference eval.py:165-225)
+# ---------------------------------------------------------------------------
+
+
+def evaluate_labels(proposals_list, gt_boxes_list, iou_thresholds=(0.25, 0.5)):
+    """Binary gt labels per proposal at each IoU threshold."""
+    out = []
+    for t in iou_thresholds:
+        per_t = []
+        for proposals, gt in zip(proposals_list, gt_boxes_list):
+            overlaps = _pairwise_iou_np(proposals, gt)
+            per_t.append((overlaps.max(1) >= t).astype(np.int32))
+        out.append(per_t)
+    return out
+
+
+def evaluate_classification(scores_list, gt_label_list, threshold):
+    """Precision / accuracy / precision@100 (reference ``eval.py:193-225``)."""
+    precisions, accuracy, precision_100 = [], [], []
+    for scores, labels in zip(scores_list, gt_label_list):
+        if scores.ndim > 1:
+            scores = scores[..., 1]
+        top = np.argsort(-scores)[:100]
+        precision_100.append(labels[top].sum() / max(len(top), 1))
+        pos = scores > threshold
+        if pos.sum() > 0:
+            precisions.append(labels[pos].sum() / pos.sum())
+        accuracy.append((labels == pos.astype(labels.dtype)).mean())
+    return {
+        "precision": float(np.mean(precisions)) if precisions else 0.0,
+        "accuracy": float(np.mean(accuracy)) if accuracy else 0.0,
+        "precision_100": float(np.mean(precision_100)) if precision_100 else 0.0,
+    }

@@ -106,7 +106,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     1/(0.8796 sqrt(fan_in)), flax's ``lecun_normal``), zero biases, unit
     LayerNorm scales, relative-position tables from
     ``truncated_normal(0.02)`` (cut at +-0.04, no rescale) and N(0, 0.01)
-    RPN-head and FCOS-head convs (flax ``normal(0.01)``, not truncated).
+    RPN-head, RCNN-head (``head.``) and FCOS-head kernels (flax
+    ``normal(0.01)``, not truncated).
     BatchNorms, found by module type, start at weight 1, bias 0, running
     mean 0 and running variance 1.  The FCOS head's GroupNorms start at
     weight 1 and bias 0, its scales at 1, and its class logits' bias at
@@ -134,7 +135,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             p.fill_(1.0 if leaf == "weight" else 0.0)
         elif leaf == "bias":
             p.zero_()
-        elif name.startswith("rpn_head."):
+        elif name.startswith(("rpn_head.", "head.")):
             p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
         else:
             std = 1.0 / math.sqrt(p[0].numel()) / TRUNCATED_STD

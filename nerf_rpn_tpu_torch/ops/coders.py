@@ -1,13 +1,14 @@
-"""RPN box coders (port of ``nerf_rpn_tpu/ops/coders.py:41-163``).
+"""Box coders (port of ``nerf_rpn_tpu/ops/coders.py``).
 
 - AABB: the Faster-RCNN 6-delta parameterisation (centre offsets over size,
   log size ratios) with the exp clamped at log(2000).
 - Midpoint offset: an OBB against an AABB anchor as 8 deltas -- the AABB
   deltas of the OBB's enclosing box, plus the offsets of the corners on its
   bottom and right edges from the centre, over the enclosing box's size.
-
-The rotated coder (OBB against OBB) belongs to the second stage and is not
-ported yet.
+- Rotated (the RCNN second stage): an OBB against an OBB RoI as 7 deltas
+  -- the centre offset turned into the RoI's frame over its size, log size
+  ratios and the angle difference over 2 pi; the decode wraps the angle to
+  (-pi/2, pi/2] with a floor-mod (``torch.remainder``, JAX's ``%``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-from nerf_rpn_tpu_torch.ops.obb import obb2hbb, obb2poly, rectpoly2obb
+from nerf_rpn_tpu_torch.ops.obb import PI, obb2hbb, obb2poly, rectpoly2obb
 
 BBOX_XFORM_CLIP = math.log(2000.0)
 
@@ -128,3 +129,39 @@ def decode_midpoint_offset(deltas: torch.Tensor, anchors: torch.Tensor,
     obb2d = rectpoly2obb(centered + ctr)  # (..., 5)
     return torch.cat([obb2d[..., 0:2], gz[..., None], obb2d[..., 2:4], gd[..., None],
                       obb2d[..., 4:5]], dim=-1)
+
+
+def encode_rotated(gt: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+    """gt OBB (..., 7) vs RoI OBB (..., 7) -> 7 deltas (..., 7)."""
+    cos = torch.cos(rois[..., 6])
+    sin = torch.sin(rois[..., 6])
+    off = gt[..., 0:3] - rois[..., 0:3]
+    dx = (cos * off[..., 0] + sin * off[..., 1]) / rois[..., 3]
+    dy = (-sin * off[..., 0] + cos * off[..., 1]) / rois[..., 4]
+    dz = off[..., 2] / rois[..., 5]
+    dsize = torch.log(gt[..., 3:6] / rois[..., 3:6])
+    dangle = (gt[..., 6] - rois[..., 6]) / (2 * PI)
+    return torch.cat([torch.stack([dx, dy, dz], dim=-1), dsize, dangle[..., None]], dim=-1)
+
+
+def decode_rotated(deltas: torch.Tensor, rois: torch.Tensor,
+                   xform_clip: float = BBOX_XFORM_CLIP) -> torch.Tensor:
+    """7 deltas (..., 7) + RoI OBB (..., 7) -> OBB (..., 7).
+
+    The deltas keep their dtype until they meet the (f32) RoIs, as in JAX:
+    the clamp and exp of the sizes run in it, and 2 pi is rounded to it
+    before the angle's product (JAX's weakly typed constant).
+    """
+    cos = torch.cos(rois[..., 6])
+    sin = torch.sin(rois[..., 6])
+    dx, dy, dz = deltas[..., 0], deltas[..., 1], deltas[..., 2]
+    dsize = deltas[..., 3:6].clamp(max=xform_clip)
+    dangle = deltas[..., 6]
+    x = dx * rois[..., 3] * cos - dy * rois[..., 4] * sin + rois[..., 0]
+    y = dx * rois[..., 3] * sin + dy * rois[..., 4] * cos + rois[..., 1]
+    z = dz * rois[..., 5] + rois[..., 2]
+    size = torch.exp(dsize) * rois[..., 3:6]
+    two_pi = torch.full((), 2 * PI, dtype=dangle.dtype, device=dangle.device)
+    angle = torch.remainder(two_pi * dangle + rois[..., 6], PI)
+    angle = torch.where(angle > PI / 2, angle - PI, angle)
+    return torch.cat([torch.stack([x, y, z], dim=-1), size, angle[..., None]], dim=-1)

@@ -8,7 +8,7 @@ model's head goes under ``fcos_state_dict`` with its keys prefixed
 ``optimizer_state_dict``, ``scheduler_state_dict`` and ``step``, with a
 ``<path>.args.json`` sidecar of the run's arguments.  The train loop writes
 ``epoch_N`` every evaluated epoch and ``model_best`` when the validation
-recall improves; ``delete_old_checkpoints`` keeps the newest
+recall (RCNN: classification accuracy) improves; ``delete_old_checkpoints`` keeps the newest
 ``--keep_checkpoints`` ``epoch_*`` files by mtime.  Orbax directories and
 ``.msgpack`` files of the JAX package are not read.
 """
@@ -32,7 +32,9 @@ def _head_entry(model: torch.nn.Module) -> tuple[str, str, str]:
     """(head module, checkpoint key, key prefix) of the model's head."""
     if hasattr(model, "fcos_head"):
         return "fcos_head", "fcos_state_dict", "head."
-    return "rpn_head", "rpn_head_state_dict", ""
+    if hasattr(model, "rpn_head"):
+        return "rpn_head", "rpn_head_state_dict", ""
+    return "head", "rcnn_state_dict", ""
 
 
 def save_checkpoint(state, path: str, train_args: dict | None = None,
@@ -60,11 +62,16 @@ def save_checkpoint(state, path: str, train_args: dict | None = None,
 
 def restore_checkpoint(model: torch.nn.Module, path: str, backbone_only: bool = False) -> dict:
     """Load the weights of ``path`` into ``model``; with ``backbone_only``
-    only the backbone (the reference's ``--load_backbone_only``).  The
-    optimizer state stays unread, as the JAX CLI restores with
-    ``load_opt_state=False``.  Returns the checkpoint dict."""
+    only the backbone (the reference's ``--load_backbone_only``, and the
+    RCNN driver's ``--pretrained`` from a stage-1 checkpoint).  Strict: a
+    missing or mismatched key raises.  The optimizer state stays unread, as
+    the JAX CLI restores with ``load_opt_state=False``.  Returns the
+    checkpoint dict."""
     ckpt = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
-    model.backbone.load_state_dict(ckpt["backbone_state_dict"], strict=True)
+    if model.backbone is not None:
+        model.backbone.load_state_dict(ckpt["backbone_state_dict"], strict=True)
+    elif backbone_only or ckpt["backbone_state_dict"]:
+        raise ValueError(f"{path} holds a backbone and the model has none")
     if not backbone_only:
         head, key, prefix = _head_entry(model)
         getattr(model, head).load_state_dict(

@@ -46,14 +46,15 @@ def onecycle_factor(step: int, total_steps: int, pct_start: float = 0.3,
 
 @torch.no_grad()
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, as an f32 0-dim
-    tensor on the tensors' device (per-tensor norms in one ``foreach``
-    launch, then their norm).  On the CPU the norm kernels accumulate a
+    """sqrt of the sum of squares over every element, as a 0-dim tensor of
+    f32 (f64 for f64 tensors) on the tensors' device (per-tensor norms in
+    one ``foreach`` launch, then their norm).  On the CPU the norm kernels accumulate a
     million-entry tensor to only ~1e-4 relative, so there each tensor's sum
     of squares is a (cascaded) ``sum`` instead."""
+    wide = [t.to(torch.promote_types(t.dtype, torch.float32)) for t in tensors]
     if tensors[0].device.type == "cpu":
-        return torch.sqrt(torch.stack([torch.sum(t.float() * t.float()) for t in tensors]).sum())
-    norms = torch._foreach_norm([t.float() for t in tensors])
+        return torch.sqrt(torch.stack([torch.sum(t * t) for t in wide]).sum())
+    norms = torch._foreach_norm(wide)
     return torch.linalg.vector_norm(torch.stack(norms))
 
 

@@ -31,6 +31,19 @@ target assignment is deterministic.  Its metrics add ``dropped_positives``,
 the positives beyond the loss's gather capacity (``models/fcos.py``).
 ``eval_step.forward`` gives the flattened (B, L, .) head outputs and the
 voxel scores, ``eval_step.propose`` the proposals.
+
+The RCNN steps (``make_rcnn_train_step``, ``make_rcnn_eval_step``,
+``make_rcnn_filter_step``) run the second stage on an ``RCNNDetector``:
+the FPN levels come from the batch (``features``) or, for
+``--fine_tune``, from the model's backbone applied to ``grids`` (train
+mode, stochastic depth from ``drop_generator`` and the BatchNorms' batch
+statistics, in the train step; the eval route in the eval step).  The
+train step samples ``rois_per_image`` RoIs a scene from ``generator``
+(``indices`` injects a sample), pools them (``ops/roi_align``), and takes
+the head's losses; the eval step scores every RoI; the filter step runs
+``filter_refined_proposals`` scene by scene.  The JAX package's
+``_rcnn_feature_barrier`` is one of its ``NERF_RPN_TPU_*`` experiment
+knobs and is not ported.
 """
 
 from __future__ import annotations
@@ -40,10 +53,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from nerf_rpn_tpu_torch.models import detector as det
 from nerf_rpn_tpu_torch.models import fcos as fcos_lib
 from nerf_rpn_tpu_torch.models import rpn as rpn_lib
 from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
+from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
 from nerf_rpn_tpu_torch.train.state import global_norm
 
 
@@ -254,3 +269,122 @@ def make_fcos_eval_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
     eval_step.forward = forward
     eval_step.propose = propose
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# RCNN second stage
+# ---------------------------------------------------------------------------
+
+
+def _rcnn_features(model, batch, drop_generator=None):
+    if model.backbone is not None:
+        return list(model.backbone(batch["grids"], drop_generator))
+    return list(batch["features"])
+
+
+def rcnn_pool(cfg: det.RCNNConfig, features, rois, levels, valid, spatial_scales):
+    """(B, R, ox, oy, oz, C) pooled features of the RoIs at their levels."""
+    return multilevel_roi_align_batched(
+        features, rois, levels, valid, spatial_scales, cfg.output_size, cfg.sampling_ratio,
+        cfg.pool_mode, rotated=cfg.rotated, enlarge_scale=cfg.enlarge_scale)
+
+
+def make_rcnn_train_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[float],
+                         rois_per_image: int, reg_loss_weight: float = 1.0,
+                         obj_only: bool = False):
+    """Returns ``train_step(state, batch, generator, drop_generator=None,
+    indices=None) -> metrics`` (the reference's ``Classification_Model.
+    forward`` + ``train_epoch``; the loss combination of
+    ``run_rpn_detect.py:358-362``: the box term times ``reg_loss_weight``,
+    left out of the total with ``obj_only``).
+
+    ``batch``: device tensors ``rois`` (B, R, D), ``roi_levels``,
+    ``roi_valid`` (B, R), ``gt_boxes`` (B, G, D), ``gt_mask`` (B, G) and
+    ``features`` (a list of (B, X_l, Y_l, Z_l, C)) or, with a backbone,
+    ``grids``.  ``indices`` (B, ``rois_per_image``) replaces the sampled
+    RoIs.  Metrics: ``loss``, ``loss_objectness``, ``loss_rpn_box_reg``,
+    ``grad_norm`` (pre-clip), ``param_norm`` (after the update) and the
+    sampled ``fg_rois`` / ``bg_rois``, device tensors all.
+    """
+    d = cfg.box_dim
+
+    def train_step(state, batch, generator, drop_generator=None, indices=None):
+        model.train()
+        features = _rcnn_features(model, batch, drop_generator)
+        s = det.sample_rois(cfg, generator, batch["rois"], batch["roi_levels"],
+                            batch["roi_valid"], batch["gt_boxes"], batch["gt_mask"],
+                            rois_per_image, indices=indices)
+        pooled = rcnn_pool(cfg, features, s["boxes"], s["levels"], s["valid"], spatial_scales)
+        deltas, scores = model.head(pooled.flatten(0, 1))
+        losses = det.rcnn_losses(cfg, deltas, scores, s["labels"].reshape(-1),
+                                 s["matched_gt"].reshape(-1, d), s["boxes"].reshape(-1, d),
+                                 s["valid"].reshape(-1))
+        losses["loss_rpn_box_reg"] = losses["loss_rpn_box_reg"] * reg_loss_weight
+        if obj_only:
+            total = losses["loss_objectness"]
+        else:
+            total = losses["loss_objectness"] + losses["loss_rpn_box_reg"]
+        total.backward()
+        if obj_only:  # the box layer's gradient is 0, as in JAX: AdamW still decays it
+            for p in state.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        grad_norm = state.apply_gradients()
+        fg = s["labels"] > 0
+        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
+                "grad_norm": grad_norm,
+                "param_norm": global_norm(list(model.parameters())),
+                "fg_rois": (fg & s["valid"]).sum(), "bg_rois": (~fg & s["valid"]).sum()}
+
+    return train_step
+
+
+def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[float]):
+    """Returns ``eval_step(batch) -> dict`` that scores every RoI (no
+    sampling; the reference's ``cls_batch_size`` chunks are not needed):
+    ``scores`` (B, R, 2) softmax probabilities, ``refined_boxes`` (B, R,
+    D) decoded from the RoIs, ``labels`` (B, R) and ``valid``.  The parts
+    are ``eval_step.features(batch)`` (the FPN levels) and
+    ``eval_step.score(features, batch)``."""
+
+    @torch.inference_mode()
+    def features(batch):
+        model.eval()
+        return _rcnn_features(model, batch)
+
+    @torch.inference_mode()
+    def score(feats, batch):
+        model.eval()
+        rois, valid = batch["rois"], batch["roi_valid"]
+        labels, _ = det.label_all_rois(cfg, rois, valid, batch["gt_boxes"], batch["gt_mask"])
+        pooled = rcnn_pool(cfg, feats, rois, batch["roi_levels"], valid, spatial_scales)
+        b, r = pooled.shape[:2]
+        deltas, scores = model.head(pooled.flatten(0, 1))
+        return {"scores": torch.softmax(scores, dim=-1).reshape(b, r, -1),
+                "refined_boxes": cfg.decode(deltas.reshape(b, r, -1), rois),
+                "labels": labels, "valid": valid}
+
+    def eval_step(batch):
+        return score(features(batch), batch)
+
+    eval_step.features = features
+    eval_step.score = score
+    return eval_step
+
+
+def make_rcnn_filter_step(cfg: det.RCNNConfig, score_threshold: float, nms_threshold: float,
+                          num_threshold: int, min_size: float = 1e-3):
+    """Returns ``filter_step(boxes (B, R, D), probs (B, R, 2), valid (B, R),
+    mesh_sizes (B, 3)) -> (boxes, keep, order)``, each (B, R, .):
+    ``filter_refined_proposals`` one scene at a time (reference
+    ``filter_proposals``, ``run_rpn_detect.py:403-439``)."""
+
+    @torch.inference_mode()
+    def filter_step(boxes, probs, valid, mesh_sizes):
+        out = [det.filter_refined_proposals(cfg, boxes[i], probs[i], valid[i], mesh_sizes[i],
+                                            score_threshold, nms_threshold, num_threshold,
+                                            min_size)
+               for i in range(boxes.shape[0])]
+        return tuple(torch.stack(t) for t in zip(*out))
+
+    return filter_step

@@ -1,4 +1,4 @@
-"""Flax variables <-> torch ``state_dict`` for the anchor RPN and FCOS.
+"""Flax variables <-> torch ``state_dict`` for the anchor RPN, FCOS and RCNN.
 
 The JAX package's params ``{"backbone": ..., "rpn_head": ...}`` map onto
 this package's ``NeRFRPN``, and ``{"backbone": ..., "fcos_head": ...}``
@@ -13,7 +13,15 @@ onto its ``FCOSOverNeRF``, one leaf at a time:
   which flax does not keep);
 - the FCOS head's ``{cls,bbox}_tower_{d}_conv`` / ``_gn`` ->
   ``{cls,bbox}_tower.{3d}`` / ``.{3d+1}`` and its per-level ``scale_{l}``
-  (a scalar) -> ``scales.{l}.scale`` (shape (1,)), the reference keys.
+  (a scalar) -> ``scales.{l}.scale`` (shape (1,)), the reference keys;
+- the RCNN stage (``models/detector.RCNNDetector``): ``head/{conv_0,
+  conv_1, bbox_pred, cls_score}`` -> ``head.{conv_0, conv_1, bbox_pred,
+  cls_score}`` (the head takes its features channels last, so the
+  flattened Dense kernel needs no row permutation) and, with
+  ``--fine_tune``, ``backbone/...`` as above; the JAX RCNN state keeps a
+  CNN backbone's ``batch_stats`` as the backbone's own tree and the
+  features mode's params as the bare head tree
+  (:func:`rcnn_from_jax_params`, :func:`rcnn_to_jax_variables`).
 
 Module names follow the reference torch keys, so
 ``nerf_rpn_tpu.tools.convert_weights.convert_backbone`` applied to the
@@ -36,6 +44,9 @@ import re
 
 import numpy as np
 import torch
+
+# the RCNN head's modules: the same names in flax and in torch
+RCNN_HEAD_MODULES = ("conv_0", "conv_1", "bbox_pred", "cls_score")
 
 
 def _flax_module_to_torch(path: list[str]) -> list[str]:
@@ -68,6 +79,8 @@ def _flax_module_to_torch(path: list[str]) -> list[str]:
             return ["fcos_head", "scales", m[1]]
         if head in ("cls_logits", "bbox_pred", "centerness"):
             return ["fcos_head", head]
+    elif top == "head" and head in RCNN_HEAD_MODULES:
+        return ["head", head]
     raise KeyError(f"no torch counterpart for flax module {'/'.join(path)}")
 
 
@@ -98,6 +111,8 @@ def _torch_module_to_flax(parts: list[str]) -> list[str]:
         if head == "scales":
             return ["fcos_head", f"scale_{tail[0]}"]
         return ["fcos_head", head]
+    elif top == "head" and head in RCNN_HEAD_MODULES:
+        return ["head", head]
     raise KeyError(f"no flax counterpart for torch module {'.'.join(parts)}")
 
 
@@ -131,10 +146,11 @@ def _backbone_table(backbone) -> dict[str, tuple[str, ...]] | None:
 
 
 def from_jax_params(params: dict, batch_stats: dict | None = None,
-                    backbone=None) -> dict[str, torch.Tensor]:
+                    backbone=None, dtype=np.float32) -> dict[str, torch.Tensor]:
     """Flax params tree (numpy leaves), and its ``batch_stats`` tree where
-    the model has BatchNorms, -> torch ``state_dict``.  ``backbone``: the
-    port's backbone module, for the names of a CNN backbone."""
+    the model has BatchNorms, -> torch ``state_dict`` of ``dtype``.
+    ``backbone``: the port's backbone module, for the names of a CNN
+    backbone."""
     table = _backbone_table(backbone)
     to_torch = {v: k for k, v in table.items()} if table else {}
 
@@ -147,7 +163,7 @@ def from_jax_params(params: dict, batch_stats: dict | None = None,
     for path, v in flatten_tree(params).items():
         *mod, leaf = path
         key = module_key(mod)
-        v = np.array(v, np.float32)
+        v = np.array(v, dtype)
         if leaf == "kernel":
             v = v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v.T
             name = "weight"
@@ -161,7 +177,7 @@ def from_jax_params(params: dict, batch_stats: dict | None = None,
     for path, v in flatten_tree(batch_stats or {}).items():
         *mod, leaf = path
         key = module_key(mod)
-        sd[f"{key}.running_{leaf}"] = torch.from_numpy(np.array(v, np.float32))
+        sd[f"{key}.running_{leaf}"] = torch.from_numpy(np.array(v, dtype))
         sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
@@ -190,6 +206,27 @@ def to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict
                 leaf = "kernel"
         params[(*fmod, leaf)] = np.ascontiguousarray(v)
     return {"params": unflatten_tree(params), "batch_stats": unflatten_tree(stats)}
+
+
+def rcnn_from_jax_params(params: dict, batch_stats: dict | None = None,
+                         backbone=None, dtype=np.float32) -> dict[str, torch.Tensor]:
+    """The RCNN stage's flax trees -> an ``RCNNDetector`` ``state_dict``:
+    ``{"backbone": ..., "head": ...}`` and the backbone's own
+    ``batch_stats`` (a CNN backbone) for ``--fine_tune``, the bare head tree
+    for the features mode."""
+    tree = params if "head" in params else {"head": params}
+    return from_jax_params(tree, {"backbone": batch_stats} if batch_stats else None, backbone,
+                           dtype)
+
+
+def rcnn_to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict:
+    """Inverse of :func:`rcnn_from_jax_params`: ``{"params": ...,
+    "batch_stats": ...}`` in the JAX RCNN state's layout (the bare head
+    tree without a backbone)."""
+    v = to_jax_variables(state_dict, backbone)
+    has_backbone = any(k.startswith("backbone.") for k in state_dict)
+    return {"params": v["params"] if has_backbone else v["params"]["head"],
+            "batch_stats": v["batch_stats"].get("backbone", {})}
 
 
 def to_jax_params(state_dict: dict[str, torch.Tensor], backbone=None) -> dict:

@@ -11,7 +11,9 @@ train`` and ``--mode eval --checkpoint model_best`` on the OBB scenes
 --check_arch``, ``--mode train`` and ``--mode eval --save_results
 --output_all`` (the RCNN stage's files checked against the JAX driver's
 layout), ``run_fcos --load_backbone_only --output_all --conv_at_start``
-from that checkpoint, and one epoch of the quality gate -- and checks that
+from that checkpoint, ``run_rpn_detect --fine_tune`` for one epoch from
+it (``--pretrained``) and its eval, and one epoch of the quality gate --
+and checks that
 none of them reached ``sys.modules``.  An AST scan shows that no file of the port,
 and not ``chip_smoke.py``, names them in an import statement.
 """
@@ -119,6 +121,22 @@ fc = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--num_convs", "1"
 run_fcos.main(["--mode", "eval", "--checkpoint", data + "/cnn/model_best", "--load_backbone_only",
                "--output_all", "--output_proposals", "--save_path", data + "/cnn_fcos", *fc])
 assert sorted(os.listdir(data + "/cnn_fcos/proposals")) == [s + ".npz" for s in scenes]
+# the RCNN stage: fine-tuned from the stage-1 checkpoint, then its eval
+from nerf_rpn_tpu_torch.cli import run_rpn_detect
+from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_rois
+write_synthetic_rois(data, data + "/rois")
+det = ["--features_path", data, "--boxes_path", data, "--rois_path", data + "/rois",
+       "--dataset_split", data + "/split.npz", "--save_path", data + "/rcnn", "--device", "cpu",
+       "--num_workers", "0", "--fine_tune", "--backbone_type", "resnet_tiny", "--resolution",
+       "32", "--feature_input_dim", "32", "--output_size", "2", "2", "2", "--is_flatten",
+       "--max_rois", "24", "--cls_batch_size", "16", "--batch_size", "2"]
+logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1", "--pretrained",
+                              data + "/cnn/model_best", *det])
+assert len(logged) == 1 and logged[0]["loss"] > 0, logged
+res = run_rpn_detect.main(["--mode", "eval", "--checkpoint", data + "/rcnn/model_best",
+                           "--output_proposals", *det])
+assert set(res) == {"ap_25", "ap_50", "classification"}, res
+assert os.path.exists(data + "/rcnn/proposals/synth003.npz")
 from nerf_rpn_tpu_torch.cli import quality_gate
 assert quality_gate.main(["--device", "cpu", "--combos", "rpn_aabb", "--num_epochs", "1",
                           "--work_dir", data + "/gate"]) in (0, 1)
@@ -156,7 +174,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("ops/rotated_iou.py", "ops/fcos_box.py", "models/fcos.py",
                 "cli/run_fcos.py", "ops/pooling.py", "models/resnet.py", "models/vgg.py",
-                "cli/quality_gate.py"):
+                "cli/quality_gate.py", "ops/roi_align.py", "models/detector.py",
+                "cli/run_rpn_detect.py"):
         assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]
