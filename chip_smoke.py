@@ -184,12 +184,28 @@ import time
 # one H100 SXM (NVIDIA data sheet): HBM rate and dense peaks by operand type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-# Swin-S eval bench shape 208x208x144: (stage, token grid, heads, C)
-EVAL_STAGES = [("stage0", (52, 52, 36), 3, 96), ("stage1", (26, 26, 18), 6, 192),
-               ("stage2", (13, 13, 9), 12, 384), ("stage3", (7, 7, 5), 24, 768)]
+# Swin-S eval bench shape 208x208x144: (stage, token grid, heads, C, batch)
+EVAL_STAGES = [("stage0", (52, 52, 36), 3, 96, 1), ("stage1", (26, 26, 18), 6, 192, 1),
+               ("stage2", (13, 13, 9), 12, 384, 1), ("stage3", (7, 7, 5), 24, 768, 1)]
 # Swin-S FCOS eval at 160^3 (run_fcos --mode benchmark): the same, batch 1
-FCOS_EVAL_STAGES = [("fcos stage0", (40, 40, 40), 3, 96), ("fcos stage1", (20, 20, 20), 6, 192),
-                    ("fcos stage2", (10, 10, 10), 12, 384), ("fcos stage3", (5, 5, 5), 24, 768)]
+FCOS_EVAL_STAGES = [("fcos stage0", (40, 40, 40), 3, 96, 1),
+                    ("fcos stage1", (20, 20, 20), 6, 192, 1),
+                    ("fcos stage2", (10, 10, 10), 12, 384, 1),
+                    ("fcos stage3", (5, 5, 5), 24, 768, 1)]
+# train_rcnn.sh's fine-tune eval at 200x200x136 (the collate's padding of
+# 200x200x130): run_rpn_detect's batches of 2 scenes
+RCNN_EVAL_STAGES = [("rcnn stage0", (50, 50, 34), 3, 96, 2),
+                    ("rcnn stage1", (25, 25, 17), 6, 192, 2),
+                    ("rcnn stage2", (13, 13, 9), 12, 384, 2),
+                    ("rcnn stage3", (7, 7, 5), 24, 768, 2)]
+# and one scene, as phase 23 times the eval by part; K5 and K6 only: K1's
+# and K4's windows at batch 1 are EVAL_STAGES' (the same padded grids)
+RCNN_SCENE_STAGES = [(f"rcnn scene {name[5:]}", s, h, c, 1)
+                     for name, s, h, c, _ in RCNN_EVAL_STAGES]
+# the fine-tune train step's padded token grids (batch 2), K2's stages
+# 0-2; its stage 3 is the RPN train step's (8, 8, 8)
+RCNN_TRAIN_PADS = [("rcnn stage0", (52, 52, 36), 3, 96), ("rcnn stage1", (28, 28, 20), 6, 192),
+                   ("rcnn stage2", (16, 16, 12), 12, 384)]
 
 
 def fail(msg: str) -> None:
@@ -350,9 +366,11 @@ def print_ptxas_report(proc, lib):
 
 def check_window_attention(torch, dev):
     """K1 against its twin at the shapes the main path runs it: the four
-    eval stages of the RPN and of the FCOS bench without a mask (the
-    unshifted eval blocks) and the train stage 0 with the real shift mask
-    (160^3, batch 2: 2000 windows over a (1000, 64, 64) mask)."""
+    eval stages of the RPN and of the FCOS bench and the RCNN fine-tune
+    eval's (batch 2) without a mask (the unshifted eval blocks); the train
+    stage 0 with the real shift mask (160^3, batch 2: 2000 windows over a
+    (1000, 64, 64) mask); the RCNN fine-tune train stage 0 (200x200x136,
+    batch 2: 3042 windows) without and with its (1521, 64, 64) mask."""
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
@@ -364,10 +382,12 @@ def check_window_attention(torch, dev):
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(name, -(-s[0] // 4) * -(-s[1] // 4) * -(-s[2] // 4), heads, c, None)
-             for name, s, heads, c in EVAL_STAGES + FCOS_EVAL_STAGES]
+    cases = [(name, b * -(-s[0] // 4) * -(-s[1] // 4) * -(-s[2] // 4), heads, c, None)
+             for name, s, heads, c, b in EVAL_STAGES + FCOS_EVAL_STAGES + RCNN_EVAL_STAGES]
     cases.append(("train stage0", 2000, 3, 96,
                   shift_attn_mask((40, 40, 40), (4, 4, 4), (2, 2, 2))))
+    rcnn_mask = shift_attn_mask((52, 52, 36), (4, 4, 4), (2, 2, 2))
+    cases += [("rcnn train stage0", 3042, 3, 96, m) for m in (None, rcnn_mask)]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, main = [], None
     for name, w, heads, c, mask_np in cases:
@@ -406,9 +426,10 @@ def check_window_attention(torch, dev):
 
 
 def check_window_attention_backward(torch, dev):
-    """K2 against its twin at the Swin-S train shapes (160^3, batch 2),
-    with the real shift masks; dbias bit-equal over two runs; the autograd
-    function (K1 + K2) against autograd through K1's twin."""
+    """K2 against its twin at the Swin-S train shapes (160^3, batch 2) and
+    the RCNN fine-tune's (200x200x136, batch 2), with the real shift
+    masks; dbias bit-equal over two runs; the autograd function (K1 + K2)
+    against autograd through K1's twin."""
     import torch.nn.functional as F
 
     from nerf_rpn_tpu_torch.models.swin import shift_attn_mask
@@ -424,7 +445,8 @@ def check_window_attention_backward(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     # token grids 40^3, 20^3, 10^3 (padded to 12^3), 5^3 (padded to 8^3)
     stages = [("stage0", (40, 40, 40), 3, 96), ("stage1", (20, 20, 20), 6, 192),
-              ("stage2", (12, 12, 12), 12, 384), ("stage3", (8, 8, 8), 24, 768)]
+              ("stage2", (12, 12, 12), 12, 384), ("stage3", (8, 8, 8), 24, 768),
+              *RCNN_TRAIN_PADS]
     gen = torch.Generator(device=dev).manual_seed(3)
     rows, main = [], None
     for name, pad, heads, c in stages:
@@ -890,7 +912,8 @@ def check_fcos_nms(torch):
 
 def check_fused_window_attention(torch, dev):
     """K4 against its twin at the four eval stages of the RPN and of the
-    FCOS bench, the mask table and ids from the real shift mask, q/k/v as
+    FCOS bench and the RCNN fine-tune eval's (batch 2: the ids tiled over
+    the scenes), the mask table and ids from the real shift mask, q/k/v as
     strided views of a packed qkv (as the eval route passes them)."""
     import torch.nn.functional as F
 
@@ -905,12 +928,12 @@ def check_fused_window_attention(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(11)
     rows, main = [], None
-    for name, size, heads, c in EVAL_STAGES + FCOS_EVAL_STAGES:
+    for name, size, heads, c, b in EVAL_STAGES + FCOS_EVAL_STAGES + RCNN_EVAL_STAGES:
         pad = tuple(-(-s // 4) * 4 for s in size)
         table_np, ids_np = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
         table = torch.from_numpy(table_np).to(dev)
-        ids = torch.from_numpy(ids_np).to(dev)
-        w, d = len(ids_np), c // heads
+        ids = torch.from_numpy(ids_np).to(dev).repeat(b)
+        w, d = len(ids), c // heads
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn((w, 64, 3 * c), generator=gen, device=dev).to(dtype)
             bias = 0.5 * torch.randn((heads, 64, 64), generator=gen, device=dev)
@@ -927,7 +950,8 @@ def check_fused_window_attention(torch, dev):
             library_ms = time_one(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
             group = head_group(w, heads, d, dtype)
-            row = dict(stage=name, W=w, H=heads, C=c, P=len(table_np), dtype=dtype_name(dtype),
+            row = dict(stage=name, B=b, W=w, H=heads, C=c, P=len(table_np),
+                       dtype=dtype_name(dtype),
                        G=group, smem_bytes=group * tile_bytes(d, dtype),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        **bound(nbytes(q, k, v, bias, table, ids, out),
@@ -941,8 +965,9 @@ def check_fused_window_attention(torch, dev):
 
 def check_ln_partition_qkv(torch, dev):
     """K5 against its twin at the four eval stages of the RPN and of the
-    FCOS bench (the pad inside, shift 2 as on every odd block), the qkv
-    weight as ``Linear.weight.t()``."""
+    FCOS bench and the RCNN fine-tune eval's (batch 2 and 1) (the pad
+    inside, shift 2 as on every odd block), the qkv weight as
+    ``Linear.weight.t()``."""
     from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
         ln_partition_qkv,
         ln_partition_qkv_reference,
@@ -953,10 +978,11 @@ def check_ln_partition_qkv(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(12)
     rows, main = [], None
-    for name, size, _, c in EVAL_STAGES + FCOS_EVAL_STAGES:
+    for name, size, _, c, batch in (EVAL_STAGES + FCOS_EVAL_STAGES + RCNN_EVAL_STAGES
+                                    + RCNN_SCENE_STAGES):
         pad = tuple(-(-s // 4) * 4 for s in size)
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((1, *size, c), generator=gen, device=dev).to(dtype)
+            x = torch.randn((batch, *size, c), generator=gen, device=dev).to(dtype)
             s = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
             t = 0.2 * torch.randn(c, generator=gen, device=dev)
             wq = (torch.randn((3 * c, c), generator=gen, device=dev) * c ** -0.5).to(dtype).t()
@@ -969,9 +995,10 @@ def check_ln_partition_qkv(torch, dev):
                 fail(f"K5 {name} {dtype}: max|err| {err} outside the tolerance")
             ms, plain_ms = time_pair(torch, lambda: ln_partition_qkv_reference(*args),
                                      lambda: ln_partition_qkv(*args))
-            tokens = math.prod(size)
+            tokens = batch * math.prod(size)
             plan = ln_qkv_plan(out.shape[0], c, dtype)
-            row = dict(stage=name, grid=list(size), pad=list(pad), C=c, dtype=dtype_name(dtype),
+            row = dict(stage=name, B=batch, grid=list(size), pad=list(pad), C=c,
+                       dtype=dtype_name(dtype),
                        plan=dict(zip(("R", "BN", "BK", "G"), plan)),
                        blocks=plan_blocks(out.shape[0], 64, c, plan),
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -986,8 +1013,8 @@ def check_ln_partition_qkv(torch, dev):
 
 def check_fused_mlp(torch, dev):
     """K6 against its twin on the tokens of the four eval stages of the RPN
-    and of the FCOS bench, the weights as the model passes them
-    (``Linear.weight.t()``)."""
+    and of the FCOS bench and the RCNN fine-tune eval's (batch 2 and 1),
+    the weights as the model passes them (``Linear.weight.t()``)."""
     from nerf_rpn_tpu_torch.ops.fused_mlp import (
         fused_mlp_block,
         fused_mlp_block_reference,
@@ -998,8 +1025,9 @@ def check_fused_mlp(torch, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(13)
     rows, main = [], None
-    for name, size, _, c in EVAL_STAGES + FCOS_EVAL_STAGES:
-        tokens, hd = math.prod(size), 4 * c
+    for name, size, _, c, batch in (EVAL_STAGES + FCOS_EVAL_STAGES + RCNN_EVAL_STAGES
+                                    + RCNN_SCENE_STAGES):
+        tokens, hd = batch * math.prod(size), 4 * c
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((tokens, c), generator=gen, device=dev).to(dtype)
             args = (x, 1 + 0.2 * torch.randn(c, generator=gen, device=dev),
@@ -2191,17 +2219,19 @@ def run_rcnn_path(torch, workdir, rpn_ckpt):
 def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
     """The fine-tune RCNN train step at ``train_rcnn.sh``'s shape: device
     ms a step (CUDA events), peak GiB, launches a step (K1 24, K2 24) and
-    one profiled step's device-busy ms; then the eval a scene (batch 1):
-    ms of the backbone, RoI align, head (+ softmax and decode) and filter
-    by CUDA events, the device-busy ms of one whole scene, and its launches
-    (K5 24, K6 24, K4 12, K1 12, resolve 1, K3 0)."""
+    one profiled step's device-busy ms; then the eval a scene (batch 1)
+    through the driver's eval and filter steps: ms of their parts, the
+    backbone (``features``), RoI align (``pool``), head (``head``: labels,
+    head, softmax, decode) and filter, by CUDA events, the device-busy ms
+    of one whole scene, and its launches (K5 24, K6 24, K4 12, K1 12,
+    resolve 1, K3 0)."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_rpn_detect
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import (make_rcnn_eval_step, make_rcnn_filter_step,
-                                                   make_rcnn_train_step, rcnn_pool)
+                                                   make_rcnn_train_step)
 
     args = run_rpn_detect.parse_args(["--mode", "train", *common, "--num_workers", "0"])
     trainer = run_rpn_detect.Trainer(args)
@@ -2251,26 +2281,21 @@ def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
     eval_step = make_rcnn_eval_step(trainer.model, trainer.cfg, trainer.spatial_scales)
     filt = make_rcnn_filter_step(trainer.cfg, args.filter_score_threhold, args.nms_thresh,
                                  int(args.filter_num_threhold))
-    cfg, model = trainer.cfg, trainer.model
     test_set = trainer.dataset(test_scenes)
     hosts = [h for h, _ in trainer.batches(test_set)]
     scene = [trainer.device_batch(h) for h in hosts]
     mesh = [torch.tensor(h["feat_shapes"] * trainer.spatial_scales[0], dtype=torch.float32,
                          device=trainer.device) for h in hosts]
 
-    @torch.inference_mode()
     def parts(i):
         b = scene[i % len(scene)]
         feats = eval_step.features(b)
         yield "backbone"
-        pooled = rcnn_pool(cfg, feats, b["rois"], b["roi_levels"], b["roi_valid"],
-                            trainer.spatial_scales)
+        pooled = eval_step.pool(feats, b)
         yield "roi_align"
-        deltas, scores = model.head(pooled.flatten(0, 1))
-        probs = torch.softmax(scores, -1)[None]
-        boxes = cfg.decode(deltas[None], b["rois"])
+        out = eval_step.head(pooled, b)
         yield "head"
-        filt(boxes, probs, b["roi_valid"], mesh[i % len(scene)])
+        filt(out["refined_boxes"], out["scores"], out["valid"], mesh[i % len(scene)])
         yield "filter"
 
     def whole(i):

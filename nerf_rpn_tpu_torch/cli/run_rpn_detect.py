@@ -53,13 +53,12 @@ import argparse
 import json
 import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from nerf_rpn_tpu_torch.cli import common
-from nerf_rpn_tpu_torch.data.datasets import (RPNClassificationDataset,
+from nerf_rpn_tpu_torch.data.datasets import (RPNClassificationDataset, batch_iterator,
                                                collate_classification_batch, load_split)
 from nerf_rpn_tpu_torch.data.loader import prefetch_iterator
 from nerf_rpn_tpu_torch.device import resolve_device
@@ -242,31 +241,12 @@ class Trainer:
         ``default_rng(seed)`` shuffles; train (shuffle) drops the ragged
         last batch, eval pads it with the last scene.  Loading runs in
         ``--num_workers`` threads, ``--prefetch_batches`` batches ahead."""
-        order = np.arange(len(dataset))
-        if shuffle:
-            np.random.default_rng(seed).shuffle(order)
-        bs, nw = self.args.batch_size, self.args.num_workers
-
-        def gen():
-            pool = ThreadPoolExecutor(nw) if nw > 0 else None
-            try:
-                for start in range(0, len(order), bs):
-                    idx = order[start:start + bs]
-                    n_real = len(idx)
-                    if n_real < bs:
-                        if shuffle:
-                            break
-                        idx = np.concatenate([idx, np.repeat(idx[-1:], bs - n_real)])
-                    if pool is not None:
-                        samples = list(pool.map(dataset.__getitem__, map(int, idx)))
-                    else:
-                        samples = [dataset[int(i)] for i in idx]
-                    yield self._collate(samples), n_real
-            finally:
-                if pool is not None:
-                    pool.shutdown(wait=False, cancel_futures=True)
-
-        return prefetch_iterator(gen(), depth=self.args.prefetch_batches)
+        bs, n = self.args.batch_size, len(dataset)
+        it = batch_iterator(dataset, bs, shuffle=shuffle, seed=seed, drop_last=shuffle,
+                            pad_last=not shuffle, num_workers=self.args.num_workers,
+                            collate=self._collate)
+        n_real = (min(bs, n - start) for start in range(0, n, bs))
+        return prefetch_iterator(zip(it, n_real), depth=self.args.prefetch_batches)
 
     # -- train --------------------------------------------------------------
 

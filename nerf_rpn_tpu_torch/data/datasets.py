@@ -465,10 +465,16 @@ def batch_iterator(
     process_index: int = 0,
     process_count: int = 1,
     num_workers: int = 0,
+    pad_last: bool = False,
+    collate=None,
     **collate_kw,
 ):
     """Host-side batch loader with per-process sharding (the reference's
     ``DistributedSampler`` equivalent, keyed on process index).
+
+    ``pad_last`` fills a ragged last batch up to ``batch_size`` with its
+    last sample (an eval batch of a fixed size); ``collate(samples)``
+    replaces ``collate_batch(samples, **collate_kw)``.
 
     ``num_workers > 0`` loads the samples of each batch over a thread pool
     (the reference's ``DataLoader(num_workers=4)`` analogue — npz
@@ -497,11 +503,14 @@ def batch_iterator(
             idx = order[start : start + batch_size]
             if drop_last and len(idx) < batch_size:
                 return
+            if pad_last and len(idx) < batch_size:
+                idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - len(idx))])
             if pool is not None:
                 samples = list(pool.map(dataset.__getitem__, map(int, idx)))
             else:
                 samples = [dataset[int(i)] for i in idx]
-            yield collate_batch(samples, **collate_kw)
+            yield (collate_batch(samples, **collate_kw) if collate is None
+                   else collate(samples))
     finally:
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)

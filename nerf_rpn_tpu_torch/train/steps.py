@@ -344,8 +344,10 @@ def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[flo
     sampling; the reference's ``cls_batch_size`` chunks are not needed):
     ``scores`` (B, R, 2) softmax probabilities, ``refined_boxes`` (B, R,
     D) decoded from the RoIs, ``labels`` (B, R) and ``valid``.  The parts
-    are ``eval_step.features(batch)`` (the FPN levels) and
-    ``eval_step.score(features, batch)``."""
+    are ``eval_step.features(batch)`` (the FPN levels),
+    ``eval_step.pool(features, batch)`` (RoI align) and
+    ``eval_step.head(pooled, batch)`` (the labels, the head, softmax and
+    decode)."""
 
     @torch.inference_mode()
     def features(batch):
@@ -353,11 +355,15 @@ def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[flo
         return _rcnn_features(model, batch)
 
     @torch.inference_mode()
-    def score(feats, batch):
+    def pool(feats, batch):
+        return rcnn_pool(cfg, feats, batch["rois"], batch["roi_levels"], batch["roi_valid"],
+                         spatial_scales)
+
+    @torch.inference_mode()
+    def head(pooled, batch):
         model.eval()
         rois, valid = batch["rois"], batch["roi_valid"]
         labels, _ = det.label_all_rois(cfg, rois, valid, batch["gt_boxes"], batch["gt_mask"])
-        pooled = rcnn_pool(cfg, feats, rois, batch["roi_levels"], valid, spatial_scales)
         b, r = pooled.shape[:2]
         deltas, scores = model.head(pooled.flatten(0, 1))
         return {"scores": torch.softmax(scores, dim=-1).reshape(b, r, -1),
@@ -365,10 +371,11 @@ def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[flo
                 "labels": labels, "valid": valid}
 
     def eval_step(batch):
-        return score(features(batch), batch)
+        return head(pool(features(batch), batch), batch)
 
     eval_step.features = features
-    eval_step.score = score
+    eval_step.pool = pool
+    eval_step.head = head
     return eval_step
 
 

@@ -146,11 +146,10 @@ def _backbone_table(backbone) -> dict[str, tuple[str, ...]] | None:
 
 
 def from_jax_params(params: dict, batch_stats: dict | None = None,
-                    backbone=None, dtype=np.float32) -> dict[str, torch.Tensor]:
+                    backbone=None) -> dict[str, torch.Tensor]:
     """Flax params tree (numpy leaves), and its ``batch_stats`` tree where
-    the model has BatchNorms, -> torch ``state_dict`` of ``dtype``.
-    ``backbone``: the port's backbone module, for the names of a CNN
-    backbone."""
+    the model has BatchNorms, -> torch ``state_dict``.  ``backbone``: the
+    port's backbone module, for the names of a CNN backbone."""
     table = _backbone_table(backbone)
     to_torch = {v: k for k, v in table.items()} if table else {}
 
@@ -163,7 +162,7 @@ def from_jax_params(params: dict, batch_stats: dict | None = None,
     for path, v in flatten_tree(params).items():
         *mod, leaf = path
         key = module_key(mod)
-        v = np.array(v, dtype)
+        v = np.array(v, np.float32)
         if leaf == "kernel":
             v = v.transpose(4, 3, 0, 1, 2) if v.ndim == 5 else v.T
             name = "weight"
@@ -177,7 +176,7 @@ def from_jax_params(params: dict, batch_stats: dict | None = None,
     for path, v in flatten_tree(batch_stats or {}).items():
         *mod, leaf = path
         key = module_key(mod)
-        sd[f"{key}.running_{leaf}"] = torch.from_numpy(np.array(v, dtype))
+        sd[f"{key}.running_{leaf}"] = torch.from_numpy(np.array(v, np.float32))
         sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
@@ -209,14 +208,13 @@ def to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict
 
 
 def rcnn_from_jax_params(params: dict, batch_stats: dict | None = None,
-                         backbone=None, dtype=np.float32) -> dict[str, torch.Tensor]:
+                         backbone=None) -> dict[str, torch.Tensor]:
     """The RCNN stage's flax trees -> an ``RCNNDetector`` ``state_dict``:
     ``{"backbone": ..., "head": ...}`` and the backbone's own
     ``batch_stats`` (a CNN backbone) for ``--fine_tune``, the bare head tree
     for the features mode."""
     tree = params if "head" in params else {"head": params}
-    return from_jax_params(tree, {"backbone": batch_stats} if batch_stats else None, backbone,
-                           dtype)
+    return from_jax_params(tree, {"backbone": batch_stats} if batch_stats else None, backbone)
 
 
 def rcnn_to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict:

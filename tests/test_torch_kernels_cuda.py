@@ -93,6 +93,13 @@ def check_k1(out, ref, dtype):
     (1000, 3, 96, 0),   # FCOS eval at 160^3, stages 0-2 (stage 3 is W = 8 above)
     (125, 6, 192, 0),
     (27, 12, 384, 0),
+    # the RCNN fine-tune at 200x200x136, batch 2: stage 0 of the train step
+    # (unshifted and with a mask) and the eval's stages 1-3
+    (3042, 3, 96, 0),
+    (3042, 3, 96, 1521),
+    (490, 6, 192, 0),
+    (96, 12, 384, 0),
+    (16, 24, 768, 0),
 ])
 def test_window_attention_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
@@ -142,6 +149,11 @@ def test_window_attention_kernel_rejects_bad_shapes(cuda):
     (300, 4, 64, 50),   # D = 16
     (300, 2, 128, 0),   # D = 64
     (54, 12, 384, 27),  # stage 2 at 160^3, batch 2, with a 27-window mask
+    # the RCNN fine-tune train step at 200x200x136, batch 2, stages 0-2
+    (3042, 3, 96, 0),
+    (3042, 3, 96, 1521),
+    (490, 6, 192, 245),
+    (96, 12, 384, 48),
 ])
 def test_window_attention_backward_kernel_matches_twin(cuda, w, h, c, n_w, dtype):
     qkv, bias, mask = _attn_inputs(w, h, c, dtype, n_w, cuda)
@@ -433,7 +445,12 @@ def check_close(got, want, dtype):
                                        # FCOS eval at 160^3, stages 0-2
                                        ((40, 40, 40), 1, 3, 32),
                                        ((20, 20, 20), 1, 6, 32),
-                                       ((12, 12, 12), 1, 12, 32)])
+                                       ((12, 12, 12), 1, 12, 32),
+                                       # RCNN fine-tune eval, batch 2
+                                       ((52, 52, 36), 2, 3, 32),
+                                       ((28, 28, 20), 2, 6, 32),
+                                       ((16, 16, 12), 2, 12, 32),
+                                       ((8, 8, 8), 2, 24, 32)])
 def test_fused_window_attention_kernel_matches_twin(cuda, pad, b, h, d, dtype):
     table, ids = shift_mask_patterns(pad, (4, 4, 4), (2, 2, 2))
     table = torch.from_numpy(table).to(cuda)
@@ -513,6 +530,10 @@ def _linear_weight_view(c, dtype, device, seed=9):
     (1, (20, 20, 20), 192, (2, 2, 2)),
     (1, (10, 10, 10), 384, (2, 2, 2)),
     (1, (5, 5, 5), 768, (2, 2, 2)),
+    # the RCNN fine-tune eval at 200x200x136: batches of 2 and one scene
+    *[(b, size, c, (2, 2, 2)) for b in (2, 1)
+      for size, c in (((50, 50, 34), 96), ((25, 25, 17), 192), ((13, 13, 9), 384),
+                      ((7, 7, 5), 768))],
 ])
 def test_ln_partition_qkv_kernel_at_the_planner_edges(cuda, b, size, c, shift, dtype):
     x = torch.randn((b, *size, c), generator=torch.Generator(cuda).manual_seed(10),
@@ -589,7 +610,10 @@ def _mlp_inputs(t, c, dtype, device, seed=8, hd=None):
 @pytest.mark.parametrize("t,c", [(20000, 96), (1000, 96), (301, 384), (245, 768),
                                  (40, 1536),
                                  # FCOS eval at 160^3, stages 0-3
-                                 (64000, 96), (8000, 192), (1000, 384), (125, 768)])
+                                 (64000, 96), (8000, 192), (1000, 384), (125, 768),
+                                 # RCNN fine-tune eval at 200x200x136, batch 2 and 1
+                                 (170000, 96), (21250, 192), (3042, 384), (490, 768),
+                                 (85000, 96), (10625, 192), (1521, 384)])
 def test_fused_mlp_kernel_matches_twin(cuda, t, c, dtype):
     args = _mlp_inputs(t, c, dtype, cuda)
     before = kernels.counts()["fused_mlp_block"]

@@ -13,6 +13,7 @@
   model_best --output_proposals``, writes ``eval.json`` with the JAX
   driver's keys and the proposals npz; the features mode trains and
   evaluates on ``run_rpn --save_results`` files;
+- the batches keep the JAX driver's order, drop and padding;
 - ``--pretrained`` loads the backbone of a stage-1 checkpoint exactly and
   raises on a file that does not load (the JAX driver warns and goes on),
   and is refused without ``--fine_tune``; ``--gpus`` / ``--wandb`` are
@@ -206,3 +207,25 @@ def test_default_device_raises_without_a_gpu(data, tmp_path):
     assert run_rpn_detect.parse_args(args).device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         run_rpn_detect.main(["--mode", "eval", *args])
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_batches_keep_the_jax_drivers_order(workers):
+    """``Trainer.batches`` against the JAX driver's ``_batches``
+    (``nerf_rpn_tpu/cli/run_rpn_detect.py:242-291``) on one process: the
+    train order is ``default_rng(seed)``'s shuffle with the ragged batch
+    dropped; eval keeps the order and pads the last batch with its last
+    scene, and each batch comes with its number of real scenes."""
+    from types import SimpleNamespace
+
+    n, bs, seed = 7, 3, 4
+    trainer = SimpleNamespace(
+        args=SimpleNamespace(batch_size=bs, num_workers=workers, prefetch_batches=2),
+        _collate=list)
+    scenes = list(range(n))
+    order = np.arange(n)
+    np.random.default_rng(seed).shuffle(order)
+    train = list(run_rpn_detect.Trainer.batches(trainer, scenes, True, seed=seed))
+    assert train == [(list(order[:3]), 3), (list(order[3:6]), 3)]
+    assert list(run_rpn_detect.Trainer.batches(trainer, scenes)) == [
+        ([0, 1, 2], 3), ([3, 4, 5], 3), ([6, 6, 6], 1)]
