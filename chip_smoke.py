@@ -122,10 +122,10 @@ nonzero before the result lines:
    validation curve and the seconds of each run; seeds 0, 1, ... run until
    a combo has cleared the script's gates as often as the JAX package's
    own gate does on seeds 0-5, and at least once (``JAX_GATE_PASSES``);
-   the phase fails if it does not; and the ``rcnn`` combo (``resnet_tiny``
-   fine-tuned for 40 epochs through ``run_rpn_detect`` on the scenes'
-   generated RoIs; AP@25, AP@50 and the classification accuracy), the
-   same way;
+   the phase fails if it does not; and the ``rcnn`` combo
+   (``resnet_tiny`` fine-tuned for 40 epochs through ``run_rpn_detect`` on
+   the scenes' generated RoIs; AP@25, AP@50 and the classification
+   accuracy), the same way; the combos run at once, a process each;
 22. the RCNN small slice, card against CPU, same weights (f32, TF32 off):
    the features mode at ``train_rcnn.sh``'s head (256 channels, 3^3,
    ``--is_add_layer --is_flatten``), AABB and OBB, on random FPN levels of
@@ -149,7 +149,26 @@ nonzero before the result lines:
    phase 23's saved levels (Swin-S, 256 channels), OBB and AABB (the
    enclosing boxes), on 2 train, 1 validation and 2 test scenes, one epoch
    and an eval each; then RoI align alone at 2 x 1024 RoIs: device ms
-   against the bound of the feature rows its samples touch.
+   against the bound of the feature rows its samples touch;
+25. data parallel (``parallel/ddp.py``): (a) four train steps at full
+   width in f32 with TF32 off -- ``train.sh``'s Swin-S OBB RPN, the
+   ``resnet`` RPN (BatchNorm and its running statistics) and
+   ``train_fcos.sh``'s Swin-S OBB FCOS at 160^3, ``train_rcnn.sh``'s
+   Swin-S fine-tune at 200x200x136 -- and the ``resnet`` RPN in f64
+   besides, in this process at batch 2, then on
+   two ranks of one scene each on the same card (gloo, which carries CUDA
+   tensors; NCCL refuses two ranks on one device), with the same weights
+   (rank 1's shifted, then ``broadcast_module_``), the same anchor or RoI
+   sample and drop-path off: the ranks bit-equal to each other, their
+   loss terms, norms, updated parameters (the share of flipped AdamW
+   steps) and running statistics within ``DDP_LIMITS`` of the one
+   process's, K1 and K2 24 a Swin step a rank,
+   and the gradient all-reduce's ms; (b) ``run_rpn --gpus 0`` (NCCL, a
+   group of one) on phase 10's path with phase 10's launches, then
+   ``run_fcos --gpus 0`` and ``run_rpn_detect --gpus 0`` for two steps
+   each, ``model_best`` written by rank 0; (c) the RPN train step in a
+   group of one and alone, in turns.  One card shows no scaling across
+   cards.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -164,9 +183,9 @@ operations over the peak rate for their type.
 
 Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
 eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
-fine-tune and features paths) runs with the launch counts set to 0 just
-before it and read just after; a kernel's ``launches`` in the record is its sum over
-them.  The last three
+fine-tune and features paths, and phase 25's ``--gpus 0`` paths) runs
+with the launch counts set to 0 just before it and read just after; a
+kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
 """
@@ -1348,15 +1367,17 @@ def require_launches(launches, names, path, absent=()):
 def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda",
                      rotated=False):
     """4 train, 2 validation and 2 test synthetic scenes at ``resolution``^3
-    under ``workdir`` (OBBs with ``rotated``), and the ``run_rpn`` arguments
-    of the train path (bf16, batch 2; ``--rotated_bbox`` with ``rotated``)
-    that read them: ``(data dir, arguments)``."""
+    under ``workdir`` (OBBs with ``rotated``; written once, as the seed
+    gives the same scenes each time), and the ``run_rpn`` arguments of the
+    train path (bf16, batch 2; ``--rotated_bbox`` with ``rotated``) that
+    read them: ``(data dir, arguments)``."""
     from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 
-    data = os.path.join(workdir, "data160_obb" if rotated else "data160")
-    write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2,
-                            resolution=(resolution,) * 3, seed=1, rotated=rotated,
-                            box_size=(resolution / 10, resolution / 4))
+    data = os.path.join(workdir, f"data{resolution}" + ("_obb" if rotated else ""))
+    if not os.path.isfile(os.path.join(data, "split.npz")):
+        write_synthetic_dataset(data, n_train=4, n_val=2, n_test=2,
+                                resolution=(resolution,) * 3, seed=1, rotated=rotated,
+                                box_size=(resolution / 10, resolution / 4))
     common = ["--backbone_type", backbone, "--bf16", "--resolution", str(resolution),
               "--batch_size", "2", "--device", device, "--features_path", data,
               "--boxes_path", data, "--dataset_split", os.path.join(data, "split.npz"),
@@ -1365,21 +1386,22 @@ def write_train_data(workdir, resolution=160, backbone="swin_s", device="cuda",
 
 
 def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cuda",
-                   rotated=False, fcos=False):
+                   rotated=False, fcos=False, extra=()):
     """``run_rpn --mode train`` on synthetic 160^3 scenes (Swin-S, bf16,
     batch 2; OBBs and ``--rotated_bbox`` with ``rotated``, the
     ``scripts/train.sh`` configuration), then ``--mode eval --checkpoint
     <save>/model_best``; with ``fcos`` the same through ``run_fcos`` with
     ``scripts/train_fcos.sh``'s flags, no positive dropped by the loss, and
-    the eval with ``--save_level_index``.  The other keywords shrink the
-    run for a rehearsal on the CPU."""
+    the eval with ``--save_level_index``.  ``extra`` flags go to both runs
+    (and name the path and its save directory).  The other keywords shrink
+    the run for a rehearsal on the CPU."""
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
 
-    path = ("fcos " if fcos else "") + ("obb train" if rotated else "train")
+    path = " ".join(["fcos"] * fcos + ["obb train" if rotated else "train", *extra])
     cli = run_fcos if fcos else run_rpn
     data, common = write_train_data(workdir, resolution, backbone, device, rotated)
     if fcos:
@@ -1387,11 +1409,11 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
         keys = ("loss", "loss_cls", "loss_reg", "loss_centerness", "grad_norm", "param_norm")
     else:
         keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm", "param_norm")
-    save = os.path.join(workdir, path.replace(" ", "_"))
+    save = os.path.join(workdir, path.replace(" ", "_").replace("-", ""))
     t0 = time.perf_counter()
     kernels.reset_counts()
     logged = cli.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
-                       "--save_path", save, *common])
+                       "--save_path", save, *common, *extra])
     torch.cuda.synchronize()
     launches = kernels.counts()
     train_s = time.perf_counter() - t0
@@ -1420,7 +1442,7 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     out = save + "_eval_ckpt"
     recalls, _ = cli.main(["--mode", "eval", "--checkpoint", os.path.join(save, "model_best"),
                            "--save_path", out, "--output_proposals",
-                           *(["--save_level_index"] if fcos else []), *common])
+                           *(["--save_level_index"] if fcos else []), *common, *extra])
     torch.cuda.synchronize()
     eval_launches = kernels.counts()
     files = sorted(os.listdir(os.path.join(out, "proposals")))
@@ -2482,6 +2504,410 @@ def _roi_align_bytes(torch, b, rois, rotated, out):
     return moved, touched
 
 
+# ---------------------------------------------------------------------------
+# Data parallel (parallel/ddp.py)
+# ---------------------------------------------------------------------------
+
+# Phase 25's steps at full width, f32 with TF32 off, a global batch of 2:
+# ``train.sh``'s Swin-S OBB RPN, the ``resnet`` RPN (BatchNorm) and
+# ``train_fcos.sh``'s Swin-S OBB FCOS at 160^3, ``train_rcnn.sh``'s Swin-S
+# OBB fine-tune at 200x200x136 (128 RoIs a scene of 512); and the
+# ``resnet`` RPN in f64, where flax's E[x^2] - E[x]^2 leaves the f32
+# BatchNorm gradients to rounding (phase 18)
+DDP_CASES = {
+    "swin_s rpn obb": {"head": "rpn", "backbone": "swin_s", "shape": (160, 160, 160)},
+    "resnet rpn": {"head": "rpn", "backbone": "resnet", "shape": (160, 160, 160)},
+    "resnet rpn f64": {"head": "rpn", "backbone": "resnet", "shape": (160, 160, 160),
+                       "dtype": "float64"},
+    "swin_s fcos obb": {"head": "fcos", "backbone": "swin_s", "shape": (160, 160, 160)},
+    "swin_s rcnn obb": {"head": "rcnn", "backbone": "swin_s", "shape": (200, 200, 136)},
+}
+DDP_LR = 1e-3
+# the step whose gradient all-reduce is timed
+DDP_TIMED = "swin_s rpn obb"
+# Two ranks of one scene against one process of both, each reading
+# relative as in phase 18 (a loss term or norm to the one process's value,
+# a running statistic to its leaf's largest entry), and the share of the
+# parameters whose AdamW step differs from the one process's by more than
+# the first step, lr / 25 (a sign flipped: AdamW's first step is +-lr / 25
+# where the gradient is clear of its eps).  The f32 limits sit 3-8x over
+# the card's readings (PERF.md, PR 15), which the ``resnet`` step sets:
+# its f32 BatchNorm gradients are rounding where a channel's mean dwarfs
+# its spread, and its f64 step reads 1e-15 (the f64 limits: 1e-12)
+DDP_LIMITS = {
+    "float32": {"loss_terms": 1e-5, "grad_norm": 1.5e-2, "param_norm": 1e-6,
+                "step_flips": 1e-2, "running_stats": 1e-5},
+    "float64": {"loss_terms": 1e-12, "grad_norm": 1e-12, "param_norm": 1e-12,
+                "step_flips": 1e-7, "running_stats": 1e-12},
+}
+
+
+def _ddp_case(torch, name, dev):
+    """Phase 25's step ``name``: ``(model, batch, sample, run)``, the same
+    in every process on ``dev`` -- weights drawn from a seeded generator on
+    ``dev``, two unlike scenes, the anchor or RoI sample of both scenes
+    (None: FCOS), ``run(model, state, batch, sample) -> metrics``;
+    drop-path off."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models import detector as det
+    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+    from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
+    from nerf_rpn_tpu_torch.models.nerf_rpn import (FCOSOverNeRF, NeRFRPN, build_backbone,
+                                                    init_params)
+    from nerf_rpn_tpu_torch.models.swin import SwinBlock
+    from nerf_rpn_tpu_torch.train.steps import (level_shapes_for, make_fcos_train_step,
+                                                   make_rcnn_train_step, make_rpn_train_step)
+
+    spec = DDP_CASES[name]
+    shape, backbone = spec["shape"], spec["backbone"]
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    rng = np.random.default_rng(25)
+    grids = rng.uniform(0, 1, (2, *shape, 4)).astype(np.float32)
+    ramp = np.linspace(0, 1, shape[0], dtype=np.float32)[:, None, None, None]
+    grids[1] = 0.1 * grids[1] + 3.0 * ramp ** 2
+    # OBBs of a 160^3 scene, scaled to the grid
+    obb = np.array([[[40, 40, 55, 50, 35, 60, 0.4], [110, 115, 70, 45, 60, 50, -1.1],
+                     [40, 125, 125, 30, 45, 45, 1.3]],
+                    [[50, 40, 30, 90, 70, 50, -0.2], [70, 80, 95, 35, 45, 40, 0.8],
+                     [0, 0, 0, 0, 0, 0, 0]]], np.float32)
+    obb[..., :6] *= shape[0] / 160
+    if spec["head"] == "rcnn":
+        rois, levels = _random_rois(np, rng, 2, 512, shape, True,
+                                    size=(shape[0] / 10, shape[0] * 0.3))
+        batch = _ddp_batch(torch, dev, dtype, grids=grids, rois=rois, roi_levels=levels,
+                           roi_valid=np.ones((2, 512), bool), gt_boxes=rois[:, :3],
+                           gt_mask=np.ones((2, 3), bool))
+        cfg = det.RCNNConfig(rotated=True, batch_size=256, fg_threshold=0.25,
+                             bg_threshold=0.25, output_size=(3, 3, 3), pool_mode="max")
+        model = det.RCNNDetector(det.RCNNHead(256, 2, True, True, True, (3, 3, 3)),
+                                 build_backbone(backbone, shape[0]))
+        sample = det.sample_rois(cfg, torch.Generator(dev).manual_seed(0), batch["rois"],
+                                 batch["roi_levels"], batch["roi_valid"], batch["gt_boxes"],
+                                 batch["gt_mask"], 128)["indices"]
+
+        def run(model, state, batch, sample):
+            step = make_rcnn_train_step(model, cfg, SCALES, 128, reg_loss_weight=5.0)
+            return step(state, batch, None, indices=sample)
+    else:
+        rotated = backbone.startswith("swin")
+        gt = obb if rotated else np.concatenate(
+            [obb[..., :3] - obb[..., 3:6] / 2, obb[..., :3] + obb[..., 3:6] / 2], -1)
+        batch = _ddp_batch(torch, dev, dtype, grids=grids, gt_boxes=gt, gt_mask=obb[..., 3] > 0,
+                           ori_sizes=np.array([shape, shape], np.int32))
+        if spec["head"] == "fcos":
+            cfg = FCOSConfig(rotated=True, center_sampling_radius=1.5, iou_loss_type="iou",
+                             norm_reg_targets=True)
+            model = FCOSOverNeRF(backbone, rotated=True, resolution=shape[0])
+            sample = None
+
+            def run(model, state, batch, sample):
+                step = make_fcos_train_step(model, cfg, shape, device=dev)
+                return step(state, batch, torch.Generator(dev).manual_seed(1))
+        else:
+            cfg = rpn_lib.RPNConfig(rotated=rotated, reg_loss_weight=5.0)
+            model = NeRFRPN(backbone, rotated=rotated, resolution=shape[0], dtype=dtype)
+            shapes = level_shapes_for(shape, SCALES)
+            anchors, _, strides, _ = rpn_lib.build_level_tables(cfg, shape, shapes)
+            pad = rpn_lib.dynamic_padding_masks(shapes, strides, 13, batch["ori_sizes"])
+            matches = rpn_lib.assign_anchors(cfg, torch.from_numpy(anchors).to(dev),
+                                             batch["gt_boxes"], batch["gt_mask"], pad)
+            sample = list(rpn_lib.sample_anchors(cfg, matches,
+                                                 torch.Generator(dev).manual_seed(0)))
+
+            def run(model, state, batch, sample):
+                step = make_rpn_train_step(model, cfg, shape, SCALES, device=dev)
+                return step(state, batch, torch.Generator(dev).manual_seed(0),
+                            torch.Generator(dev).manual_seed(1), indices=sample)
+    model.to(dev)
+    init_params(model, torch.Generator(dev).manual_seed(25))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SwinBlock):
+                m.drop_path = 0.0
+        for n, t in model.named_buffers():
+            if "running_" in n:  # statistics that are not 0 / 1
+                t.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, t.shape)))
+    return model.to(dtype), batch, sample, run
+
+
+def _ddp_batch(torch, dev, dtype, **arrays):
+    """Host arrays -> tensors on ``dev``, the float ones in ``dtype``."""
+    return {k: torch.from_numpy(np_array).to(dev, dtype) if np_array.dtype.kind == "f"
+            else torch.from_numpy(np_array).to(dev) for k, np_array in arrays.items()}
+
+
+def _ddp_scene(x, r):
+    """Rank r's scene of a batch or a sample."""
+    if isinstance(x, dict):
+        return {k: v[r:r + 1] for k, v in x.items()}
+    if isinstance(x, list):
+        return [t[r:r + 1] for t in x]
+    return None if x is None else x[r:r + 1]
+
+
+def _ddp_step(torch, model, run, batch, sample):
+    """One train step at ``DDP_LR``: its metrics and the weights after it
+    (CPU copies)."""
+    from nerf_rpn_tpu_torch.train.state import TrainState
+
+    state = TrainState(model, DDP_LR, 10)
+    metrics = run(model, state, batch, sample)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()})
+
+
+def _ddp_rank(work, dev):
+    """A rank of phase 25 (a): every case on its scene, after rank 1's
+    weights were shifted and ``broadcast_module_`` gave it rank 0's back.
+    Writes ``ddp_rank<r>.pt``: the metrics, rank 0's weights after the
+    step, whether the ranks' weights are bit-equal (rank 0's broadcast
+    and compared), K1 and K2 launches, peak GiB and, for the Swin-S RPN,
+    the gradient all-reduce's ms."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, out = ddp.rank(), {}
+    for name in DDP_CASES:
+        model, batch, sample, run = _ddp_case(torch, name, dev)
+        want = [t.clone() for t in model.state_dict().values()]
+        if r:
+            with torch.no_grad():
+                for t in (*model.parameters(), *model.buffers()):
+                    t.add_(1)
+        ddp.broadcast_module_(model)
+        broadcast = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), want))
+        del want
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        metrics, state = _ddp_step(torch, model, run, _ddp_scene(batch, r),
+                                   _ddp_scene(sample, r))
+        torch.cuda.synchronize()
+        entry = {"metrics": metrics, "broadcast_equal": broadcast,
+                 "launches": {k: kernels.counts()[k]
+                              for k in ("window_attention_fwd", "window_attention_bwd")},
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        entry["ranks_equal"] = bool(torch.equal(flat, ref))
+        del flat, ref
+        if name == DDP_TIMED:
+            grads = [torch.ones_like(p) for p in model.parameters()]
+            ddp.all_reduce_grads_(grads)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                ddp.all_reduce_grads_(grads)
+            torch.cuda.synchronize()
+            entry["grad_all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+            entry["grad_mib"] = sum(g.numel() * g.element_size() for g in grads) / 2 ** 20
+            del grads
+        if r == 0:
+            entry["state"] = state
+        out[name] = entry
+        del model, batch, sample, state
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(work, f"ddp_rank{r}.pt"))
+
+
+def check_ddp_steps(torch, dev, work, card=""):
+    """Phase 25 (a): each of ``DDP_CASES`` in one process at batch 2 (the
+    reference, kept on the host, the card freed after each), then on two
+    ranks of one scene each on the same card (``ddp.launch``, gloo, which
+    carries CUDA tensors; NCCL refuses two ranks on one device).  Every
+    rank must hold rank 0's weights after the broadcast and after the step
+    bit for bit, log the same metrics, launch K1 and K2 24 times a Swin
+    step (0 a ResNet step), and read within ``DDP_LIMITS`` of the
+    reference.  Returns the Swin-S RPN's gradient all-reduce ms, printed
+    after ``card`` (the ``nvidia-smi`` name and power limit)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
+    from nerf_rpn_tpu_torch.parallel import ddp
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for name in DDP_CASES:
+        model, batch, sample, run = _ddp_case(torch, name, dev)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, state = _ddp_step(torch, model, run, batch, sample)
+        params = {n for n, _ in model.named_parameters()}
+        refs[name] = (metrics, state, params, torch.cuda.max_memory_allocated() / 2 ** 30)
+        del model, batch, sample
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ddp.launch(_ddp_rank, (work, dev), [dev, dev], "gloo")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"ddp_rank{r}.pt"), weights_only=False)
+             for r in (0, 1)]
+    lr0 = DDP_LR / 25.0
+    over = []
+    for name, (metrics, state, params, peak) in refs.items():
+        r0, r1 = ranks[0][name], ranks[1][name]
+        if not (r0["broadcast_equal"] and r1["broadcast_equal"]):
+            fail(f"data parallel {name}: broadcast_module_ left the ranks' weights unequal")
+        if not (r0["ranks_equal"] and r1["ranks_equal"] and r0["metrics"] == r1["metrics"]):
+            fail(f"data parallel {name}: the ranks differ after the step")
+        blocks = sum(SWIN_VARIANTS.get(DDP_CASES[name]["backbone"], {"depths": ()})["depths"])
+        for rank in (r0, r1):
+            want = {"window_attention_fwd": blocks, "window_attention_bwd": blocks}
+            if rank["launches"] != want:
+                fail(f"data parallel {name}: launches {rank['launches']}, expected {want}")
+        got = r0["metrics"]
+        if set(got) != set(metrics):
+            fail(f"data parallel {name}: metrics {sorted(got)} vs {sorted(metrics)}")
+        terms = [k for k in metrics if k.startswith("loss")]
+        counts = [k for k in metrics if k.endswith("_rois") or k == "dropped_positives"]
+        if any(got[k] != metrics[k] for k in counts):
+            fail(f"data parallel {name}: counts {[(got[k], metrics[k]) for k in counts]}")
+        # (a term that is 0, the 2D term at weight 0, must stay 0)
+        rel = {k: abs(got[k] - metrics[k]) / (abs(metrics[k]) or 1.0) for k in metrics
+               if k not in counts}
+        read = {"loss_terms": max(rel[k] for k in terms), "grad_norm": rel["grad_norm"],
+                "param_norm": rel["param_norm"], "step_flips": 0.0, "running_stats": 0.0}
+        flips = entries = 0
+        for k, want in state.items():
+            diff = (r0["state"][k].double() - want.double()).abs()
+            if "running_" in k:
+                read["running_stats"] = max(read["running_stats"],
+                                            diff.max().item() / want.abs().max().item())
+            elif k in params:
+                flips += int((diff > lr0).sum())
+                entries += diff.numel()
+        read["step_flips"] = flips / entries
+        limits = DDP_LIMITS[DDP_CASES[name].get("dtype", "float32")]
+        row = {"case": name, "readings": read, "limits": limits, "flipped_steps": flips,
+               "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
+               "one_process_peak_gib": peak, "rank_peak_gib": [r0["peak_gib"], r1["peak_gib"]],
+               "launches_per_rank": r0["launches"],
+               **{k: got[k] for k in counts}}
+        print("[data parallel step]", json.dumps(row), flush=True)
+        over += [f"{name}: {k} {v} over its limit {limits[k]}" for k, v in read.items()
+                 if not (np.isfinite(v) and v <= limits[k])]
+    # an f32 step against its f64 twin (the same weights and scenes): the
+    # one process's and the two ranks' distance from it, by the readings
+    for name in (n for n in refs if n + " f64" in refs):
+        truth, state64 = refs[name + " f64"][:2]
+        for who, (m, st) in (("one process", refs[name][:2]),
+                             ("two ranks", (ranks[0][name]["metrics"],
+                                            ranks[0][name]["state"]))):
+            diffs = [(st[k].double() - v).abs() for k, v in state64.items()
+                     if k in refs[name][2]]
+            print(f"[data parallel] {name} in f32 against f64, {who}: grad_norm "
+                  f"{abs(m['grad_norm'] - truth['grad_norm']) / truth['grad_norm']:.3g}, "
+                  f"loss {abs(m['loss'] - truth['loss']) / truth['loss']:.3g}, step flips "
+                  f"{sum(int((d > lr0).sum()) for d in diffs) / sum(d.numel() for d in diffs):.3g}",
+                  flush=True)
+    if over:  # after every case's readings are printed
+        fail("data parallel: " + "; ".join(over))
+    timed = [rank[DDP_TIMED] for rank in ranks]
+    print(f"[data parallel] {card}: 2 ranks on one card over gloo: {ranks_s:.1f} s for "
+          f"{len(refs)} steps a rank; the Swin-S RPN's gradient all-reduce "
+          f"({timed[0]['grad_mib']:.1f} MiB f32) {timed[0]['grad_all_reduce_ms']:.2f} ms on "
+          f"rank 0, {timed[1]['grad_all_reduce_ms']:.2f} ms on rank 1", flush=True)
+    return timed[0]["grad_all_reduce_ms"]
+
+
+def run_ddp_driver_paths(torch, work, rpn_train_launches, rcnn_common):
+    """Phase 25 (b): the drivers with ``--gpus 0`` (NCCL, a group of one in
+    this process): ``run_rpn``'s train path (phase 10's, ``--mode train``
+    then ``--mode eval --checkpoint <save>/model_best``), whose launches
+    must equal phase 10's; ``run_fcos`` on the OBB scenes with
+    ``train_fcos.sh``'s flags and ``run_rpn_detect`` with
+    ``train_rcnn.sh``'s on phase 23's, one epoch of two steps and the
+    validation eval each, ``model_best`` written."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn_detect
+
+    gpus = ["--gpus", "0"]
+    paths = {}
+    paths["train --gpus 0"], data, common = run_train_path(torch, work, extra=gpus)
+    if paths["train --gpus 0"] != rpn_train_launches:
+        fail(f"run_rpn --gpus 0: launches {paths['train --gpus 0']}, phase 10's "
+             f"{rpn_train_launches}")
+    _, fcos_common = write_train_data(work, rotated=True)
+    for path, cli, argv in (
+            ("fcos obb train --gpus 0", run_fcos, [*fcos_common, *FCOS_TRAIN_FLAGS]),
+            ("rcnn train --gpus 0", run_rpn_detect, rcnn_common)):
+        save = os.path.join(work, path.replace(" ", "_").replace("-", ""))
+        kernels.reset_counts()
+        logged = cli.main(["--mode", "train", *argv, "--num_epochs", "1", "--log_interval",
+                           "1", "--save_path", save, *gpus])
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        if len(logged) != 2 or not all(np.isfinite(m["loss"]) for m in logged):
+            fail(f"{path}: logged {logged}")
+        if not os.path.isfile(os.path.join(save, "model_best")):
+            fail(f"{path}: rank 0 wrote no model_best")
+        if cli is run_fcos:
+            require_launches(launches, OBB_TRAIN_KERNELS, path,
+                             absent=("aabb_suppression_graph",))
+            if launches["window_attention_bwd"] != 48:
+                fail(f"{path}: K2 launched {launches['window_attention_bwd']} times in 2 steps")
+        else:
+            _rcnn_launch_check(launches, path, steps=2, eval_batches=1, eval_scenes=2)
+        print(f"[{path}] losses " + ", ".join(f"{m['loss']:.4f}" for m in logged), flush=True)
+        paths[path] = launches
+    return paths, data, common
+
+
+def time_gpus_flag(torch, data, common, steps=10, card=""):
+    """Phase 25 (c): the RPN train step (Swin-S bf16, 160^3, batch 2) in a
+    group of one, as ``--gpus 0`` runs it, and alone, in turns alone,
+    group, group, alone: mean device ms a step (CUDA events), printed after
+    ``card``."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.data.datasets import batch_iterator
+    from nerf_rpn_tpu_torch.parallel import ddp
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_train_step
+
+    args = run_rpn.parse_args(["--mode", "train", *common, "--num_workers", "0",
+                               "--save_path", os.path.join(os.path.dirname(data), "timed")])
+    trainer = run_rpn.Trainer(args)
+    train_set, _, _ = run_rpn.common.build_datasets(args, "train", augment=False)
+    host = next(iter(batch_iterator(train_set, 2, fixed_shape=trainer.mesh_shape,
+                                    box_dim=6, num_workers=0)))
+    batch = run_rpn.common.device_batch(host, trainer.device, trainer.dtype)
+    state = TrainState(trainer.model, args.lr, 4 * steps + 4)
+    step = make_rpn_train_step(trainer.model, trainer.cfg_train, trainer.mesh_shape,
+                               run_rpn.STRIDES, device=trainer.device)
+    gen = torch.Generator(trainer.device).manual_seed(0)
+    drop = torch.Generator(trainer.device).manual_seed(1)
+
+    def timed():
+        step(state, batch, gen, drop)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(steps)]
+        for a, b in events:
+            a.record()
+            step(state, batch, gen, drop)
+            b.record()
+        torch.cuda.synchronize()
+        return float(np.mean([a.elapsed_time(b) for a, b in events]))
+
+    ms = {"alone": [], "gpus 0": []}
+    for kind in ("alone", "gpus 0", "gpus 0", "alone"):
+        ms[kind].append(timed() if kind == "alone" else
+                        ddp.launch(timed, (), [trainer.device], "nccl"))
+    print(f"[data parallel] {card}: RPN train step (Swin-S bf16, 160^3, batch 2), mean of "
+          f"{steps}: alone {ms['alone']} ms, --gpus 0 (a group of one, NCCL) {ms['gpus 0']} "
+          "ms", flush=True)
+    return ms
+
+
 # The gate's seeds, and on how many of them the JAX package's own gate
 # clears each combo (``scripts/synthetic_quality_gate.py --combos <combo>
 # --seed <s>`` on the CPU; PERF.md, PR 13).  One seed cannot decide: over
@@ -2502,26 +2928,37 @@ def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb", "rcnn")):
     ``GATE_SEEDS``' order until a combo has cleared its gates (the
     script's thresholds) as many times as the JAX package's gate does on
     those seeds (``JAX_GATE_PASSES``), and at least once; the phase fails
-    if it does not."""
+    if it does not.  The combos run at once, a process each on the card
+    (host-bound runs; each seed's result is the one it gives alone)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(len(combos), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {combo: pool.submit(_gate_combo, combo, workdir) for combo in combos}
+        rows = {combo: f.result() for combo, f in futures.items()}
+    for combo, combo_rows in rows.items():
+        need = max(1, JAX_GATE_PASSES[combo])
+        if sum(r["pass"] for r in combo_rows) < need:
+            fail(f"quality gate: {combo} cleared its gates at "
+                 f"{sum(r['pass'] for r in combo_rows)} of seeds {GATE_SEEDS}, not "
+                 f"{need} (the JAX package's gate: {JAX_GATE_PASSES[combo]})")
+    return rows
+
+
+def _gate_combo(combo, workdir):
+    """One combo's gate runs, in a process of its own: seeds in order until
+    it has cleared its gates ``JAX_GATE_PASSES`` times (and at least once)."""
+    import torch
+
     from nerf_rpn_tpu_torch.cli import quality_gate
 
-    rows = {}
+    torch.set_num_threads(2)
     quality_gate.use_deterministic_algorithms()
-    try:
-        for combo in combos:
-            # and at least once, whatever the JAX count
-            need, rows[combo] = max(1, JAX_GATE_PASSES[combo]), []
-            for seed in GATE_SEEDS:
-                rows[combo].append(_gate_row(quality_gate, combo, seed, workdir))
-                if sum(r["pass"] for r in rows[combo]) >= need:
-                    break
-            else:
-                fail(f"quality gate: {combo} cleared its gates at "
-                     f"{sum(r['pass'] for r in rows[combo])} of seeds {GATE_SEEDS}, not "
-                     f"{need} (the JAX package's gate: {JAX_GATE_PASSES[combo]})")
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
+    need, rows = max(1, JAX_GATE_PASSES[combo]), []
+    for seed in GATE_SEEDS:
+        rows.append(_gate_row(quality_gate, combo, seed, workdir))
+        if sum(r["pass"] for r in rows) >= need:
+            break
     return rows
 
 
@@ -2668,14 +3105,22 @@ def main() -> None:
         phase_done(torch, "RCNN small slice and train step vs CPU", t0)
 
         t0 = time.perf_counter()
-        paths["rcnn fine-tune"], data, results, common = run_rcnn_path(
+        paths["rcnn fine-tune"], data, results, rcnn_common = run_rcnn_path(
             torch, work, os.path.join(work, "obb_train", "model_best"))
-        time_rcnn_steps(torch, common)
+        time_rcnn_steps(torch, rcnn_common)
         phase_done(torch, "RCNN fine-tune path (train_rcnn.sh) and timed steps", t0)
 
         t0 = time.perf_counter()
         paths["rcnn features"], _ = run_rcnn_features_path(torch, work, data, results)
         phase_done(torch, "RCNN features path and RoI align", t0)
+
+        t0 = time.perf_counter()
+        check_ddp_steps(torch, dev, work, smi)
+        ddp_paths, data, common = run_ddp_driver_paths(torch, work, paths["train"],
+                                                       rcnn_common)
+        paths.update(ddp_paths)
+        time_gpus_flag(torch, data, common, card=smi)
+        phase_done(torch, "data parallel", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

@@ -1,8 +1,9 @@
 """CLI plumbing of the torch port: logging, datasets, eval reporting, dumps.
 
 Copy, for the torch port, of the functions of ``nerf_rpn_tpu/cli/common.py``
-that ``cli/run_rpn.py`` and ``cli/run_fcos.py`` call, the batch copy of
-their train steps (``device_batch``) and the timing of their ``--mode
+that ``cli/run_rpn.py`` and ``cli/run_fcos.py`` call (``local_batch_size``
+takes the world size, which the JAX copy reads from ``jax``), the batch
+copy of their train steps (``device_batch``) and the timing of their ``--mode
 benchmark`` (``benchmark_eval_step``).  They mirror the driver plumbing
 the reference repeats in each run_*.py: loggers with optional file handlers
 (``run_rpn.py:627-642``), dataset construction by name + split file
@@ -36,15 +37,29 @@ from nerf_rpn_tpu_torch.evaluation.metrics import (
 )
 
 
+def local_batch_size(batch_size: int, world: int) -> int:
+    """A rank's share of the global ``--batch_size`` (the reference's
+    ``batch_size // world_size``); raises where it does not divide, as the
+    JAX driver's ``local_batch_size`` does."""
+    if batch_size % world:
+        raise ValueError(
+            f"--batch_size {batch_size} must be divisible by the number of ranks ({world}): "
+            "each rank takes batch_size // world scenes a step")
+    return batch_size // world
+
+
 def setup_logger(save_path: str = "", log_to_file: bool = False,
-                 name: str = "nerf_rpn_tpu") -> logging.Logger:
+                 name: str = "nerf_rpn_tpu", rank: int = 0) -> logging.Logger:
+    """Logs to stdout and, with ``log_to_file``, to ``<save_path>/<name>.log``;
+    a rank other than 0 writes no file and prefixes its lines with its rank."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
     sh = logging.StreamHandler(sys.stdout)
-    sh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    prefix = f"[rank {rank}] " if rank else ""
+    sh.setFormatter(logging.Formatter(f"%(asctime)s %(levelname)s {prefix}%(message)s"))
     logger.addHandler(sh)
-    if log_to_file and save_path:
+    if log_to_file and save_path and not rank:
         os.makedirs(save_path, exist_ok=True)
         fh = logging.FileHandler(os.path.join(save_path, f"{name}.log"))
         fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))

@@ -3,7 +3,9 @@
 Port of ``nerf_rpn_tpu/cli/run_fcos.py`` for every backbone of the JAX
 table (Swin, ``resnet`` / ``resnet_tiny``, ``vgg_AF`` / ``vgg_EF``) with
 axis-aligned boxes, or oriented ones with ``--rotated_bbox`` (6 distances
-and 2 midpoint offsets a location), in f32 or ``--bf16``, on one device.
+and 2 midpoint offsets a location), in f32 or ``--bf16``, on one device or,
+for ``--mode train``, data parallel over ``--gpus`` as in ``run_rpn``
+(``parallel/ddp.py``: rank 0 alone evaluates and writes checkpoints).
 The flags are the JAX CLI's, plus ``--weights`` (a flax variables npz) and
 ``--device`` (``cuda``, the default, raises without a GPU; ``cpu`` only
 when asked for), as in ``run_rpn``.
@@ -25,8 +27,7 @@ step on a random 160^3 grid (the reference protocol) on the card.
 module.  VGG below ``--resolution`` 160 raises a ``ValueError``: its levels
 do not sit at the FCOS strides (4, 8, 16, 32).
 
-Refused with ``NotImplementedError``: ``--gpus`` and ``--wandb`` (ROADMAP
-"DDP").
+Refused with ``NotImplementedError``: ``--wandb``.
 
 Example (``scripts/train_fcos.sh``'s configuration, batch 2 a card)::
 
@@ -53,6 +54,7 @@ from nerf_rpn_tpu_torch.data.loader import prefetch_iterator
 from nerf_rpn_tpu_torch.device import resolve_device
 from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF, init_params
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
 from nerf_rpn_tpu_torch.train.steps import (make_fcos_eval_step,
@@ -104,7 +106,8 @@ def parse_args(argv=None):
     p.add_argument("--rotate_prob", type=float, default=0.5)
     p.add_argument("--flip_prob", type=float, default=0.5)
     p.add_argument("--rot_scale_prob", type=float, default=0.5)
-    p.add_argument("--gpus", default="")
+    p.add_argument("--gpus", default="",
+                   help="GPUs to train on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
     p.add_argument("--num_convs", type=int, default=4)
     p.add_argument("--norm_reg_targets", action="store_true")
     p.add_argument("--centerness_on_reg", action="store_true")
@@ -138,10 +141,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) | cpu.")
     args = p.parse_args(argv)
-    if args.gpus or args.wandb:
-        raise NotImplementedError(
-            "--gpus (multi-GPU training) and --wandb are not ported to torch yet "
-            "(ROADMAP.md: \"DDP\")")
+    if args.wandb:
+        raise NotImplementedError("--wandb is not ported to torch (ROADMAP.md)")
+    ddp.parse_gpus(args.gpus)
     return args
 
 
@@ -150,7 +152,8 @@ class Trainer:
 
     def __init__(self, args):
         self.args = args
-        self.logger = common.setup_logger(args.save_path, args.log_to_file, "run_fcos_torch")
+        self.logger = common.setup_logger(args.save_path, args.log_to_file, "run_fcos_torch",
+                                          ddp.rank())
         self.device = resolve_device(args.device)
         self.dtype = torch.bfloat16 if args.bf16 else torch.float32
         if self.device.type == "cuda" and not args.bf16:
@@ -173,6 +176,7 @@ class Trainer:
                                         backbone_only=args.load_backbone_only)
             self.logger.info(f"Loaded checkpoint {args.checkpoint}")
         self.model.to(self.device).eval()
+        ddp.broadcast_module_(self.model)
         self.cfg = FCOSConfig(
             rotated=args.rotated_bbox, fpn_strides=STRIDES,
             center_sampling_radius=args.center_sampling_radius,
@@ -188,8 +192,13 @@ class Trainer:
         return make_fcos_eval_step(self.model, self.cfg, mesh_shape, device=self.device)
 
     def batches(self, dataset, shuffle: bool, seed: int = 0):
+        """Train (``shuffle``): this rank's share of the global batch;
+        eval: whole batches, on rank 0 alone."""
+        world = ddp.world() if shuffle else 1
         it = batch_iterator(
-            dataset, self.args.batch_size, shuffle=shuffle, seed=seed, drop_last=shuffle,
+            dataset, common.local_batch_size(self.args.batch_size, world), shuffle=shuffle,
+            seed=seed, drop_last=shuffle, process_index=ddp.rank() if shuffle else 0,
+            process_count=world,
             pad_multiple=self.args.pad_multiple, max_gt=self.args.max_gt,
             box_dim=self.box_dim, fixed_shape=self.mesh_shape,
             num_workers=self.args.num_workers)
@@ -209,7 +218,7 @@ class Trainer:
         train_step = make_fcos_train_step(self.model, self.cfg, self.mesh_shape,
                                           device=self.device)
         os.makedirs(args.save_path, exist_ok=True)
-        drop_gen = torch.Generator(self.device).manual_seed(args.seed)
+        drop_gen = torch.Generator(self.device).manual_seed(ddp.seed_for_rank(args.seed))
         best_metric, logged = None, []
         for epoch in range(1, args.num_epochs + 1):
             for i, batch in enumerate(self.batches(train_set, True, seed=epoch)):
@@ -231,7 +240,8 @@ class Trainer:
                             f"{metrics['dropped_positives']:.0f} positive locations beyond "
                             f"its capacity of 128 a gt box (center_sampling_radius "
                             f"{args.center_sampling_radius})")
-            if epoch % args.eval_interval == 0 or epoch == args.num_epochs:
+            if ddp.is_main() and (epoch % args.eval_interval == 0
+                                  or epoch == args.num_epochs):
                 recalls, _ = self.eval(val_set, write_json=False)
                 metric = recalls[-1] if recalls else -1.0
                 if best_metric is None or metric > best_metric:
@@ -243,6 +253,7 @@ class Trainer:
                     self.state, os.path.join(args.save_path, f"epoch_{epoch}"),
                     vars(args), epoch)
                 ckpt_lib.delete_old_checkpoints(args.save_path, args.keep_checkpoints)
+            ddp.barrier()
         return logged
 
     # -- eval ---------------------------------------------------------------
@@ -309,7 +320,10 @@ class Trainer:
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    return ddp.run_driver(_run, parse_args(argv))
+
+
+def _run(args):
     trainer = Trainer(args)
     if args.mode == "train":
         return trainer.train_loop()

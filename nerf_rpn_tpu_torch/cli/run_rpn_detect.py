@@ -35,7 +35,14 @@ Differences from the JAX driver: a ``--pretrained`` file that does not
 load raises (the JAX driver logs a warning and trains on a random
 backbone), and ``--pretrained`` without ``--fine_tune`` is refused (the
 JAX driver ignores it).  ``--use_cuda`` is accepted and ignored, as in
-JAX.  Not ported yet: multi-GPU training (``--gpus``) and ``--wandb``.
+JAX.  Not ported yet: ``--wandb``.
+
+``--gpus`` trains data parallel as ``run_rpn`` does (``parallel/ddp.py``):
+each rank takes its share of the global batch's order, a rank's batch is
+padded to the largest grid (or level) over the ranks, which is the shape
+one process pads the global batch to, and the RoIs a scene stay
+``--cls_batch_size / --batch_size``; rank 0 alone evaluates and writes
+checkpoints.
 
 Example (``scripts/train_rcnn.sh``'s configuration)::
 
@@ -67,6 +74,7 @@ from nerf_rpn_tpu_torch.evaluation.metrics import (evaluate_box_proposals_ap,
 from nerf_rpn_tpu_torch.models.detector import RCNNConfig, RCNNDetector, RCNNHead
 from nerf_rpn_tpu_torch.models.nerf_rpn import build_backbone, init_params
 from nerf_rpn_tpu_torch.ops.roi_align import map_rois_to_levels_np
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_rpn_tpu_torch.train.state import TrainState
 from nerf_rpn_tpu_torch.train.steps import (make_rcnn_eval_step, make_rcnn_filter_step,
@@ -108,7 +116,8 @@ def parse_args(argv=None):
     p.add_argument("--eval_interval", type=int, default=1)
     p.add_argument("--keep_checkpoints", type=int, default=1)
     p.add_argument("--wandb", action="store_true")
-    p.add_argument("--gpus", default="")
+    p.add_argument("--gpus", default="",
+                   help="GPUs to train on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
     p.add_argument("--n_classes", type=int, default=2)
     p.add_argument("--output_size", nargs="+", type=int, default=[4, 4, 4])
     p.add_argument("--spatial_scale", nargs="+", type=int, default=[4, 8, 16, 32])
@@ -144,10 +153,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) | cpu.")
     args = p.parse_args(argv)
-    if args.gpus or args.wandb:
-        raise NotImplementedError(
-            "--gpus (multi-GPU training) and --wandb are not ported to torch yet "
-            "(ROADMAP.md: \"DDP\")")
+    if args.wandb:
+        raise NotImplementedError("--wandb is not ported to torch (ROADMAP.md)")
+    ddp.parse_gpus(args.gpus)
     if args.pretrained and not args.fine_tune:
         raise ValueError("--pretrained loads the backbone of --fine_tune; without it the "
                          "model has no backbone to load")
@@ -162,7 +170,7 @@ class Trainer:
         if args.save_root and not args.save_path:
             args.save_path = os.path.join(args.save_root, "rcnn")
         self.logger = common.setup_logger(args.save_path, args.log_to_file,
-                                          "run_rpn_detect_torch")
+                                          "run_rpn_detect_torch", ddp.rank())
         self.device = resolve_device(args.device)
         self.dtype = torch.bfloat16 if args.bf16 else torch.float32
         if self.device.type == "cuda" and not args.bf16:
@@ -198,6 +206,7 @@ class Trainer:
             ckpt_lib.restore_checkpoint(self.model, args.checkpoint)
             self.logger.info(f"Loaded checkpoint {args.checkpoint}")
         self.model.to(self.device).eval()
+        ddp.broadcast_module_(self.model)
         self.spatial_scales = tuple(args.spatial_scale)
         self.state = None
 
@@ -239,14 +248,33 @@ class Trainer:
     def batches(self, dataset, shuffle=False, seed=0):
         """(host batch, number of real scenes) in the JAX driver's order:
         ``default_rng(seed)`` shuffles; train (shuffle) drops the ragged
-        last batch, eval pads it with the last scene.  Loading runs in
+        last batch and takes this rank's share of the order (the JAX
+        driver's ``DistributedSampler`` wrap), eval pads the last batch
+        with the last scene and runs on rank 0 alone.  Loading runs in
         ``--num_workers`` threads, ``--prefetch_batches`` batches ahead."""
-        bs, n = self.args.batch_size, len(dataset)
+        world = ddp.world() if shuffle else 1
+        bs, n = common.local_batch_size(self.args.batch_size, world), len(dataset)
         it = batch_iterator(dataset, bs, shuffle=shuffle, seed=seed, drop_last=shuffle,
-                            pad_last=not shuffle, num_workers=self.args.num_workers,
+                            pad_last=not shuffle, process_index=ddp.rank() if shuffle else 0,
+                            process_count=world, num_workers=self.args.num_workers,
                             collate=self._collate)
         n_real = (min(bs, n - start) for start in range(0, n, bs))
         return prefetch_iterator(zip(it, n_real), depth=self.args.prefetch_batches)
+
+    @staticmethod
+    def pad_to_global(host: dict) -> dict:
+        """A rank's batch padded to the largest grid (fine-tune) or level
+        shapes over the ranks: the shape that one process's collate gives
+        the global batch (its largest scene, rounded up to 8).  At world 1
+        the batch as it is."""
+        if ddp.world() == 1:
+            return host
+        key = "grids" if "grids" in host else "features"
+        arrays = [host["grids"]] if key == "grids" else host["features"]
+        target = ddp.all_reduce_max(np.array([a.shape[1:4] for a in arrays]))
+        padded = [np.pad(a, [(0, 0), *[(0, t - n) for n, t in zip(a.shape[1:4], tgt)], (0, 0)])
+                  for a, tgt in zip(arrays, target)]
+        return dict(host, **{key: padded[0] if key == "grids" else padded})
 
     # -- train --------------------------------------------------------------
 
@@ -257,6 +285,7 @@ class Trainer:
         train_set = self.dataset(train_scenes, augment=args.fine_tune)
         val_set = self.dataset(val_scenes)
         self.logger.info(f"{len(train_set)} train / {len(val_set)} val scenes")
+        # the global batch's: the step count, and the RoIs sampled a scene
         steps = max(1, len(train_set) // args.batch_size) * args.num_epochs
         self.state = TrainState(self.model, args.lr, steps, args.weight_decay,
                                 args.clip_grad_norm)
@@ -266,13 +295,15 @@ class Trainer:
                                           obj_only=args.obj_only)
         os.makedirs(args.save_path, exist_ok=True)
         # separate streams for RoI sampling and stochastic depth
-        gen = torch.Generator(self.device).manual_seed(args.seed)
-        drop_gen = torch.Generator(self.device).manual_seed(args.seed + 1)
+        seed = ddp.seed_for_rank(args.seed)
+        gen = torch.Generator(self.device).manual_seed(seed)
+        drop_gen = torch.Generator(self.device).manual_seed(seed + 1)
         best, logged = None, []
         for epoch in range(1, args.num_epochs + 1):
             for i, (host, _) in enumerate(self.batches(train_set, True, seed=epoch)):
                 t0 = time.perf_counter()
-                metrics = train_step(self.state, self.device_batch(host), gen, drop_gen)
+                batch = self.device_batch(self.pad_to_global(host))
+                metrics = train_step(self.state, batch, gen, drop_gen)
                 if i % args.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     logged.append(dict(m, epoch=epoch, iter=i))
@@ -281,7 +312,8 @@ class Trainer:
                         f"obj {m['loss_objectness']:.4f} reg {m['loss_rpn_box_reg']:.4f} "
                         f"fg/bg rois {m['fg_rois']:.0f}/{m['bg_rois']:.0f} "
                         f"grad_norm {m['grad_norm']:.4f} ({time.perf_counter() - t0:.2f}s/it)")
-            if epoch % args.eval_interval == 0 or epoch == args.num_epochs:
+            if ddp.is_main() and (epoch % args.eval_interval == 0
+                                  or epoch == args.num_epochs):
                 metric = self.eval(val_set)["classification"]["accuracy"]
                 if best is None or metric > best:
                     best = metric
@@ -292,6 +324,7 @@ class Trainer:
                     self.state, os.path.join(args.save_path, f"epoch_{epoch}"), vars(args),
                     epoch)
                 ckpt_lib.delete_old_checkpoints(args.save_path, args.keep_checkpoints)
+            ddp.barrier()
         return logged
 
     # -- eval ---------------------------------------------------------------
@@ -357,7 +390,10 @@ class Trainer:
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    return ddp.run_driver(_run, parse_args(argv))
+
+
+def _run(args):
     trainer = Trainer(args)
     if args.mode == "train":
         return trainer.train_loop()

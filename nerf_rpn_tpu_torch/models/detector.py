@@ -43,6 +43,7 @@ from nerf_rpn_tpu_torch.ops.aabb import (box_iou_aabb, clip_boxes_to_grid,
                                          obb_center_valid_mask, small_box_mask)
 from nerf_rpn_tpu_torch.ops.nms import nms_mask
 from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.utils.losses import smooth_l1
 
 
@@ -189,16 +190,18 @@ def rcnn_losses(cfg: RCNNConfig, pred_deltas: torch.Tensor, pred_scores: torch.T
                 valid: torch.Tensor) -> dict[str, torch.Tensor]:
     """CE objectness over the valid rows + smooth-L1 on the foreground
     deltas over their count (reference ``compute_loss``,
-    ``detector.py:536-559``); rows (N, .)."""
+    ``detector.py:536-559``); rows (N, .).  Under a process group both
+    counts, and the switch on the foreground count, are the global
+    batch's (summed over the ranks)."""
     logp = F.log_softmax(pred_scores, dim=-1)
     ce = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
     vf = valid.to(ce.dtype)
-    obj_loss = torch.sum(ce * vf) / torch.clamp(torch.sum(vf), min=1.0)
     fg = (labels > 0) & valid
+    n_valid, n_fg = ddp.all_reduce_sum(torch.sum(vf), torch.sum(fg))
+    obj_loss = torch.sum(ce * vf) / torch.clamp(n_valid, min=1.0)
     # non-fg rows encode against themselves: a zero gt would give log(0)
     safe_gt = torch.where(fg[:, None], matched_gt, rois)
     reg = smooth_l1(pred_deltas, cfg.encode(safe_gt, rois), beta=1.0 / 9)
-    n_fg = torch.sum(fg)
     box_loss = torch.where(n_fg > 0, torch.sum(reg * fg[:, None]) / torch.clamp(n_fg, min=1),
                            0.0)
     return {"loss_objectness": obj_loss, "loss_rpn_box_reg": box_loss}

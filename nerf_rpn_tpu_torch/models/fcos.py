@@ -47,6 +47,7 @@ from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask
 from nerf_rpn_tpu_torch.ops.obb import obb2points_3d
 from nerf_rpn_tpu_torch.ops.rotated_iou import box2corners
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.utils.losses import bce_with_logits, sigmoid_focal_loss, smooth_l1
 from nerf_rpn_tpu_torch.utils.projection import project_points
 
@@ -241,15 +242,16 @@ def fcos_losses(cfg: FCOSConfig, cls_logits: torch.Tensor, box_reg: torch.Tensor
     """``loss_cls``, ``loss_reg`` and ``loss_centerness`` of (B, L, 1),
     (B, L, 6|8) and (B, L, 1) head outputs against (B, G, 6|7) gt boxes,
     plus ``dropped_positives``: the positives beyond the gather capacity K,
-    summed over the batch (0 where K holds them all)."""
+    summed over the batch (0 where K holds them all).  ``num_pos_avg`` and
+    ``sum_ctr_avg`` are the global batch's under a process group (summed
+    over the ranks, then clamped)."""
     b, l_total = cls_logits.shape[:2]
     with torch.no_grad():
         labels, reg_targets = fcos_targets(cfg, locations, stride_of_loc, soi, gt, gt_mask)
     valid = (padding_mask if padding_mask is not None
              else torch.ones((b, l_total), dtype=torch.bool, device=cls_logits.device))
     pos = (labels > 0) & valid
-    num_pos_avg = pos.float().sum().clamp_min(1.0)
-    cls_loss = torch.sum(sigmoid_focal_loss(cls_logits[..., 0], labels) * valid) / num_pos_avg
+    n_pos = pos.float().sum()
 
     # the box and centerness losses read only the positive locations:
     # gather them to K = min(L, 128 G) rows a scene, the positives first in
@@ -259,16 +261,20 @@ def fcos_losses(cfg: FCOSConfig, cls_logits: torch.Tensor, box_reg: torch.Tensor
     dropped = torch.zeros((), device=cls_logits.device)
     if 0 < k_pos < l_total:
         _, idx = safe_top_k(pos.float(), k_pos)
-        n_pos = pos.sum()
+        n_all = pos.sum()
         pos = torch.gather(pos, 1, idx)
-        dropped = (n_pos - pos.sum()).float()
+        dropped = (n_all - pos.sum()).float()
         box_reg = torch.gather(box_reg, 1, idx[..., None].expand(-1, -1, box_reg.shape[-1]))
         reg_targets = torch.gather(reg_targets, 1,
                                    idx[..., None].expand(-1, -1, reg_targets.shape[-1]))
         centerness = torch.gather(centerness, 1, idx[..., None])
 
     ctr_targets = torch.where(pos, compute_centerness_targets(reg_targets), 0.0)
-    sum_ctr_avg = ctr_targets.sum().clamp_min(1e-6)
+    # the normalisers of the global batch under a process group
+    n_pos, ctr_sum = ddp.all_reduce_sum(n_pos, ctr_targets.sum())
+    num_pos_avg = n_pos.clamp_min(1.0)
+    sum_ctr_avg = ctr_sum.clamp_min(1e-6)
+    cls_loss = torch.sum(sigmoid_focal_loss(cls_logits[..., 0], labels) * valid) / num_pos_avg
     posf = pos.float()
     # non-positive rows take a safe row before the loss: masked out of the
     # sums, but -log or a decode of garbage would give NaNs that survive a

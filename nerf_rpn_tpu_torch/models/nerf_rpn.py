@@ -108,6 +108,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     ``truncated_normal(0.02)`` (cut at +-0.04, no rescale) and N(0, 0.01)
     RPN-head, RCNN-head (``head.``) and FCOS-head kernels (flax
     ``normal(0.01)``, not truncated).
+    The draws come from ``generator`` on the parameters' device (a CUDA
+    generator for a model on the card).
     BatchNorms, found by module type, start at weight 1, bias 0, running
     mean 0 and running variance 1.  The FCOS head's GroupNorms start at
     weight 1 and bias 0, its scales at 1, and its class logits' bias at
@@ -124,7 +126,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             p.fill_(1.0 if leaf == "weight" else 0.0)
         elif name.startswith("fcos_head."):
             if p.dim() == 5:
-                p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
+                p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype, device=p.device) * 0.01)
             elif name == "fcos_head.cls_logits.bias":
                 p.fill_(-math.log((1 - FCOS_PRIOR_PROB) / FCOS_PRIOR_PROB))
             else:  # GroupNorm weights and scales 1, biases 0
@@ -136,7 +138,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
         elif leaf == "bias":
             p.zero_()
         elif name.startswith(("rpn_head.", "head.")):
-            p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * 0.01)
+            p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype, device=p.device) * 0.01)
         else:
             std = 1.0 / math.sqrt(p[0].numel()) / TRUNCATED_STD
             torch.nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,

@@ -36,6 +36,7 @@ from nerf_rpn_tpu_torch.ops.nms import NEG_INF, nms_mask
 from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d, obb2points_3d
 from nerf_rpn_tpu_torch.ops.rotated_iou import diou_rotated_3d, giou_rotated_3d, iou_rotated_3d
 from nerf_rpn_tpu_torch.ops.topk import safe_top_k
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.utils.losses import bce_with_logits, smooth_l1
 from nerf_rpn_tpu_torch.utils.projection import project_points
 from nerf_rpn_tpu_torch.utils.target_assign import match_anchors, sample_balanced_indices
@@ -318,15 +319,17 @@ def rpn_losses_at(cfg: RPNConfig, objectness: torch.Tensor,
 
     ``objectness`` (B, N); ``pred_deltas`` the head's native per-level
     outputs, split from the flat anchor index by ``level_counts`` and
-    ``anchors_per_loc``.  Every normaliser is summed over the whole batch:
-    ``num_sampled = max(sum(pos_take) + sum(neg_take), 1)``.  The box term
-    is smooth-L1 on the deltas, or the rotated IoU loss of the decoded
-    proposals against their matched gt boxes.
+    ``anchors_per_loc``.  Every normaliser is summed over the whole batch,
+    the global one under a process group (summed over the ranks, then
+    clamped): ``num_sampled = max(sum(pos_take) + sum(neg_take), 1)``.  The
+    box term is smooth-L1 on the deltas, or the rotated IoU loss of the
+    decoded proposals against their matched gt boxes.
     """
     pos_idx, pos_take, neg_idx, neg_take = indices
     b = objectness.shape[0]
-    num_sampled = torch.clamp_min(pos_take.sum() + neg_take.sum(), 1).float()
-    num_pos = torch.clamp_min(pos_take.sum(), 1).float()
+    n_pos, n_neg = ddp.all_reduce_sum(pos_take.sum(), neg_take.sum())
+    num_sampled = torch.clamp_min(n_pos + n_neg, 1).float()
+    num_pos = torch.clamp_min(n_pos, 1).float()
 
     obj_pos = torch.gather(objectness, 1, pos_idx)
     obj_neg = torch.gather(objectness, 1, neg_idx)

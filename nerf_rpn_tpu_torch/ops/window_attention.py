@@ -104,21 +104,23 @@ def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                num_heads: int) -> torch.Tensor:
     """Plain PyTorch twin of the kernel (same arguments, same rounding:
     q scaled in its own dtype, f32 logits and softmax, P cast to the input
-    dtype, f32 accumulation)."""
+    dtype, f32 accumulation; f64 throughout for f64 input, which the kernel
+    does not take)."""
     w, c, nw = _check(qkv, bias, mask, num_heads)
     n = qkv.shape[1]
     d = c // num_heads
+    acc = torch.promote_types(qkv.dtype, torch.float32)
     scale = torch.tensor(d ** -0.5, dtype=qkv.dtype, device=qkv.device)
     q, k, v = qkv.reshape(w, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
-    s = s + bias.float()[None]
+    s = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
+    s = s + bias.to(acc)[None]
     if mask is not None:
-        s = s.reshape(w // nw, nw, num_heads, n, n) + mask.float()[None, :, None]
+        s = s.reshape(w // nw, nw, num_heads, n, n) + mask.to(acc)[None, :, None]
         s = s.reshape(w, num_heads, n, n)
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = (e / e.sum(dim=-1, keepdim=True)).to(qkv.dtype)
-    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    out = torch.matmul(p.to(acc), v.to(acc)).to(qkv.dtype)
     return out.transpose(1, 2).reshape(w, n, c)
 
 
@@ -172,9 +174,11 @@ def window_attention_backward_reference(
     its own dtype; ``dv = round(p)^T dout``; ``ds = p (dp - rowsum(dp p))``
     in f32; ``dq = (round(ds) k) * scale``, ``dk = round(ds)^T qs``, each
     product accumulated in f32 and rounded to the qkv dtype; ``dbias`` the
-    f32 sum of the unrounded ``ds`` over windows.
+    f32 sum of the unrounded ``ds`` over windows.  f64 input computes in
+    f64 throughout (the kernel does not take it).
 
-    Returns ``(dqkv (W, 64, 3C) in the qkv dtype, dbias (H, 64, 64) f32)``.
+    Returns ``(dqkv (W, 64, 3C) in the qkv dtype, dbias (H, 64, 64) f32, f64
+    for f64 input)``.
     """
     w, c, nw = _check(qkv, bias, mask, num_heads)
     if tuple(dout.shape) != (w, qkv.shape[1], c):
@@ -182,22 +186,23 @@ def window_attention_backward_reference(
     n = qkv.shape[1]
     d = c // num_heads
     dt = qkv.dtype
+    acc = torch.promote_types(dt, torch.float32)
     scale = d ** -0.5
     q, k, v = qkv.reshape(w, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    qs = (q * torch.tensor(scale, dtype=dt, device=qkv.device)).float()
-    k, v = k.float(), v.float()
-    g = dout.to(dt).reshape(w, n, num_heads, d).transpose(1, 2).float()
-    s = torch.matmul(qs, k.transpose(-1, -2)) + bias.float()[None]
+    qs = (q * torch.tensor(scale, dtype=dt, device=qkv.device)).to(acc)
+    k, v = k.to(acc), v.to(acc)
+    g = dout.to(dt).reshape(w, n, num_heads, d).transpose(1, 2).to(acc)
+    s = torch.matmul(qs, k.transpose(-1, -2)) + bias.to(acc)[None]
     if mask is not None:
-        s = s.reshape(w // nw, nw, num_heads, n, n) + mask.float()[None, :, None]
+        s = s.reshape(w // nw, nw, num_heads, n, n) + mask.to(acc)[None, :, None]
         s = s.reshape(w, num_heads, n, n)
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = e / e.sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), g).to(dt)
+    dv = torch.matmul(p.to(dt).to(acc).transpose(-1, -2), g).to(dt)
     dp = torch.matmul(g, v.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dsb = ds.to(dt).float()
+    dsb = ds.to(dt).to(acc)
     dq = (torch.matmul(dsb, k) * scale).to(dt)
     dk = torch.matmul(dsb.transpose(-1, -2), qs).to(dt)
     # (3, W, H, N, D) -> (W, N, 3, H, D): the [q | k | v] lane layout
@@ -285,13 +290,14 @@ def window_attention_backward(qkv: torch.Tensor, dout: torch.Tensor,
 class WindowAttention(torch.autograd.Function):
     """Differentiable window attention: K1 forward, K2 backward (their
     twins on CPU tensors).  ``apply(qkv, bias, mask, num_heads)``; the
-    bias is cast to a contiguous f32 tensor once, and the backward sees the
-    tensors the forward saw; the mask is a constant of the window geometry
-    and gets no gradient, as the JAX VJP gives it zeros."""
+    bias is cast to a contiguous f32 tensor (f64 for f64 qkv, on the CPU)
+    once, and the backward sees the tensors the forward saw; the mask is a
+    constant of the window geometry and gets no gradient, as the JAX VJP
+    gives it zeros."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, num_heads):
-        bias = bias.float().contiguous()
+        bias = bias.to(torch.promote_types(qkv.dtype, torch.float32)).contiguous()
         ctx.num_heads = num_heads
         ctx.save_for_backward(qkv, bias, mask)
         return window_attention(qkv, bias, mask, num_heads)

@@ -13,6 +13,11 @@ where torch's stock pieces differ from it:
 - AdamW (b1 0.9, b2 0.999, eps 1e-8) decays every trained parameter, as
   optax's ``adamw`` does without a mask.
 
+Under a process group the gradients are summed over the ranks before the
+clip (``parallel.ddp.all_reduce_grads_``): each rank's loss is divided by
+the global normalisers, so the sum is the gradient of the global batch,
+and ``grad_norm`` is the global batch's.
+
 With ``freeze_backbone`` the backbone's parameters are left out of the
 optimizer (no update, no decay) and of the clip norm, as
 ``optax.multi_transform(..., set_to_zero)`` leaves them in the JAX CLI.
@@ -24,6 +29,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from nerf_rpn_tpu_torch.parallel import ddp
 
 
 def onecycle_factor(step: int, total_steps: int, pct_start: float = 0.3,
@@ -98,10 +105,12 @@ class TrainState:
             lambda s: onecycle_factor(s, total_steps, pct_start))
 
     def apply_gradients(self) -> torch.Tensor:
-        """Clip, update, advance the schedule; returns the pre-clip norm."""
+        """Sum the gradients over the ranks, clip, update, advance the
+        schedule; returns the pre-clip norm."""
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             raise RuntimeError("a trained parameter received no gradient")
+        ddp.all_reduce_grads_(grads)
         norm = clip_by_global_norm_(grads, self.clip_grad_norm)
         self.optimizer.step()
         self.scheduler.step()

@@ -32,6 +32,14 @@ the positives beyond the loss's gather capacity (``models/fcos.py``).
 ``eval_step.forward`` gives the flattened (B, L, .) head outputs and the
 voxel scores, ``eval_step.propose`` the proposals.
 
+Under a process group (``parallel/ddp.py``) each rank runs a train step on
+its share of the global batch: the losses divide by the global batch's
+normalisers, the gradients are summed over the ranks before the clip, the
+BatchNorms take the global batch's statistics, and the loss terms and
+counts in the metrics are the global batch's.  So every rank takes the
+step that one process takes on the whole batch, as the JAX step is one
+``jit`` over it.  The eval steps run no collective: rank 0 evaluates alone.
+
 The RCNN steps (``make_rcnn_train_step``, ``make_rcnn_eval_step``,
 ``make_rcnn_filter_step``) run the second stage on an ``RCNNDetector``:
 the FPN levels come from the batch (``features``) or, for
@@ -59,7 +67,15 @@ from nerf_rpn_tpu_torch.models import rpn as rpn_lib
 from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
 from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.train.state import global_norm
+
+
+def global_terms(**terms: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The train metrics that are sums over scenes (the loss terms, each a
+    rank's numerator over the global normaliser; the counts), detached and
+    summed over the ranks: the global batch's."""
+    return dict(zip(terms, ddp.all_reduce_sum(*(v.detach() for v in terms.values()))))
 
 
 def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
@@ -134,8 +150,7 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                  + cfg.reg_loss_weight_2d * losses["loss_rpn_box_reg_2d"])
         total.backward()
         grad_norm = state.apply_gradients()
-        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
-                "grad_norm": grad_norm,
+        return {**global_terms(loss=total, **losses), "grad_norm": grad_norm,
                 "param_norm": global_norm(list(model.parameters()))}
 
     return train_step
@@ -232,8 +247,7 @@ def make_fcos_train_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
         total = losses["loss_cls"] + losses["loss_reg"] + losses["loss_centerness"]
         total.backward()
         grad_norm = state.apply_gradients()
-        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
-                "grad_norm": grad_norm,
+        return {**global_terms(loss=total, **losses), "grad_norm": grad_norm,
                 "param_norm": global_norm(list(model.parameters()))}
 
     return train_step
@@ -331,10 +345,9 @@ def make_rcnn_train_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[fl
                     p.grad = torch.zeros_like(p)
         grad_norm = state.apply_gradients()
         fg = s["labels"] > 0
-        return {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()},
-                "grad_norm": grad_norm,
-                "param_norm": global_norm(list(model.parameters())),
-                "fg_rois": (fg & s["valid"]).sum(), "bg_rois": (~fg & s["valid"]).sum()}
+        return {**global_terms(loss=total, **losses, fg_rois=(fg & s["valid"]).sum(),
+                               bg_rois=(~fg & s["valid"]).sum()),
+                "grad_norm": grad_norm, "param_norm": global_norm(list(model.parameters()))}
 
     return train_step
 

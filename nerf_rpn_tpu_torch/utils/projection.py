@@ -42,8 +42,10 @@ def camera_rig(res: int = 160) -> tuple[np.ndarray, np.ndarray]:
 
 
 def project_points(points: torch.Tensor, res: int) -> torch.Tensor:
-    """(..., 3) points -> (..., 4, 2) pixel coordinates, one per camera."""
-    k, w2cs = (torch.from_numpy(a).to(points.device) for a in camera_rig(res))
+    """(..., 3) points -> (..., 4, 2) pixel coordinates, one per camera (the
+    rig's f32 constants, widened for f64 points)."""
+    dtype = torch.promote_types(points.dtype, torch.float32)
+    k, w2cs = (torch.from_numpy(a).to(points.device, dtype) for a in camera_rig(res))
     homo = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
     cam = torch.einsum("cij,...j->...ci", w2cs, homo)
     pic = torch.einsum("ij,...cj->...ci", k, cam[..., :3])

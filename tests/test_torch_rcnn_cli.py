@@ -16,8 +16,8 @@
 - the batches keep the JAX driver's order, drop and padding;
 - ``--pretrained`` loads the backbone of a stage-1 checkpoint exactly and
   raises on a file that does not load (the JAX driver warns and goes on),
-  and is refused without ``--fine_tune``; ``--gpus`` / ``--wandb`` are
-  refused; without a GPU the default device raises.
+  and is refused without ``--fine_tune``; ``--wandb`` is refused;
+  without a GPU the default device and ``--gpus`` raise.
 """
 
 import json
@@ -181,9 +181,13 @@ def test_pretrained_loads_the_stage1_backbone_exactly(data, stage1):
 
 def test_refusals_and_a_pretrained_file_that_does_not_load(data, stage1, tmp_path):
     base = _detect_args(data, os.path.join(data, "rois"), str(tmp_path))
-    for extra in (["--gpus", "0,1"], ["--wandb"]):
-        with pytest.raises(NotImplementedError, match="DDP"):
-            run_rpn_detect.parse_args([*base, *extra])
+    with pytest.raises(NotImplementedError, match="wandb"):
+        run_rpn_detect.parse_args([*base, "--wandb"])
+    # --gpus names CUDA devices: missing here, and never beside --device cpu
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_rpn_detect.main([*base, "--device", "cuda", "--gpus", "0,1"])
+    with pytest.raises(ValueError, match="--device cpu"):
+        run_rpn_detect.main([*base, "--gpus", "0-3"])
     with pytest.raises(ValueError, match="--fine_tune"):
         run_rpn_detect.parse_args([*base, "--pretrained", "x"])
     assert run_rpn_detect.parse_args([*base, "--use_cuda"]).use_cuda

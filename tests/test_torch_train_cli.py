@@ -4,7 +4,9 @@ One epoch over 2 training scenes and 1 validation scene (swin_t,
 ``conv_depth`` 1): finite losses, ``model_best`` and ``epoch_1`` written
 with their sidecars, and ``--mode eval --checkpoint model_best`` giving
 the same proposals as the in-memory model.  ``delete_old_checkpoints``
-keeps the newest ``--keep_checkpoints`` by mtime.
+keeps the newest ``--keep_checkpoints`` by mtime.  ``--gpus`` (the
+reference's ``0-3`` and ``0,1,2,3`` forms) needs CUDA; ``--wandb`` is
+refused.
 """
 
 import json
@@ -16,6 +18,7 @@ import torch
 
 from nerf_rpn_tpu.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
+from nerf_rpn_tpu_torch.parallel import ddp
 from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -103,5 +106,28 @@ def test_delete_old_checkpoints_keeps_the_newest(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--gpus", "0,1"], ["--wandb"], ["--reg_loss_type", "giou"]])
 def test_unported_train_flags_raise(flag, tmp_path):
+    """``--wandb`` and an AABB IoU loss are refused; ``--gpus`` trains on
+    CUDA devices, so on this CPU-only machine it raises the missing-CUDA
+    error of ``resolve_device`` (and beside ``--device cpu`` a
+    ``ValueError``): nothing falls back to the CPU."""
+    if flag[0] == "--gpus":
+        with pytest.raises(RuntimeError, match="cuda"):
+            run_rpn.main(["--mode", "train", "--save_path", str(tmp_path), *flag])
+        with pytest.raises(ValueError, match="--device cpu"):
+            run_rpn.main(["--mode", "train", "--device", "cpu", "--save_path", str(tmp_path),
+                          *flag])
+        return
     with pytest.raises(NotImplementedError):
         run_rpn.main(["--mode", "train", "--device", "cpu", "--save_path", str(tmp_path), *flag])
+
+
+@pytest.mark.parametrize("spec, gpus", [("0-3", [0, 1, 2, 3]), ("0,1,2,3", [0, 1, 2, 3]),
+                                        ("0-1,3", [0, 1, 3]), ("2", [2]), ("", [])])
+def test_parse_gpus_takes_the_references_forms(spec, gpus):
+    assert ddp.parse_gpus(spec) == gpus
+
+
+@pytest.mark.parametrize("spec", ["a", "0-", "3-1", "0,0", "-1"])
+def test_parse_gpus_refuses_malformed_lists(spec):
+    with pytest.raises(ValueError, match="--gpus"):
+        run_rpn.parse_args(["--gpus", spec])

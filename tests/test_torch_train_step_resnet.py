@@ -12,6 +12,11 @@ parameters and the new running statistics -- and the same with
 ``--freeze_backbone``, where JAX's ``multi_transform`` zeroes the
 backbone's updates but its forward still moves the running statistics.
 
+The same step on two ranks (``parallel/ddp.py``: gloo, a scene each,
+``test_torch_ddp_steps.world2_steps``) is held to JAX's step at batch 2 --
+JAX's global jit is its SPMD step (``test_multidevice.py``) -- at the same
+tolerances, and the ranks to each other bit for bit.
+
 Tolerances: the loss terms and norms within 1e-4 (relative), each
 gradient leaf within 1e-3 of its largest entry, the updated parameters
 within one Adam step and, where the gradient is clear, within 1e-3 of a
@@ -26,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import test_torch_ddp_steps as ddp_steps
 import torch
 
 from nerf_rpn_tpu.models import rpn as jrpn
@@ -174,11 +180,34 @@ def test_every_gradient_leaf(steps):
 
 def test_updated_params_and_running_statistics(steps):
     r, freeze = steps
+    _check_update(r, freeze, r["port"].state_dict(), r["got_grads"])
+
+
+def test_world2_step_matches_jax(steps, inputs, tmp_path):
+    r, freeze = steps
+    _, params, stats, b = inputs
+    port = NeRFRPN("resnet_tiny", conv_depth=1)
+    port.load_state_dict(weights.from_jax_params(params, stats, port.backbone), strict=True)
+    ddp_steps.save_case(tmp_path, port, {k: torch.from_numpy(v) for k, v in b.items()},
+                        _jax_indices(b, jax.random.PRNGKey(5)), SHAPE, freeze)
+    load, flags = ddp_steps.world2_steps(tmp_path, (ddp_steps.SAVED,))
+    assert all(f[ddp_steps.SAVED]["broadcast_equal"] and f[ddp_steps.SAVED]["ranks_equal"]
+               for f in flags)
+    got = load(ddp_steps.SAVED)
+    for k in ("loss", "loss_objectness", "loss_rpn_box_reg", "grad_norm", "param_norm"):
+        np.testing.assert_allclose(got["metrics"][k].item(), r["jm"][k], rtol=1e-4, err_msg=k)
+    # the clear-gradient mask from the global batch's gradient
+    _check_update(r, freeze, got["state"], got["grads"])
+
+
+def _check_update(r, freeze, state, grads):
+    """``state`` (the port's weights after the step, with ``grads``) against
+    JAX's updated parameters and running statistics."""
     port = r["port"]
     want = weights.from_jax_params(r["new_params"], r["new_stats"], port.backbone)
     before = weights.from_jax_params(r["params"], r["stats"], port.backbone)
     lr0 = LR / 25.0
-    for name, p in port.state_dict().items():
+    for name, p in state.items():
         if name.endswith("num_batches_tracked"):
             assert int(p) == 1, name
             continue
@@ -196,7 +225,7 @@ def test_updated_params_and_running_statistics(steps):
         # entries with a clear gradient (BatchNorm scales and biases
         # included) must take the same step: 1e-3 of a step, plus the f32
         # rounding of the parameter itself
-        g = r["got_grads"][name]
+        g = grads[name]
         clear = g.abs() > 1e-2 * g.abs().max()
         assert clear.any(), name
         step_port = (p - before[name])[clear]
@@ -206,4 +235,4 @@ def test_updated_params_and_running_statistics(steps):
         assert torch.allclose(step_port, step_jax, rtol=0, atol=atol), (
             name, (step_port - step_jax).abs().max().item(), atol)
     # the clear-gradient check reached the backbone's BatchNorm scales
-    assert freeze or any(".bn" in n and n.endswith(".weight") for n in r["got_grads"])
+    assert freeze or any(".bn" in n and n.endswith(".weight") for n in grads)
