@@ -168,7 +168,30 @@ nonzero before the result lines:
    ``run_fcos --gpus 0`` and ``run_rpn_detect --gpus 0`` for two steps
    each, ``model_best`` written by rank 0; (c) the RPN train step in a
    group of one and alone, in turns.  One card shows no scaling across
-   cards.
+   cards;
+26. checkpoint formats (``train/checkpoint.py``, ``tools/convert_weights``):
+   phase 13's OBB Swin-S ``model_best`` as the port writes it, as a
+   released reference ``.pt`` (the head in the reference's anchor order,
+   no marker) and as the ``.msgpack`` that the port's converter makes of
+   that ``.pt`` -- the seconds each takes to load, then ``run_rpn --mode
+   eval --output_proposals`` on 2 scenes from each, byte-equal files and a
+   batch's launches each; phase 16's FCOS ``model_best`` through
+   ``.msgpack``, its eval byte-equal to phase 16's; ``run_rpn_detect
+   --pretrained`` of the RPN ``.msgpack`` equal to that of the ``.pt``;
+27. scene-parallel eval (``ddp.eval_blocks``, ``gather_scenes``): the
+   drivers' ``--mode eval`` at ``--batch_size 2`` on 3 scenes (a ragged
+   last batch) from the checkpoints of phases 10 (RPN AABB, with
+   ``--save_results --output_voxel_scores``), 13 (RPN OBB), 16 (FCOS OBB)
+   and 23 (RCNN fine-tune) on two ranks of the card (gloo): each rank's
+   launches, the ranks' files byte-equal to one process's at batch 1 (the
+   same batches), one process at batch 2 reporting within rounding of it
+   (Recall to a gt box, AP to 1e-3; its proposals read against the
+   split's: ``same_reports``); ``run_rpn --mode eval --gpus 0``
+   (NCCL, a group of one) byte-equal to the one process at batch 2; the
+   seconds of every run;
+28. the five ported tools on phases 26-27's files: the ``.msgpack`` read
+   back, ``proposals2ngp``, ``render_heatmap``, ``visualize_rpn_input`` and
+   ``visualize_bbox`` -- their JSON, PLY and PNG files written and finite.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -183,9 +206,10 @@ operations over the peak rate for their type.
 
 Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
 eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
-fine-tune and features paths, and phase 25's ``--gpus 0`` paths) runs
-with the launch counts set to 0 just before it and read just after; a
-kernel's ``launches`` in the record is its sum over them.  The last three
+fine-tune and features paths, phase 25's ``--gpus 0`` paths, phase 26's
+evals from each format and phase 27's evals, on the ranks and in one
+process) runs with the launch counts set to 0 just before it and read just
+after; a kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
 """
@@ -2908,6 +2932,438 @@ def time_gpus_flag(torch, data, common, steps=10, card=""):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# Checkpoint formats, scene-parallel eval and the tools (phases 26-28)
+# ---------------------------------------------------------------------------
+
+
+def eval_launches(batches, scenes, rotated=False, rcnn=False):
+    """Launches of a Swin eval over ``batches`` batches of ``scenes``
+    scenes in all (padding included): K5 24, K6 24, K4 12 and K1 12 a
+    batch; the anchor RPN's and FCOS's propose K3 (AABB) and the resolve
+    kernel once a batch; the RCNN filter the resolve kernel once a
+    scene."""
+    return {"window_attention_fwd": 12 * batches, "window_attention_bwd": 0,
+            "ln_partition_qkv": 24 * batches, "fused_mlp_block": 24 * batches,
+            "fused_window_attention": 12 * batches,
+            "aabb_suppression_graph": 0 if rotated or rcnn else batches,
+            "nms_resolve": scenes if rcnn else batches}
+
+
+def check_launches(launches, want, path):
+    if launches != want:
+        fail(f"{path}: launches {launches}, expected {want}")
+    print(f"[{path}] launches {json.dumps(launches)}", flush=True)
+
+
+def tree_files(root):
+    """{relative path: bytes} of the files under ``root`` (logs aside)."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if not n.endswith(".log"):
+                with open(os.path.join(d, n), "rb") as f:
+                    out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def same_files(a, b, what):
+    fa, fb = tree_files(a), tree_files(b)
+    if sorted(fa) != sorted(fb):
+        fail(f"{what}: files {sorted(fa)} against {sorted(fb)}")
+    differ = [k for k in fa if fa[k] != fb[k]]
+    if differ:
+        fail(f"{what}: {differ} differ")
+    return len(fa)
+
+
+def reference_layout_pt(torch, port_ckpt, path):
+    """A port checkpoint as a released reference file: the anchor-RPN head's
+    channels in the reference's anchor order and no ``anchor_order``."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.models.anchors import DEFAULT_ASPECT_RATIOS, anchor_permutation
+
+    ckpt = torch.load(port_ckpt, map_location="cpu", weights_only=True)
+    inv = torch.from_numpy(np.argsort(anchor_permutation(DEFAULT_ASPECT_RATIOS[0])))
+    head = {}
+    for k, v in ckpt["rpn_head_state_dict"].items():
+        if k.split(".")[0] in ("cls_logits", "bbox_pred"):
+            v = v.reshape(len(inv), -1, *v.shape[1:])[inv].reshape(v.shape)
+        head[k] = v
+    torch.save({"epoch": ckpt["epoch"], "train_args": ckpt["train_args"],
+                "backbone_state_dict": ckpt["backbone_state_dict"],
+                "rpn_head_state_dict": head}, path)
+
+
+def run_checkpoint_formats(torch, work, rpn_common, rpn_ckpt, fcos_common, fcos_ckpt,
+                           fcos_eval_dir, rcnn_common, backbone="swin_s"):
+    """Phase 26: the OBB RPN's ``model_best`` (``rpn_ckpt``, phase 13) as the
+    port writes it, as a released reference ``.pt`` (head in the
+    reference's anchor order, no marker) and as the ``.msgpack`` that
+    ``tools/convert_weights`` makes of that ``.pt``: each loaded into a
+    fresh model (seconds), then ``run_rpn --mode eval --output_proposals``
+    on the 2 test scenes from each -- byte-equal proposal files and
+    ``eval.json``, a batch's launches each.  The FCOS ``model_best``
+    (phase 16) through ``.msgpack``: ``run_fcos --mode eval`` equal, byte
+    for byte, to phase 16's eval of the ``.pt`` (``fcos_eval_dir``).
+    ``run_rpn_detect --pretrained`` of the RPN ``.msgpack``: the backbone
+    of ``--pretrained rpn_ckpt``.  Returns (launches by path, the
+    ``.msgpack`` path, the RPN eval's output directory)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn, run_rpn_detect
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN
+    from nerf_rpn_tpu_torch.tools import convert_weights
+    from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
+
+    root = os.path.join(work, "ckpt_formats")
+    os.makedirs(root, exist_ok=True)
+    files = {"port .pt": rpn_ckpt, "reference .pt": os.path.join(root, "reference.pt"),
+             ".msgpack": os.path.join(root, "rpn.msgpack")}
+    reference_layout_pt(torch, rpn_ckpt, files["reference .pt"])
+    t0 = time.perf_counter()
+    convert_weights.main(["--checkpoint", files["reference .pt"], "--backbone_type", backbone,
+                          "--rotated", "--out", files[".msgpack"]])
+    convert_s = time.perf_counter() - t0
+    args = run_rpn.parse_args(["--mode", "eval", *rpn_common])
+    load_s = {}
+    for kind, path in files.items():
+        model = NeRFRPN(args.backbone_type, conv_depth=args.rpn_head_conv_depth, rotated=True,
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                        resolution=args.resolution)
+        t0 = time.perf_counter()
+        ckpt_lib.restore_checkpoint(model, path)
+        load_s[kind] = time.perf_counter() - t0
+        del model
+    paths, outs = {}, {}
+    for kind, path in files.items():
+        outs[kind] = os.path.join(root, kind.replace(" ", "_").replace(".", ""))
+        kernels.reset_counts()
+        recalls, _ = run_rpn.main(["--mode", "eval", "--checkpoint", path, "--save_path",
+                                   outs[kind], "--output_proposals", *rpn_common])
+        torch.cuda.synchronize()
+        paths[f"rpn obb eval from {kind}"] = kernels.counts()
+        check_launches(paths[f"rpn obb eval from {kind}"], eval_launches(1, 2, rotated=True),
+                       f"rpn obb eval from {kind}")
+        if not np.all(np.isfinite(recalls)):
+            fail(f"checkpoint formats: recalls {recalls} from {kind}")
+    for kind in (".msgpack", "reference .pt"):
+        n = same_files(outs[kind], outs["port .pt"], f"run_rpn eval from the {kind}")
+    kernels.reset_counts()
+    fcos_msgpack = os.path.join(root, "fcos.msgpack")
+    convert_weights.main(["--checkpoint", fcos_ckpt, "--backbone_type", backbone, "--fcos",
+                          "--out", fcos_msgpack])
+    fcos_out = os.path.join(root, "fcos_msgpack")
+    run_fcos.main(["--mode", "eval", "--checkpoint", fcos_msgpack, "--save_path", fcos_out,
+                   "--output_proposals", "--save_level_index", *fcos_common])
+    torch.cuda.synchronize()
+    paths["fcos obb eval from .msgpack"] = kernels.counts()
+    check_launches(paths["fcos obb eval from .msgpack"], eval_launches(1, 2, rotated=True),
+                   "fcos obb eval from .msgpack")
+    n_fcos = same_files(fcos_out, fcos_eval_dir, "run_fcos eval from the .msgpack")
+    backbones = []
+    for pre in (rpn_ckpt, files[".msgpack"]):
+        t = run_rpn_detect.Trainer(run_rpn_detect.parse_args(
+            ["--mode", "train", *rcnn_common, "--pretrained", pre]))
+        backbones.append({k: v.cpu() for k, v in t.model.backbone.state_dict().items()})
+        del t
+    if any(not torch.equal(v, backbones[1][k]) for k, v in backbones[0].items()):
+        fail("run_rpn_detect --pretrained: the .msgpack's backbone differs from the .pt's")
+    print(f"[checkpoint formats] convert_weights (reference .pt -> .msgpack) {convert_s:.2f} s; "
+          f"load into a fresh model: " + ", ".join(f"{k} {v:.3f} s" for k, v in load_s.items())
+          + f"; run_rpn eval byte-equal from all three ({n} files), run_fcos from .msgpack "
+          f"equal to the .pt's ({n_fcos} files), run_rpn_detect --pretrained .msgpack equal",
+          flush=True)
+    return paths, files[".msgpack"], outs["port .pt"]
+
+
+def write_split3(np, data):
+    """``split3.npz`` in ``data``: its split with 3 test scenes (the last
+    validation scene and the 2 test scenes), so that a batch of 2 leaves a
+    ragged batch of 1."""
+    path = os.path.join(data, "split3.npz")
+    with np.load(os.path.join(data, "split.npz")) as z:
+        split = {k: z[k] for k in z.files}
+    split["test_scenes"] = np.concatenate([split["val_scenes"][-1:], split["test_scenes"]])
+    np.savez(path, **split)
+    return path
+
+
+def eval_split_cases(np, work, rcnn_common, **data_kw):
+    """Phase 27's cases, on 3 scenes (``split3.npz``) from the checkpoints
+    of phases 10 (RPN AABB), 13 (RPN OBB), 16 (FCOS OBB) and 23 (RCNN
+    fine-tune); the RPN AABB case also writes ``--save_results`` and
+    ``--output_voxel_scores``, the FCOS case ``--output_voxel_scores``.
+    ``data_kw`` goes to ``write_train_data`` (a rehearsal's size)."""
+    out = []
+    for name, driver, save, rotated, extra in (
+            ("rpn aabb", "run_rpn", "train", False, ["--save_results", "--output_voxel_scores"]),
+            ("rpn obb", "run_rpn", "obb_train", True, []),
+            ("fcos obb", "run_fcos", "fcos_obb_train", True,
+             [*FCOS_TRAIN_FLAGS, "--save_level_index", "--output_voxel_scores"])):
+        data, common = write_train_data(work, rotated=rotated, **data_kw)
+        out.append((name, driver, ["--mode", "eval", *common, *extra, "--output_proposals",
+                                   "--checkpoint", os.path.join(work, save, "model_best"),
+                                   "--dataset_split", write_split3(np, data)]))
+    data = rcnn_common[rcnn_common.index("--boxes_path") + 1]
+    out.append(("rcnn fine-tune", "run_rpn_detect",
+                ["--mode", "eval", *rcnn_common, "--output_proposals",
+                 "--checkpoint", os.path.join(work, "rcnn", "model_best"),
+                 "--dataset_split", write_split3(np, data)]))
+    return out
+
+
+def _eval_split_rank(work, cases, dev):
+    """A rank of phase 27, on ``dev``: each case through its driver's
+    ``_run`` (the ``--mode eval`` that ``run_driver`` calls on a rank) at
+    ``--batch_size 2``; writes ``eval_split_rank<r>.json``: launches and
+    seconds a case."""
+    import importlib
+
+    import torch
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+
+    r, out = ddp.rank(), {}
+    for name, driver, argv in cases:
+        cli = importlib.import_module(f"nerf_rpn_tpu_torch.cli.{driver}")
+        args = cli.parse_args([*argv, "--batch_size", "2",
+                               "--save_path", os.path.join(work, name, f"rank{r}")])
+        args.device = str(dev)
+        ddp.barrier()
+        t0 = time.perf_counter()
+        kernels.reset_counts()
+        cli._run(args)
+        torch.cuda.synchronize()
+        out[name] = {"launches": kernels.counts(), "seconds": time.perf_counter() - t0}
+    with open(os.path.join(work, f"eval_split_rank{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def same_reports(np, a, b, box_tol, what):
+    """Two eval runs of one set of scenes at other batch compositions,
+    where the convolutions and GEMMs round otherwise: the reports must
+    agree -- Recall within one gt box (1 / num_pos), AP and the
+    classification metrics within 1e-3.  The proposals are read, not
+    gated: bf16 scores tie by the thousand, so a rounding elsewhere selects
+    other tied candidates at the pre-NMS top-k and the NMS chains after it
+    (on an H100, 12% of the RPN AABB proposals had no partner within 1e-2
+    of the grid, with Recall equal).  Readings: the largest count
+    difference (share), the share of proposals above a scene's lowest
+    kept score without a partner within ``box_tol`` by centre and sizes (a
+    near-degenerate OBB's angle comes from an edge of ~0 length), and the
+    worst partnered error."""
+    with open(os.path.join(a, "eval.json")) as fa, open(os.path.join(b, "eval.json")) as fb:
+        ja, jb = json.load(fa), json.load(fb)
+    recall = [abs(ja[k]["ar"] - jb[k]["ar"]) for k in ja if "ar" in ja[k]]
+    num_pos = min([ja[k]["num_pos"] for k in ja if "num_pos" in ja[k]] or [1])
+    metrics = [abs(ja[k][kk] - jb[k][kk]) for k in ja for kk in ja[k]
+               if kk in ("ap", "precision", "accuracy", "precision_100")]
+    n = matched = counts = 0
+    worst = 0.0
+    for name in sorted(os.listdir(os.path.join(a, "proposals"))):
+        with np.load(os.path.join(a, "proposals", name)) as za, \
+                np.load(os.path.join(b, "proposals", name)) as zb:
+            pa, pb, sa = za["proposal"][:, :6], zb["proposal"][:, :6], za["score"]
+        counts = max(counts, abs(len(pa) - len(pb)) / max(len(pa), 1))
+        above = pa[sa > sa.min()] if len(sa) else pa
+        if len(above) and len(pb):
+            err = np.abs(above[:, None, :] - pb[None, :, :]).max(-1).min(1)
+            n, matched = n + len(err), matched + int((err <= box_tol).sum())
+            worst = max(worst, float(err[err <= box_tol].max(initial=0.0)))
+    readings = {"recall": max(recall, default=0.0), "num_pos": num_pos,
+                "ap_and_classification": max(metrics, default=0.0),
+                "proposal_counts": counts, "unmatched": 1.0 - matched / max(n, 1),
+                "worst_matched_box": worst}
+    if not (readings["recall"] <= 1.0 / num_pos + 1e-6
+            and readings["ap_and_classification"] <= 1e-3):
+        fail(f"{what}: {readings}")
+    return readings
+
+
+def check_eval_split(torch, work, cases, dev, gpus_case=None, resolution=160):
+    """Phase 27: ``cases`` (name, driver, ``--mode eval`` arguments) on 3
+    scenes at ``--batch_size 2`` on two ranks of one card (``ddp.launch``,
+    gloo: NCCL refuses two ranks on one device): a batch of 2 splits (a
+    scene a rank), the ragged last batch goes to rank 0 alone.  The ranks'
+    files together must equal, byte for byte, one process's at
+    ``--batch_size 1`` (the same batches), and rank 0 alone writes
+    ``eval.json`` and the proposals; one process at ``--batch_size 2``
+    (the whole batch) must read within rounding of it
+    (``same_reports``).  Launches a rank and a run
+    are asserted.  Then ``gpus_case`` through ``--gpus 0`` (NCCL, a group
+    of one): its files byte-equal to the one process's at batch 2.
+    Prints the seconds of every run; returns the launches by path."""
+    import importlib
+
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+
+    root = os.path.join(work, "eval_split")
+    t0 = time.perf_counter()
+    ddp.launch(_eval_split_rank, (root, cases, dev), [dev, dev], "gloo")
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(root, f"eval_split_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    paths, lines = {}, []
+    for name, driver, argv in cases:
+        cli = importlib.import_module(f"nerf_rpn_tpu_torch.cli.{driver}")
+        rcnn, rotated = driver == "run_rpn_detect", "--rotated_bbox" in argv
+        # rank 0: a batch of 1 of the split pair, then the ragged scene (the
+        # RCNN driver's padded pair: the real half); rank 1: the other
+        for r, (batches, scenes) in enumerate(((2, 2), (1, 1))):
+            check_launches(ranks[r][name]["launches"],
+                           eval_launches(batches, scenes, rotated, rcnn), f"{name} rank {r}")
+        paths[f"{name} on 2 ranks"] = {k: ranks[0][name]["launches"][k]
+                                       + ranks[1][name]["launches"][k]
+                                       for k in ranks[0][name]["launches"]}
+        seconds = {}
+        for bs in (1, 2):
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            cli.main([*argv, "--batch_size", str(bs), "--save_path",
+                      os.path.join(root, name, f"one_b{bs}")])
+            torch.cuda.synchronize()
+            seconds[bs] = time.perf_counter() - t0
+            paths[f"{name} one process batch {bs}"] = kernels.counts()
+            check_launches(paths[f"{name} one process batch {bs}"],
+                           eval_launches(3 if bs == 1 else 2, 3 if bs == 1 else 4 if rcnn else 3,
+                                         rotated, rcnn), f"{name} one process batch {bs}")
+        split = {**tree_files(os.path.join(root, name, "rank0")),
+                 **tree_files(os.path.join(root, name, "rank1"))}
+        one = tree_files(os.path.join(root, name, "one_b1"))
+        rank1 = tree_files(os.path.join(root, name, "rank1"))
+        if sorted(split) != sorted(one) or any(split[k] != one[k] for k in one):
+            fail(f"{name}: the ranks' files differ from one process's at batch 1: "
+                 f"{sorted(k for k in one if split.get(k) != one[k])}")
+        if "eval.json" in rank1 or any(k.startswith("proposals/") for k in rank1):
+            fail(f"{name}: rank 1 wrote the report or the proposals: {sorted(rank1)}")
+        readings = same_reports(np, os.path.join(root, name, "one_b1"),
+                                os.path.join(root, name, "one_b2"), 1e-2 * resolution,
+                                f"{name}: batch 2 against the split")
+        lines.append(f"{name}: 2 ranks (each its driver's eval) {ranks[0][name]['seconds']:.2f} / "
+                     f"{ranks[1][name]['seconds']:.2f} s, one process batch 1 "
+                     f"{seconds[1]:.2f} s, batch 2 {seconds[2]:.2f} s; {len(one)} files "
+                     f"byte-equal to batch 1; batch 2 against it: {json.dumps(readings)}")
+    for line in lines:
+        print(f"[eval split] {line}", flush=True)
+    print(f"[eval split] the two ranks' launch, {len(cases)} evals each: {ranks_s:.1f} s",
+          flush=True)
+    if gpus_case is not None:
+        name, driver, argv = gpus_case
+        cli = importlib.import_module(f"nerf_rpn_tpu_torch.cli.{driver}")
+        out = os.path.join(root, name, "gpus0")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        cli.main([*argv, "--batch_size", "2", "--save_path", out, "--gpus", "0"])
+        torch.cuda.synchronize()
+        paths[f"{name} --gpus 0"] = kernels.counts()
+        check_launches(paths[f"{name} --gpus 0"], eval_launches(2, 3, "--rotated_bbox" in argv),
+                       f"{name} --mode eval --gpus 0")
+        n = same_files(out, os.path.join(root, name, "one_b2"), f"{name} --gpus 0")
+        print(f"[eval split] {name} --mode eval --gpus 0 (NCCL, a group of one): "
+              f"{time.perf_counter() - t0:.2f} s, {n} files byte-equal to one process's",
+              flush=True)
+    return paths
+
+
+def _ply_vertices(np, path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    header = lines.index("end_header")
+    n = int(next(line.split()[-1] for line in lines if line.startswith("element vertex")))
+    rows = np.array([[float(t) for t in line.split()[:3]] for line in lines[header + 1:
+                                                                             header + 1 + n]])
+    return rows.reshape(n, 3)
+
+
+def _finite_json(np, obj):
+    if isinstance(obj, dict):
+        return all(_finite_json(np, v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(_finite_json(np, v) for v in obj)
+    return not isinstance(obj, float) or bool(np.isfinite(obj))
+
+
+def run_tools(torch, work, msgpack, proposals_dir, data, split_dir, resolution=160):
+    """Phase 28: the five ported tools on what phases 26-27 wrote --
+    ``convert_weights``' ``.msgpack`` read back (``read_msgpack``, every leaf
+    finite), ``proposals2ngp`` on the OBB proposals of phase 26
+    (``proposals_dir``), ``render_heatmap`` on the voxel scores and
+    ``visualize_rpn_input`` on a scene of ``data`` with the
+    ``--save_results`` proposals as its boxes and the voxel scores as its
+    objectness (phase 27's RPN AABB split run, ``split_dir``),
+    ``visualize_bbox`` on those OBB proposals seen from a camera above the
+    scene: every output exists and holds finite numbers."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.tools import (proposals2ngp, render_heatmap, visualize_bbox,
+                                          visualize_rpn_input)
+    from nerf_rpn_tpu_torch.train.flax_msgpack import read_msgpack
+    from nerf_rpn_tpu_torch.weights import flatten_tree
+
+    root = os.path.join(work, "tools")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    leaves = flatten_tree(read_msgpack(msgpack))
+    if not all(np.isfinite(v).all() for v in leaves.values()):
+        fail("tools: the .msgpack holds non-finite leaves")
+    scene = sorted(os.listdir(proposals_dir))[0][:-4]
+    params = os.path.join(root, f"{scene}_params.npz")
+    np.savez(params, resolution=np.array([resolution] * 3, np.float64),
+             bbox_min=-np.ones(3), bbox_max=np.ones(3), scale=1.0, offset=0.0,
+             from_mitsuba=False)
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump({"frames": []}, f)
+    n_ngp = proposals2ngp.process_scene(
+        os.path.join(proposals_dir, f"{scene}.npz"), os.path.join(root, "transforms.json"),
+        params, os.path.join(root, f"{scene}_ngp.json"), bbox_format="obb", threshold=0.0,
+        top_k=30)
+    with open(os.path.join(root, f"{scene}_ngp.json")) as f:
+        ngp = json.load(f)
+    if n_ngp == 0 or len(ngp["bounding_boxes"]) != n_ngp or not _finite_json(np, ngp):
+        fail(f"tools: proposals2ngp wrote {n_ngp} boxes")
+    scores_dir = os.path.join(split_dir, "voxel_scores")
+    split_scene = sorted(os.listdir(scores_dir))[0][:-4]
+    render_heatmap.render_scene(split_scene, scores_dir, root, export_ply=True)
+    boxes_dir = os.path.join(root, "boxes")
+    os.makedirs(boxes_dir, exist_ok=True)
+    with np.load(os.path.join(split_dir, "results", "proposals", f"{split_scene}.npz")) as z:
+        np.save(os.path.join(boxes_dir, f"{split_scene}.npy"), z["proposals"][:20])
+    visualize_rpn_input.visualize_scene(split_scene, root, data, boxes_dir, "aabb",
+                                        scores_dir, 0.5)
+    with np.load(os.path.join(proposals_dir, f"{scene}.npz")) as z:
+        obbs = z["proposal"][:5]
+    centre = resolution / 2
+    frame = {"transform_matrix": [[1, 0, 0, centre], [0, 1, 0, centre],
+                                  [0, 0, 1, 3 * resolution], [0, 0, 0, 1]],
+             "fy": 240.0, "fx": 240.0, "file_path": "frame0.png"}
+    written = visualize_bbox.process_scene(
+        {"instances": [{"label": f"p{i}", "obb": b.tolist()} for i, b in enumerate(obbs)]},
+        {"frames": [frame]}, root, os.path.join(root, "overlay"))
+    pngs = [os.path.join(root, f"{split_scene}_heatmap.png"), *written]
+    for png in pngs:
+        with open(png, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                fail(f"tools: {png} is not a PNG")
+    plys = [os.path.join(root, n) for n in sorted(os.listdir(root)) if n.endswith(".ply")]
+    for ply in plys:
+        v = _ply_vertices(np, ply)
+        if len(v) == 0 or not np.isfinite(v).all():
+            fail(f"tools: {ply} holds {len(v)} vertices, finite {np.isfinite(v).all()}")
+    print(f"[tools] {len(leaves)} .msgpack leaves finite; proposals2ngp {n_ngp} boxes; "
+          f"render_heatmap, visualize_rpn_input ({len(plys)} PLY files) and visualize_bbox "
+          f"({len(written)} frame) on {split_scene} / {scene}: {len(pngs)} PNG files, all "
+          f"finite; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # The gate's seeds, and on how many of them the JAX package's own gate
 # clears each combo (``scripts/synthetic_quality_gate.py --combos <combo>
 # --seed <s>`` on the CPU; PERF.md, PR 13).  One seed cannot decide: over
@@ -3121,6 +3577,28 @@ def main() -> None:
         paths.update(ddp_paths)
         time_gpus_flag(torch, data, common, card=smi)
         phase_done(torch, "data parallel", t0)
+
+        import numpy as np
+
+        t0 = time.perf_counter()
+        _, obb_common = write_train_data(work, rotated=True)
+        ckpt_paths, msgpack, rpn_obb_out = run_checkpoint_formats(
+            torch, work, obb_common, os.path.join(work, "obb_train", "model_best"),
+            [*obb_common, *FCOS_TRAIN_FLAGS], os.path.join(work, "fcos_obb_train", "model_best"),
+            os.path.join(work, "fcos_obb_train_eval_ckpt"), rcnn_common)
+        paths.update(ckpt_paths)
+        phase_done(torch, "checkpoint formats", t0)
+
+        t0 = time.perf_counter()
+        cases = eval_split_cases(np, work, rcnn_common)
+        paths.update(check_eval_split(torch, work, cases, dev, gpus_case=cases[0]))
+        phase_done(torch, "scene-parallel eval", t0)
+
+        t0 = time.perf_counter()
+        aabb_data, _ = write_train_data(work)
+        run_tools(torch, work, msgpack, os.path.join(rpn_obb_out, "proposals"), aabb_data,
+                  os.path.join(work, "eval_split", cases[0][0], "one_b1"))
+        phase_done(torch, "tools", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

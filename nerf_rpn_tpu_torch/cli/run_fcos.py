@@ -4,8 +4,9 @@ Port of ``nerf_rpn_tpu/cli/run_fcos.py`` for every backbone of the JAX
 table (Swin, ``resnet`` / ``resnet_tiny``, ``vgg_AF`` / ``vgg_EF``) with
 axis-aligned boxes, or oriented ones with ``--rotated_bbox`` (6 distances
 and 2 midpoint offsets a location), in f32 or ``--bf16``, on one device or,
-for ``--mode train``, data parallel over ``--gpus`` as in ``run_rpn``
-(``parallel/ddp.py``: rank 0 alone evaluates and writes checkpoints).
+for ``--mode train`` and ``--mode eval``, over ``--gpus`` as in ``run_rpn``
+(``parallel/ddp.py``: the eval batches split over the ranks by scene, rank
+0 scores them and writes the report and checkpoints).
 The flags are the JAX CLI's, plus ``--weights`` (a flax variables npz) and
 ``--device`` (``cuda``, the default, raises without a GPU; ``cpu`` only
 when asked for), as in ``run_rpn``.
@@ -17,8 +18,8 @@ steps (with a warning where the loss dropped positives beyond its gather
 capacity), a validation eval every ``--eval_interval`` epochs and
 ``epoch_N`` / ``model_best`` checkpoints (``torch.save``; the head under
 ``fcos_state_dict``, the reference layout).  ``--checkpoint`` loads such a
-file, only its backbone with ``--load_backbone_only``.  ``--mode eval``
-writes the Recall/AP report, and with ``--output_proposals``
+file or a JAX ``.msgpack``, only its backbone with ``--load_backbone_only``.
+``--mode eval`` writes the Recall/AP report, and with ``--output_proposals``
 (``--save_level_index``, ``--filter``) and ``--output_voxel_scores`` the npz
 dumps, over the test scenes or, with ``--output_all``, over the train,
 validation and test scenes in turn.  ``--mode benchmark`` times the eval
@@ -107,7 +108,7 @@ def parse_args(argv=None):
     p.add_argument("--flip_prob", type=float, default=0.5)
     p.add_argument("--rot_scale_prob", type=float, default=0.5)
     p.add_argument("--gpus", default="",
-                   help="GPUs to train on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
+                   help="GPUs to train or evaluate on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
     p.add_argument("--num_convs", type=int, default=4)
     p.add_argument("--norm_reg_targets", action="store_true")
     p.add_argument("--centerness_on_reg", action="store_true")
@@ -191,14 +192,14 @@ class Trainer:
     def eval_step(self, mesh_shape):
         return make_fcos_eval_step(self.model, self.cfg, mesh_shape, device=self.device)
 
-    def batches(self, dataset, shuffle: bool, seed: int = 0):
+    def batches(self, dataset, shuffle: bool, seed: int = 0, index_batches=None):
         """Train (``shuffle``): this rank's share of the global batch;
-        eval: whole batches, on rank 0 alone."""
+        eval: the scenes of ``index_batches`` (this rank's blocks)."""
         world = ddp.world() if shuffle else 1
         it = batch_iterator(
             dataset, common.local_batch_size(self.args.batch_size, world), shuffle=shuffle,
             seed=seed, drop_last=shuffle, process_index=ddp.rank() if shuffle else 0,
-            process_count=world,
+            process_count=world, index_batches=index_batches,
             pad_multiple=self.args.pad_multiple, max_gt=self.args.max_gt,
             box_dim=self.box_dim, fixed_shape=self.mesh_shape,
             num_workers=self.args.num_workers)
@@ -240,9 +241,10 @@ class Trainer:
                             f"{metrics['dropped_positives']:.0f} positive locations beyond "
                             f"its capacity of 128 a gt box (center_sampling_radius "
                             f"{args.center_sampling_radius})")
-            if ddp.is_main() and (epoch % args.eval_interval == 0
-                                  or epoch == args.num_epochs):
-                recalls, _ = self.eval(val_set, write_json=False)
+            evaluate = epoch % args.eval_interval == 0 or epoch == args.num_epochs
+            # every rank evaluates its share of the validation scenes
+            recalls, _ = self.eval(val_set, write_json=False) if evaluate else (None, None)
+            if ddp.is_main() and evaluate:
                 metric = recalls[-1] if recalls else -1.0
                 if best_metric is None or metric > best_metric:
                     best_metric = metric
@@ -259,11 +261,17 @@ class Trainer:
     # -- eval ---------------------------------------------------------------
 
     def eval(self, dataset, write_json: bool = True):
+        """Recall / AP of ``dataset``, split over the ranks by scene as in
+        ``run_rpn``: each rank writes its scenes' ``--output_voxel_scores``
+        files; rank 0 gathers the proposals in scene order, writes
+        ``--output_proposals`` and the report and returns ``(recalls,
+        aps)``; the other ranks return ``(None, None)``."""
         args = self.args
         eval_step = self.eval_step(self.mesh_shape)
-        proposals_list, scores_list, levels_list = [], [], []
-        gt_boxes_list, scenes_list = [], []
-        for batch in self.batches(dataset, False):
+        blocks = ddp.eval_blocks(len(dataset), args.batch_size)
+        scenes = []  # (index, name, proposals, scores, levels, gt boxes) a scene
+        for (idx, _), batch in zip(blocks, self.batches(dataset, False,
+                                                        index_batches=[b for b, _ in blocks])):
             names, gt_mask = batch["names"], batch["gt_mask"]
             grids = torch.from_numpy(batch["grids"]).to(self.device, self.dtype)
             ori = torch.from_numpy(batch["ori_sizes"]).to(self.device)
@@ -271,19 +279,20 @@ class Trainer:
             host = {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
                     for k, v in out.items() if k != "voxel_scores"}
             props, scs, lvls = common.unmask_proposals(host, self.box_dim)
-            proposals_list.extend(props)
-            scores_list.extend(scs)
-            levels_list.extend(lvls)
-            scenes_list.extend(names)
-            for i in range(len(names)):
-                gt_boxes_list.append(
-                    batch["gt_boxes"][i][gt_mask[i]][:, :self.box_dim].astype(np.float32))
+            for i, name in enumerate(names):
+                scenes.append((int(idx[i]), name, props[i], scs[i], lvls[i],
+                               batch["gt_boxes"][i][gt_mask[i]][:, :self.box_dim]
+                               .astype(np.float32)))
             if args.output_voxel_scores:
                 for i, name in enumerate(names):
                     common.output_voxel_scores_npz(
                         args.save_path, name,
                         [v[i].float().cpu().numpy() for v in out["voxel_scores"]],
                         batch["ori_sizes"][i], STRIDES)
+        columns = ddp.gather_scenes(scenes, 5)
+        if columns is None:
+            return None, None
+        scenes_list, proposals_list, scores_list, levels_list, gt_boxes_list = columns
         if args.output_proposals:
             common.output_proposals_npz(
                 args.save_path, scenes_list, proposals_list, scores_list, gt_boxes_list,

@@ -6,7 +6,7 @@ stem follows ``--resolution``) with axis-aligned boxes, or oriented ones
 with ``--rotated_bbox`` (the midpoint-offset coder, 8 deltas an anchor),
 with the smooth-L1 box loss or, for OBBs, ``--reg_loss_type
 iou|linear_iou|giou|diou``, in f32 or ``--bf16``, on one device or, for
-``--mode train``, data parallel over ``--gpus`` (``parallel/ddp.py``).
+``--mode train`` and ``--mode eval``, over ``--gpus`` (``parallel/ddp.py``).
 The flags are the JAX CLI's flags, plus:
 
 - ``--weights <npz>``: a flax variables tree flattened to ``a/b/c`` keys
@@ -33,11 +33,15 @@ reads, under ``--save_results_path`` or ``<save_path>/results``);
 each rank takes ``--batch_size / world`` scenes of the global batch a step
 (its share of the shuffled order, as ``DistributedSampler`` gives it), and
 the step is the global batch's (global loss normalisers and BatchNorm
-statistics, gradients summed over the ranks).  Rank 0 alone evaluates,
-writes the checkpoints and the log file; every rank then meets at the
+statistics, gradients summed over the ranks).  The validation eval, and
+``--mode eval`` with ``--gpus``, split each batch of ``--batch_size``
+scenes over the ranks (``ddp.eval_blocks``, the JAX eval mesh): a rank
+writes its scenes' ``--save_results`` and ``--output_voxel_scores``
+files, and rank 0 gathers the proposals, writes ``--output_proposals``,
+the report, the checkpoints and the log file; every rank then meets at the
 epoch-end barrier.  torchrun's environment puts the process in its group
-instead (gloo with ``--device cpu``).  ``--mode eval|benchmark`` runs on
-the first listed GPU.
+instead (gloo with ``--device cpu``).  ``--mode benchmark`` runs on the
+first listed GPU.
 
 The backbones' levels must sit at strides (4, 8, 16, 32): VGG below
 ``--resolution`` 160 has a stride-1 stem and raises a ``ValueError``
@@ -47,8 +51,11 @@ Datasets, ``unmask_proposals``, the proposals npz and the Recall/AP report
 with its ``eval.json`` are the port's copies of the JAX package's host code
 (``cli/common.py``, ``data/``, ``evaluation/metrics.py``).
 Refused: an IoU ``--reg_loss_type`` without ``--rotated_bbox`` (the JAX
-package computes no AABB IoU there).  Not ported yet: ``--wandb``; orbax
-and ``.msgpack`` checkpoints are not read.
+package computes no AABB IoU there).  Not ported yet: ``--wandb``.
+``--checkpoint`` also reads the JAX package's ``.msgpack`` files and
+released reference ``.pt`` files (their head in the reference's anchor
+order, ``train/checkpoint.py``); orbax directories are refused with their
+export to ``.msgpack``.
 
 Example::
 
@@ -128,7 +135,7 @@ def parse_args(argv=None):
     p.add_argument("--keep_checkpoints", type=int, default=1)
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--gpus", default="",
-                   help="GPUs to train on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
+                   help="GPUs to train or evaluate on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
     p.add_argument("--rpn_head_conv_depth", type=int, default=4)
     p.add_argument("--rpn_pre_nms_top_n_train", type=int, default=2500)
     p.add_argument("--rpn_pre_nms_top_n_test", type=int, default=2500)
@@ -274,9 +281,10 @@ class Trainer:
                         f"reg2d {metrics['loss_rpn_box_reg_2d']:.4f} "
                         f"grad_norm {metrics['grad_norm']:.4f} "
                         f"({time.perf_counter() - t0:.2f}s/it)")
-            if ddp.is_main() and (epoch % args.eval_interval == 0
-                                  or epoch == args.num_epochs):
-                recalls, _ = self.eval(val_set, write_json=False)
+            evaluate = epoch % args.eval_interval == 0 or epoch == args.num_epochs
+            # every rank evaluates its share of the validation scenes
+            recalls, _ = self.eval(val_set, write_json=False) if evaluate else (None, None)
+            if ddp.is_main() and evaluate:
                 metric = recalls[-1] if recalls else -1.0
                 if best_metric is None or metric > best_metric:
                     best_metric = metric
@@ -317,14 +325,22 @@ class Trainer:
                      proposals=boxes[i][valid[i]][:, :self.box_dim], level_indices=levels[i])
 
     def eval(self, dataset, write_json: bool = True):
+        """Recall / AP of ``dataset``, split over the ranks by scene
+        (``ddp.eval_blocks``): each rank evaluates its block of each batch
+        and writes its scenes' ``--save_results`` and
+        ``--output_voxel_scores`` files; rank 0 gathers the proposals and
+        gt boxes in scene order, writes ``--output_proposals`` and the
+        report and returns ``(recalls, aps)``; the other ranks return
+        ``(None, None)``."""
         args = self.args
         eval_step = self.eval_step(self.mesh_shape, return_features=args.save_results)
+        blocks = ddp.eval_blocks(len(dataset), args.batch_size)
         it = batch_iterator(
-            dataset, args.batch_size, shuffle=False,
+            dataset, args.batch_size, index_batches=[idx for idx, _ in blocks],
             pad_multiple=args.pad_multiple, max_gt=args.max_gt, box_dim=self.box_dim,
             fixed_shape=self.mesh_shape, num_workers=args.num_workers)
-        proposals_list, scores_list, gt_boxes_list, scenes_list = [], [], [], []
-        for batch in prefetch_iterator(it, depth=args.prefetch_batches):
+        scenes = []  # (index, name, proposals, scores, gt boxes) a scene
+        for (idx, _), batch in zip(blocks, prefetch_iterator(it, depth=args.prefetch_batches)):
             names, gt_mask = batch["names"], batch["gt_mask"]
             grids = torch.from_numpy(batch["grids"]).to(self.device, self.dtype)
             ori = torch.from_numpy(batch["ori_sizes"]).to(self.device)
@@ -335,19 +351,20 @@ class Trainer:
             props, scs, lvls = common.unmask_proposals(host, self.box_dim)
             if args.save_results:
                 self.save_results(names, out, lvls)
-            proposals_list.extend(props)
-            scores_list.extend(scs)
-            scenes_list.extend(names)
-            for i in range(len(names)):
-                gt_boxes_list.append(
-                    batch["gt_boxes"][i][gt_mask[i]][:, :self.box_dim] if gt_mask[i].any()
-                    else np.zeros((0, self.box_dim), np.float32))
+            for i, name in enumerate(names):
+                gt = (batch["gt_boxes"][i][gt_mask[i]][:, :self.box_dim] if gt_mask[i].any()
+                      else np.zeros((0, self.box_dim), np.float32))
+                scenes.append((int(idx[i]), name, props[i], scs[i], gt))
             if args.output_voxel_scores:
                 for i, name in enumerate(names):
                     common.output_voxel_scores_npz(
                         args.save_path, name,
                         [v[i].float().cpu().numpy() for v in out["voxel_scores"]],
                         batch["ori_sizes"][i], STRIDES)
+        columns = ddp.gather_scenes(scenes, 4)
+        if columns is None:
+            return None, None
+        scenes_list, proposals_list, scores_list, gt_boxes_list = columns
         if args.output_proposals:
             common.output_proposals_npz(
                 args.save_path, scenes_list, proposals_list, scores_list,

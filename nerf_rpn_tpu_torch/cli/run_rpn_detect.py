@@ -29,7 +29,8 @@ OBB centre mask, small boxes, ``--filter_score_threhold``, NMS at
 precision / accuracy / precision@100 over all valid RoIs, AP@25 and AP@50
 over the filtered, ranked boxes, ``eval.json`` with the JAX driver's keys
 and, with ``--output_proposals``, the proposals npz.  ``--checkpoint``
-loads a checkpoint of this driver for either mode.
+loads a checkpoint of this driver (or a JAX ``.msgpack`` of the RCNN state)
+for either mode; ``--pretrained`` also takes a stage-1 ``.msgpack``.
 
 Differences from the JAX driver: a ``--pretrained`` file that does not
 load raises (the JAX driver logs a warning and trains on a random
@@ -41,7 +42,9 @@ JAX.  Not ported yet: ``--wandb``.
 each rank takes its share of the global batch's order, a rank's batch is
 padded to the largest grid (or level) over the ranks, which is the shape
 one process pads the global batch to, and the RoIs a scene stay
-``--cls_batch_size / --batch_size``; rank 0 alone evaluates and writes
+``--cls_batch_size / --batch_size``.  The eval (the validation eval, and
+``--mode eval`` over ``--gpus``) splits each padded batch over the ranks
+by scene; rank 0 gathers the results, writes the report and the
 checkpoints.
 
 Example (``scripts/train_rcnn.sh``'s configuration)::
@@ -57,6 +60,7 @@ Example (``scripts/train_rcnn.sh``'s configuration)::
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -117,7 +121,7 @@ def parse_args(argv=None):
     p.add_argument("--keep_checkpoints", type=int, default=1)
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--gpus", default="",
-                   help="GPUs to train on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
+                   help="GPUs to train or evaluate on, one rank each: 0-3 or 0,1,2,3 (NCCL).")
     p.add_argument("--n_classes", type=int, default=2)
     p.add_argument("--output_size", nargs="+", type=int, default=[4, 4, 4])
     p.add_argument("--spatial_scale", nargs="+", type=int, default=[4, 8, 16, 32])
@@ -249,17 +253,24 @@ class Trainer:
         """(host batch, number of real scenes) in the JAX driver's order:
         ``default_rng(seed)`` shuffles; train (shuffle) drops the ragged
         last batch and takes this rank's share of the order (the JAX
-        driver's ``DistributedSampler`` wrap), eval pads the last batch
-        with the last scene and runs on rank 0 alone.  Loading runs in
-        ``--num_workers`` threads, ``--prefetch_batches`` batches ahead."""
-        world = ddp.world() if shuffle else 1
-        bs, n = common.local_batch_size(self.args.batch_size, world), len(dataset)
-        it = batch_iterator(dataset, bs, shuffle=shuffle, seed=seed, drop_last=shuffle,
-                            pad_last=not shuffle, process_index=ddp.rank() if shuffle else 0,
-                            process_count=world, num_workers=self.args.num_workers,
-                            collate=self._collate)
-        n_real = (min(bs, n - start) for start in range(0, n, bs))
-        return prefetch_iterator(zip(it, n_real), depth=self.args.prefetch_batches)
+        driver's ``DistributedSampler`` wrap); eval pads the last batch
+        with the last scene and takes this rank's block of each batch
+        (``ddp.eval_blocks``).  Loading runs in ``--num_workers`` threads,
+        ``--prefetch_batches`` batches ahead."""
+        if shuffle:
+            world = ddp.world()
+            bs = common.local_batch_size(self.args.batch_size, world)
+            it = batch_iterator(dataset, bs, shuffle=True, seed=seed, drop_last=True,
+                                process_index=ddp.rank(), process_count=world,
+                                num_workers=self.args.num_workers, collate=self._collate)
+            blocks = itertools.repeat((None, bs))
+        else:
+            blocks = ddp.eval_blocks(len(dataset), self.args.batch_size, pad_last=True)
+            it = batch_iterator(dataset, self.args.batch_size,
+                                index_batches=[idx for idx, _ in blocks],
+                                num_workers=self.args.num_workers, collate=self._collate)
+        return prefetch_iterator(((host, n_real) for host, (_, n_real) in zip(it, blocks)),
+                                 depth=self.args.prefetch_batches)
 
     @staticmethod
     def pad_to_global(host: dict) -> dict:
@@ -312,9 +323,11 @@ class Trainer:
                         f"obj {m['loss_objectness']:.4f} reg {m['loss_rpn_box_reg']:.4f} "
                         f"fg/bg rois {m['fg_rois']:.0f}/{m['bg_rois']:.0f} "
                         f"grad_norm {m['grad_norm']:.4f} ({time.perf_counter() - t0:.2f}s/it)")
-            if ddp.is_main() and (epoch % args.eval_interval == 0
-                                  or epoch == args.num_epochs):
-                metric = self.eval(val_set)["classification"]["accuracy"]
+            evaluate = epoch % args.eval_interval == 0 or epoch == args.num_epochs
+            # every rank evaluates its share of the validation scenes
+            report = self.eval(val_set) if evaluate else None
+            if ddp.is_main() and evaluate:
+                metric = report["classification"]["accuracy"]
                 if best is None or metric > best:
                     best = metric
                     ckpt_lib.save_checkpoint(
@@ -329,18 +342,21 @@ class Trainer:
 
     # -- eval ---------------------------------------------------------------
 
-    def eval(self, dataset) -> dict:
-        """Scores, filters and reports ``dataset``; returns the contents of
-        ``eval.json`` (``ap_25``, ``ap_50``, ``classification``)."""
+    def eval(self, dataset) -> dict | None:
+        """Scores, filters and reports ``dataset``, split over the ranks by
+        scene (``ddp.eval_blocks``); rank 0 gathers the scenes' results in
+        order, writes ``eval.json`` and ``--output_proposals`` and returns
+        the contents of ``eval.json`` (``ap_25``, ``ap_50``,
+        ``classification``), the other ranks None."""
         args = self.args
         eval_step = make_rcnn_eval_step(self.model, self.cfg, self.spatial_scales)
         # the refined proposals are filtered before AP and output (reference
         # filter_proposals, applied at run_rpn_detect.py:495-497)
         filter_step = make_rcnn_filter_step(self.cfg, args.filter_score_threhold,
                                             args.nms_thresh, int(args.filter_num_threhold))
-        scores_list, labels_list = [], []
-        refined_list, filt_scores_list, gt_list, names = [], [], [], []
-        for host, n_real in self.batches(dataset):
+        scenes = []  # (index, scores, labels, refined boxes, their scores, gt, name)
+        blocks = ddp.eval_blocks(len(dataset), args.batch_size, pad_last=True)
+        for (idx, _), (host, n_real) in zip(blocks, self.batches(dataset)):
             out = eval_step(self.device_batch(host))
             # the clip's "mesh size": the level-0 feature shape times the
             # first scale (the grid shape times it in fine-tune, which
@@ -357,15 +373,16 @@ class Trainer:
             keep, order = keep.cpu().numpy(), order.cpu().numpy()
             for i in range(n_real):
                 v = valid[i]
-                # classification over all valid RoIs (unfiltered)
-                scores_list.append(probs[i][v][:, 1])
-                labels_list.append(labels[i][v].astype(np.int32))
-                # AP over the filtered set, by descending score
+                # classification over all valid RoIs (unfiltered); AP over
+                # the filtered set, by descending score
                 ranked = order[i][keep[i][order[i]]]
-                refined_list.append(fboxes[i][ranked][:, :self.box_dim])
-                filt_scores_list.append(probs[i][ranked][:, 1])
-                gt_list.append(host["gt_boxes"][i][host["gt_mask"][i]])
-                names.append(host["names"][i])
+                scenes.append((int(idx[i]), probs[i][v][:, 1], labels[i][v].astype(np.int32),
+                               fboxes[i][ranked][:, :self.box_dim], probs[i][ranked][:, 1],
+                               host["gt_boxes"][i][host["gt_mask"][i]], host["names"][i]))
+        columns = ddp.gather_scenes(scenes, 6)
+        if columns is None:
+            return None
+        scores_list, labels_list, refined_list, filt_scores_list, gt_list, names = columns
         cls = evaluate_classification(scores_list, labels_list, 0.5)
         self.logger.info(
             f"cls precision {cls['precision']:.4f} accuracy {cls['accuracy']:.4f} "

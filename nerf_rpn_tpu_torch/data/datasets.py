@@ -236,7 +236,10 @@ class RPNClassificationDataset:
     Each item -> (features: list of per-level (X, Y, Z, C) arrays | raw
     rgbsigma in fine_tune mode, boxes (G, D), rois (R, D), roi_levels (R,),
     scene).  fine_tune mode drops RoIs covering > 50% of the scene volume
-    (``datasets.py:386-392``).
+    (``datasets.py:386-392``).  The RoI files hold ``proposals`` (``run_rpn
+    --save_results``) or, as ``run_fcos --output_proposals
+    --save_level_index`` writes them, ``proposal``; the JAX package's copy
+    reads only ``proposals`` and raises ``KeyError`` on FCOS files.
     """
 
     def __init__(self, features_path: str, boxes_path: str, roi_path: str,
@@ -281,7 +284,8 @@ class RPNClassificationDataset:
                         features.append(np.moveaxis(arr, 0, -1))
             boxes = np.load(bf).astype(np.float32)
             with np.load(rf, allow_pickle=True) as f_roi:
-                proposals = f_roi["proposals"].astype(np.float32)
+                key = "proposals" if "proposals" in f_roi.files else "proposal"
+                proposals = f_roi[key].astype(np.float32)
                 levels = f_roi["level_indices"].astype(np.int32)
             if fine_tune:
                 world_vol = float(np.prod(resolution[:3]))
@@ -467,6 +471,7 @@ def batch_iterator(
     num_workers: int = 0,
     pad_last: bool = False,
     collate=None,
+    index_batches=None,
     **collate_kw,
 ):
     """Host-side batch loader with per-process sharding (the reference's
@@ -474,7 +479,9 @@ def batch_iterator(
 
     ``pad_last`` fills a ragged last batch up to ``batch_size`` with its
     last sample (an eval batch of a fixed size); ``collate(samples)``
-    replaces ``collate_batch(samples, **collate_kw)``.
+    replaces ``collate_batch(samples, **collate_kw)``; ``index_batches``,
+    the dataset indices of each batch, replaces the order and batching that
+    the other arguments give (a rank's eval blocks, ``ddp.eval_blocks``).
 
     ``num_workers > 0`` loads the samples of each batch over a thread pool
     (the reference's ``DataLoader(num_workers=4)`` analogue — npz
@@ -497,10 +504,12 @@ def batch_iterator(
         if total > len(order):
             order = np.concatenate([order, order[: total - len(order)]])
         order = order[process_index::process_count]
+    if index_batches is None:
+        index_batches = [order[start : start + batch_size]
+                         for start in range(0, len(order), batch_size)]
     pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
     try:
-        for start in range(0, len(order), batch_size):
-            idx = order[start : start + batch_size]
+        for idx in index_batches:
             if drop_last and len(idx) < batch_size:
                 return
             if pad_last and len(idx) < batch_size:

@@ -65,6 +65,23 @@ def base_anchors(
     return np.round(anchors).astype(np.float32)
 
 
+def anchor_permutation(ratios: Sequence[Sequence[float]]) -> np.ndarray:
+    """``perm[j]``: the index, in the reference's anchor order, of this
+    package's anchor j (copy of ``nerf_rpn_tpu/tools/convert_weights.py``'s
+    ``anchor_permutation``).  The reference dedups each ratio triple through
+    ``set(permutations(r))``; tuple hashing of numbers is unsalted, so that
+    set order reproduces here.  A reference head's output channels, grouped
+    per anchor, go to this order as ``ref.reshape(A, G, ...)[perm]``."""
+    ref_perms, ours = [], []
+    for r in ratios:
+        ref_perms.extend(set(permutations(r)))
+        ours.extend(dict.fromkeys(permutations(r)))
+    index_of: dict = {}
+    for i, p in enumerate(ref_perms):
+        index_of.setdefault(p, i)
+    return np.asarray([index_of[p] for p in ours], np.int64)
+
+
 def anchors_per_level(
     sizes: Sequence[float],
     ratios: Sequence[Sequence[float]],

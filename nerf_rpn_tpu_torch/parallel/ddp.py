@@ -23,15 +23,26 @@ prepared, and one coalesced all-reduce after the backward serves the three
 steps alike.  Every helper is a no-op without a process group or at world
 1, so a one-process run computes what it computed without this module.
 
+Evaluation is scene parallel, as the JAX drivers evaluate a batch over a
+mesh of their devices (``make_mesh_for_batch``, ``mesh.py:112-139``): an
+eval batch of m scenes goes to the first n ranks, n the largest count that
+divides m and is at most the world size (the JAX re-mesh of a ragged last
+batch, ``run_rpn.py:214-220``), in contiguous blocks of m / n scenes
+(:func:`eval_blocks`); a rank with no scene in a batch computes nothing for
+it.  Each rank writes the per-scene files of its scenes; the per-scene
+results go to rank 0 in scene order (:func:`gather_scenes`), which scores
+them and writes the report.  (JAX evaluates over rank 0's local devices
+alone, because a jit over the global mesh deadlocks when only rank 0
+calls it; here every rank of the group evaluates.)
+
 Process groups (:func:`run_driver`): ``--gpus 0-3`` (or ``0,1,2,3``)
 starts one rank a listed GPU with ``torch.multiprocessing.spawn`` (one
 listed GPU: this process, in a group of one), NCCL with a TCP rendezvous on
 127.0.0.1 at a free port; a process started with torchrun's environment
 (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) joins that group instead, over gloo with ``--device cpu``.
-Only ``--mode train`` is data parallel: ``eval`` and ``benchmark`` run on
-the first listed GPU, as the JAX drivers evaluate at their batch of 1 on a
-one-device mesh (``make_mesh_for_batch``).
+``--mode train`` and ``--mode eval`` run on the group; ``benchmark``, which
+times one scene, runs on the first listed GPU.
 """
 
 from __future__ import annotations
@@ -48,8 +59,9 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from nerf_rpn_tpu_torch.device import resolve_device
 
-# the other ranks wait at the epoch-end barrier while rank 0 evaluates and
-# writes checkpoints alone: NCCL's default of 10 minutes is too short there
+# the other ranks wait at the eval's gather and the epoch-end barrier while
+# rank 0 scores the eval and writes checkpoints alone: NCCL's default of 10
+# minutes is too short there
 TIMEOUT = datetime.timedelta(hours=1)
 
 
@@ -116,6 +128,56 @@ def all_reduce_max(values: np.ndarray) -> np.ndarray:
     t = torch.as_tensor(values, dtype=torch.int64, device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return t.cpu().numpy().astype(values.dtype)
+
+
+def eval_ranks(m: int, world_: int) -> int:
+    """The number of ranks that evaluate a batch of ``m`` scenes: the
+    largest count that divides ``m`` and is at most ``world_``."""
+    n = max(1, min(world_, m))
+    while m % n:
+        n -= 1
+    return n
+
+
+def eval_blocks(n_items: int, batch_size: int, pad_last: bool = False,
+                rank_: int | None = None, world_: int | None = None
+                ) -> list[tuple[np.ndarray, int]]:
+    """This rank's share of the eval batches over ``n_items`` scenes in
+    order: ``(indices, n_real)`` a batch that it takes part in -- the
+    contiguous block ``r * m/n ... (r + 1) * m/n`` of a batch of m scenes
+    split over n = :func:`eval_ranks` ranks, and how many of the block's
+    scenes are real.  ``pad_last`` fills a ragged last batch with its last
+    scene first (the RCNN driver's fixed eval batch); a block of padding
+    alone is left out.  At world 1: the batches themselves."""
+    r = rank() if rank_ is None else rank_
+    w = world() if world_ is None else world_
+    blocks = []
+    for start in range(0, n_items, batch_size):
+        idx = np.arange(start, min(start + batch_size, n_items))
+        n_real = len(idx)
+        if pad_last and n_real < batch_size:
+            idx = np.concatenate([idx, np.repeat(idx[-1:], batch_size - n_real)])
+        n = eval_ranks(len(idx), w)
+        k = len(idx) // n
+        real = min(max(n_real - r * k, 0), k)
+        if r < n and real:
+            blocks.append((idx[r * k:(r + 1) * k], real))
+    return blocks
+
+
+def gather_scenes(records: list[tuple], n_fields: int) -> list[list] | None:
+    """Every rank's per-scene ``(index, field_1, ..., field_n)`` records
+    (picklable host values) on rank 0, as the ``n_fields`` columns in
+    index order; None on the other ranks.  NCCL carries the pickles on the
+    current CUDA device (``run_in_group`` sets it), gloo on the host."""
+    if world() > 1:
+        parts = [None] * world() if is_main() else None
+        dist.gather_object(records, parts, dst=0)
+        if not is_main():
+            return None
+        records = [r for part in parts for r in part]
+    records = sorted(records, key=lambda r: r[0])
+    return [[r[i] for r in records] for i in range(1, n_fields + 1)]
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -233,17 +295,18 @@ def run_driver(fn, args):
 
     ``--gpus`` names CUDA devices: it raises beside ``--device cpu`` (or
     another device), and through ``resolve_device`` where CUDA or a listed
-    index is missing.  ``--mode train`` with ``--gpus`` runs one rank a
-    listed GPU (NCCL); in torchrun's environment it joins that group, on
-    ``cuda:<gpus[LOCAL_RANK]>`` (``cuda:<LOCAL_RANK>`` without ``--gpus``)
-    or, with ``--device cpu``, on the CPU over gloo.  Other modes run in
-    this process, on the first listed GPU.  Returns ``fn``'s result, or
-    None where spawned ranks ran it."""
+    index is missing.  ``--mode train`` and ``--mode eval`` with ``--gpus``
+    run one rank a listed GPU (NCCL); in torchrun's environment they join
+    that group, on ``cuda:<gpus[LOCAL_RANK]>`` (``cuda:<LOCAL_RANK>``
+    without ``--gpus``) or, with ``--device cpu``, on the CPU over gloo.
+    ``--mode benchmark`` runs in this process, on the first listed GPU.
+    Returns ``fn``'s result, or None where spawned ranks ran it."""
     gpus = parse_gpus(args.gpus)
     if gpus and args.device != "cuda":
         raise ValueError(f"--gpus names CUDA devices; it cannot go with --device {args.device}")
     devices = [resolve_device(f"cuda:{g}") for g in gpus]
-    if args.mode == "train" and "WORLD_SIZE" in os.environ:
+    grouped = args.mode in ("train", "eval")
+    if grouped and "WORLD_SIZE" in os.environ:
         rank_, world_ = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         local = int(os.environ.get("LOCAL_RANK", rank_))
         if args.device == "cpu":
@@ -255,7 +318,7 @@ def run_driver(fn, args):
                             "gloo" if device.type == "cpu" else "nccl", "env://")
     if not devices:
         return fn(args)
-    if args.mode != "train":
+    if not grouped:
         args.device = str(devices[0])
         return fn(args)
     return launch(_driver_rank, (fn, args, devices), devices, "nccl")

@@ -203,7 +203,8 @@ def to_jax_variables(state_dict: dict[str, torch.Tensor], backbone=None) -> dict
             else:
                 v = v.transpose(2, 3, 4, 1, 0) if v.ndim == 5 else v.T
                 leaf = "kernel"
-        params[(*fmod, leaf)] = np.ascontiguousarray(v)
+        # (ascontiguousarray makes a 0-d leaf 1-d)
+        params[(*fmod, leaf)] = np.ascontiguousarray(v).reshape(v.shape)
     return {"params": unflatten_tree(params), "batch_stats": unflatten_tree(stats)}
 
 

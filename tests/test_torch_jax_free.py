@@ -5,7 +5,10 @@ with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch``,
 writes synthetic 32^3 datasets with the port's own writer and runs the CPU
 slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
 then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
-(``--rotated_bbox``, the 2D projection loss on), then ``run_fcos --mode
+(``--rotated_bbox``, the 2D projection loss on), the AABB ``model_best``
+converted to flax's ``.msgpack`` (``tools/convert_weights``) and evaluated
+from it to the same files, a heatmap of its voxel scores
+(``tools/render_heatmap``), then ``run_fcos --mode
 train`` and ``--mode eval --checkpoint model_best`` on the OBB scenes
 (``train_fcos.sh``'s loss flags), then with ``resnet_tiny``: ``run_rpn
 --check_arch``, ``--mode train`` and ``--mode eval --save_results
@@ -68,6 +71,25 @@ for data, extra in ((sys.argv[1], []),
     import numpy as np
     with np.load(data + "/out/proposals/synth003.npz") as z:
         assert z["proposal"].shape[1] == (7 if extra else 6), z["proposal"].shape
+
+# the checkpoint as the flax .msgpack of the converter, evaluated again,
+# and a tool on the voxel scores
+from nerf_rpn_tpu_torch.tools import convert_weights, render_heatmap
+data = sys.argv[1]
+convert_weights.main(["--checkpoint", data + "/run/model_best", "--backbone_type", "swin_t",
+                      "--out", data + "/run/model_best.msgpack"])
+run_rpn.main(["--mode", "eval", "--checkpoint", data + "/run/model_best.msgpack",
+              "--save_path", data + "/out_msgpack", "--output_proposals",
+              "--output_voxel_scores", "--backbone_type", "swin_t", "--resolution", "32",
+              "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32",
+              "--device", "cpu", "--num_workers", "0", "--features_path", data,
+              "--boxes_path", data, "--dataset_split", data + "/split.npz"])
+for f in ("eval.json", "proposals/synth003.npz"):
+    with open(f"{data}/out/{f}", "rb") as a, open(f"{data}/out_msgpack/{f}", "rb") as b:
+        assert a.read() == b.read(), f
+render_heatmap.render_scene("synth003", data + "/out_msgpack/voxel_scores",
+                            data + "/heatmap", export_ply=True)
+assert os.path.getsize(data + "/heatmap/synth003_heatmap.png") > 0
 
 from nerf_rpn_tpu_torch.cli import run_fcos
 data = sys.argv[1] + "/obb"
@@ -175,7 +197,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     for new in ("ops/rotated_iou.py", "ops/fcos_box.py", "models/fcos.py",
                 "cli/run_fcos.py", "ops/pooling.py", "models/resnet.py", "models/vgg.py",
                 "cli/quality_gate.py", "ops/roi_align.py", "models/detector.py",
-                "cli/run_rpn_detect.py"):
+                "cli/run_rpn_detect.py", "train/flax_msgpack.py", "tools/convert_weights.py",
+                "tools/proposals2ngp.py", "tools/render_heatmap.py", "tools/visualize_bbox.py",
+                "tools/visualize_rpn_input.py"):
         assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]

@@ -5,9 +5,9 @@
   port's ``RPNClassificationDataset`` in the features mode and drive the
   port's RCNN eval step; ``run_fcos --output_proposals --save_level_index``
   files hold the RoIs and their levels under ``proposal`` /
-  ``level_indices``, where the dataset reads ``proposals``: the JAX
-  package's dataset refuses them the same way, and with the key renamed
-  they feed the fine-tune mode;
+  ``level_indices``: the JAX package's dataset reads ``proposals`` and
+  raises ``KeyError`` on them, the port's reads either key, and such files
+  train ``run_rpn_detect --fine_tune`` for an epoch;
 - ``run_rpn_detect --device cpu --mode train --fine_tune`` on synthetic
   32^3 scenes and their generated RoIs, then ``--mode eval --checkpoint
   model_best --output_proposals``, writes ``eval.json`` with the JAX
@@ -105,20 +105,26 @@ def test_save_results_and_fcos_proposals_feed_the_dataset(data, stage1):
     props_dir = os.path.join(fcos, "proposals")
     with np.load(os.path.join(props_dir, "synth000.npz")) as z:
         assert sorted(z.files) == ["level_indices", "proposal", "score"]
-    for dataset in (RPNClassificationDataset, JaxDataset):
-        with pytest.raises(KeyError, match="proposals"):
-            dataset(data, data, props_dir, scene_names=scenes, fine_tune=True)
-    renamed = os.path.join(data, "fcos_rois")
-    os.makedirs(renamed, exist_ok=True)
-    for s in scenes:
-        with np.load(os.path.join(props_dir, f"{s}.npz")) as z:
-            np.savez(os.path.join(renamed, f"{s}.npz"), proposals=z["proposal"],
-                     level_indices=z["level_indices"])
-    ds = RPNClassificationDataset(data, data, renamed, scene_names=scenes, fine_tune=True)
+    # the JAX package's dataset reads ``proposals`` only (a deliberate
+    # divergence, ROADMAP.md)
+    with pytest.raises(KeyError, match="proposals"):
+        JaxDataset(data, data, props_dir, scene_names=scenes, fine_tune=True)
+    ds = RPNClassificationDataset(data, data, props_dir, scene_names=scenes, fine_tune=True)
     grid, _, props, levels, _ = ds[1]
-    assert grid.shape == (32, 32, 32, 4) and len(levels) == len(props)
+    assert grid.shape == (32, 32, 32, 4) and len(levels) == len(props) > 0
+    with np.load(os.path.join(props_dir, "synth001.npz")) as z:
+        keep = np.prod(z["proposal"][:, 3:6], axis=1) / 32 ** 3 <= 0.5
+        np.testing.assert_array_equal(props, z["proposal"][keep])
+        np.testing.assert_array_equal(levels, z["level_indices"][keep])
     batch = collate_classification_batch([ds[0], ds[1]], max_rois=32, max_gt=4)
     assert batch["grids"].shape == (2, 32, 32, 32, 4) and batch["roi_valid"].any()
+    # and they train the fine-tune mode for an epoch
+    save = os.path.join(data, "rcnn_from_fcos")
+    logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1", *_detect_args(
+        data, props_dir, save, "--fine_tune", "--remap", "--backbone_type", "resnet_tiny",
+        "--resolution", "32")])
+    assert len(logged) == 1 and np.isfinite(logged[0]["loss"]) and logged[0]["loss"] > 0
+    assert os.path.isfile(os.path.join(save, "model_best"))
 
 
 def test_fine_tune_train_then_eval_from_the_checkpoint(data, stage1):
