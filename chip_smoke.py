@@ -125,7 +125,9 @@ nonzero before the result lines:
    the phase fails if it does not; and the ``rcnn`` combo
    (``resnet_tiny`` fine-tuned for 40 epochs through ``run_rpn_detect`` on
    the scenes' generated RoIs; AP@25, AP@50 and the classification
-   accuracy), the same way; the combos run at once, a process each;
+   accuracy), the same way; each seed a process, up to 2 seeds of a
+   combo at once, the first combo not yet decided taking the share of
+   each decided one (a run past a combo's deciding seed is not counted);
 22. the RCNN small slice, card against CPU, same weights (f32, TF32 off):
    the features mode at ``train_rcnn.sh``'s head (256 channels, 3^3,
    ``--is_add_layer --is_flatten``), AABB and OBB, on random FPN levels of
@@ -163,7 +165,8 @@ nonzero before the result lines:
    loss terms, norms, updated parameters (the share of flipped AdamW
    steps) and running statistics within ``DDP_LIMITS`` of the one
    process's, K1 and K2 24 a Swin step a rank,
-   and the gradient all-reduce's ms; (b) ``run_rpn --gpus 0`` (NCCL, a
+   and the gradient all-reduce's ms (the two ranks then run phase 27's
+   evals, so that the script starts them once); (b) ``run_rpn --gpus 0`` (NCCL, a
    group of one) on phase 10's path with phase 10's launches, then
    ``run_fcos --gpus 0`` and ``run_rpn_detect --gpus 0`` for two steps
    each, ``model_best`` written by rank 0; (c) the RPN train step in a
@@ -182,16 +185,41 @@ nonzero before the result lines:
    drivers' ``--mode eval`` at ``--batch_size 2`` on 3 scenes (a ragged
    last batch) from the checkpoints of phases 10 (RPN AABB, with
    ``--save_results --output_voxel_scores``), 13 (RPN OBB), 16 (FCOS OBB)
-   and 23 (RCNN fine-tune) on two ranks of the card (gloo): each rank's
+   and 23 (RCNN fine-tune) on phase 25's two ranks of the card (gloo): each rank's
    launches, the ranks' files byte-equal to one process's at batch 1 (the
    same batches), one process at batch 2 reporting within rounding of it
    (Recall to a gt box, AP to 1e-3; its proposals read against the
-   split's: ``same_reports``); ``run_rpn --mode eval --gpus 0``
-   (NCCL, a group of one) byte-equal to the one process at batch 2; the
+   split's: ``same_reports``); ``run_rpn --mode eval --rotated_bbox --gpus
+   0`` (NCCL, a group of one) byte-equal to the one process at batch 2; the
    seconds of every run;
 28. the five ported tools on phases 26-27's files: the ``.msgpack`` read
    back, ``proposals2ngp``, ``render_heatmap``, ``visualize_rpn_input`` and
-   ``visualize_bbox`` -- their JSON, PLY and PNG files written and finite.
+   ``visualize_bbox`` -- their JSON, PLY and PNG files written and finite;
+29. the native resample (``native/augment.cpp``, built here with ``g++``):
+   against its numpy twin at 160^3 x 4 and 200x200x136 x 4 and two
+   (angle, scale) pairs of the augmentation's range within 5e-5, seconds a
+   resample of each; phase 13's OBB loader (``batch_iterator`` as
+   ``run_rpn --mode train --rotated_bbox`` builds it, 4 workers, batch 2)
+   with the library (an epoch) and with the twin patched in (its first
+   batch, the same draws), seconds a batch beside
+   phase 13's train step, the native counter rising; one ``run_rpn --mode
+   train --rotated_bbox --rot_scale_prob 1.0`` epoch (every train sample
+   resampled natively, K1 and K2 24 a step);
+30. ``datatools``: ``extract_rgbsigma`` of a dense-depth-priors NeRF
+   (8 x 256, random weights) at ``max_res`` 160 over a non-cubic bbox
+   through ``mean_rgb_over_poses`` with 8 poses (seconds, points a second,
+   peak GiB; 4096 points against the network on the CPU in float64 within
+   1e-4 relative), the npz through ``load_scene`` and ``run_rpn --mode eval
+   --rotated_bbox`` from phase 13's ``model_best`` (K5 24, K6 24, K4 12, K1
+   12, resolve 1, finite scores); ``scannet_boxes`` and ``hypersim_boxes``
+   on synthetic scenes, their ``.npy`` files bit-equal to the CPU tests'
+   pinned digests;
+31. ``utils/debug.inspect_anchor_gt_iou`` on the Swin-S anchors at 160^3
+   with phase 13's gt boxes; ``utils/profiling``: ``trace`` around one
+   Swin-S eval scene (the trace names K5, K6, K4 and K1), ``benchmark_fn``
+   on that eval step beside ``common.benchmark_eval_step`` (two
+   protocols), ``nan_check`` on the RPN train step (a finite step passes,
+   a grid with one NaN raises).
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -208,8 +236,9 @@ Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
 eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
 fine-tune and features paths, phase 25's ``--gpus 0`` paths, phase 26's
 evals from each format and phase 27's evals, on the ranks and in one
-process) runs with the launch counts set to 0 just before it and read just
-after; a kernel's ``launches`` in the record is its sum over them.  The last three
+process, phase 29's native OBB train epoch and phase 30's eval of the
+extracted scene) runs with the launch counts set to 0 just before it and
+read just after; a kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
 """
@@ -841,24 +870,6 @@ def fcos_bench_eval_step(torch, rotated):
     return eval_step, trainer.model, grids, ori
 
 
-def device_busy(torch, fn):
-    """``(device-busy ms, kernels)`` of one call of ``fn``: the union of
-    the device spans that ``torch.profiler`` records."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    return busy_us / 1e3, len(spans)
-
-
 def check_fcos_nms(torch):
     """FCOS's NMS problem at its bench scene, as AABBs and as OBBs: one
     problem of 6125 boxes padded to Np = 6144.  The keep-set on the card
@@ -874,6 +885,7 @@ def check_fcos_nms(torch):
     volume that overlap their neighbours, where NMS suppresses."""
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.models import fcos as fcos_lib
+    from nerf_rpn_tpu_torch.utils.profiling import device_busy
     from nerf_rpn_tpu_torch.ops.nms import nms_mask, obb_suppression_graph, sort_problems
     from nerf_rpn_tpu_torch.ops.nms_graph import (
         aabb_suppression_graph,
@@ -936,7 +948,7 @@ def check_fcos_nms(torch):
         resolve_ms, resolve_plain = time_pair(torch, lambda: resolve_keep_reference(graph, svalid),
                                               lambda: resolve_keep(graph, svalid))
         _, propose_syncs = count_syncs(torch, lambda: eval_step.propose(*heads))
-        busy_ms, busy_kernels = device_busy(torch, lambda: nms_mask(boxes, scores, valid, thresh))
+        busy_ms, busy_kernels = device_busy(lambda: nms_mask(boxes, scores, valid, thresh))
         row.update(sweeps=resolve_fixpoint(graph, svalid)[1], resolve_ms=resolve_ms,
                    resolve_plain_ms=resolve_plain,
                    resolve_bound=bound(4 * triangle_words(svalid) + nbytes(svalid, alive), 0,
@@ -1488,19 +1500,13 @@ def run_train_path(torch, workdir, resolution=160, backbone="swin_s", device="cu
     return launches, data, common
 
 
-def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
-    """Device ms per train step (CUDA events around each step), the peak
-    device memory and, for one more step under ``torch.profiler``, the
-    device-busy ms and kernels, at the train path's shape on its first
-    batch (the FCOS step with ``fcos``, ``common`` then holding its
-    flags); K1 and K2 must run once per Swin block and step, and no hand
-    kernel in a ResNet / VGG step."""
-    import numpy as np
-
-    from nerf_rpn_tpu_torch import kernels
+def train_step_setup(torch, data, common, total_steps, fcos=False):
+    """The train path's step on its first batch, as ``time_train_steps``
+    and phase 31 run it: ``(args, trainer, batch, state, step, gen,
+    drop)``, ``step(state, batch, gen, drop)`` returning the metrics (the
+    FCOS step with ``fcos``, ``common`` then holding its flags)."""
     from nerf_rpn_tpu_torch.data.datasets import batch_iterator
     from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
-    from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_fcos_train_step, make_rpn_train_step
 
@@ -1515,7 +1521,7 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
         box_dim=7 if args.rotated_bbox else 6,
         fixed_shape=trainer.mesh_shape, num_workers=0)))
     batch = cli.common.device_batch(host, trainer.device, trainer.dtype)
-    state = TrainState(trainer.model, args.lr, steps + warmup, args.weight_decay,
+    state = TrainState(trainer.model, args.lr, total_steps, args.weight_decay,
                        args.clip_grad_norm)
     gen = torch.Generator(trainer.device).manual_seed(0)
     drop = torch.Generator(trainer.device).manual_seed(1)
@@ -1528,6 +1534,24 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
     else:
         step = make_rpn_train_step(trainer.model, trainer.cfg_train, trainer.mesh_shape,
                                    run_rpn.STRIDES, device=trainer.device)
+    return args, trainer, batch, state, step, gen, drop
+
+
+def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
+    """Device ms per train step (CUDA events around each step), the peak
+    device memory and, for one more step under ``torch.profiler``, the
+    device-busy ms and kernels, at the train path's shape on its first
+    batch (the FCOS step with ``fcos``, ``common`` then holding its
+    flags); K1 and K2 must run once per Swin block and step, and no hand
+    kernel in a ResNet / VGG step."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
+    from nerf_rpn_tpu_torch.utils.profiling import device_busy
+
+    args, trainer, batch, state, step, gen, drop = train_step_setup(
+        torch, data, common, steps + warmup, fcos)
     for _ in range(warmup):
         step(state, batch, gen, drop)
     torch.cuda.synchronize()
@@ -1551,7 +1575,7 @@ def time_train_steps(torch, data, common, steps=20, warmup=3, fcos=False):
         fail(f"timed train steps: launches per step {per_step}, expected {want}")
     ms = np.array([a.elapsed_time(b) for a, b in events])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    busy_ms, busy_kernels = device_busy(torch, lambda: step(state, batch, gen, drop))
+    busy_ms, busy_kernels = device_busy(lambda: step(state, batch, gen, drop))
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.all(np.isfinite(losses)):
         fail(f"timed train steps: non-finite losses {losses}")
@@ -2278,6 +2302,7 @@ def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import (make_rcnn_eval_step, make_rcnn_filter_step,
                                                    make_rcnn_train_step)
+    from nerf_rpn_tpu_torch.utils.profiling import device_busy
 
     args = run_rpn_detect.parse_args(["--mode", "train", *common, "--num_workers", "0"])
     trainer = run_rpn_detect.Trainer(args)
@@ -2310,7 +2335,7 @@ def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
         fail(f"timed rcnn train steps: launches per step {per_step}")
     ms = np.array([a.elapsed_time(b) for a, b in events])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    busy_ms, busy_kernels = device_busy(torch, lambda: step(state, batch, gen, drop))
+    busy_ms, busy_kernels = device_busy(lambda: step(state, batch, gen, drop))
     losses = torch.stack(losses).float().cpu().numpy()
     if not np.all(np.isfinite(losses)):
         fail(f"timed rcnn train steps: losses {losses}")
@@ -2368,7 +2393,7 @@ def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
     want = {k: v for k, v in OBB_EVAL_LAUNCHES_PER_SCENE.items()}
     if per_scene != want:
         fail(f"rcnn eval: launches per scene {per_scene}, expected {want}")
-    busy, n_kernels = device_busy(torch, lambda: whole(0))
+    busy, n_kernels = device_busy(lambda: whole(0))
     eval_row = {"scene_ms_mean": float(np.mean(scene_ms)),
                 "scene_ms_median": float(np.median(scene_ms)),
                 **{f"{k}_ms_mean": float(np.mean(v)) for k, v in part_ms.items()},
@@ -2741,11 +2766,20 @@ def _ddp_rank(work, dev):
     torch.save(out, os.path.join(work, f"ddp_rank{r}.pt"))
 
 
-def check_ddp_steps(torch, dev, work, card=""):
+def _paired_ranks(work, cases, dev):
+    """The two ranks of phases 25 (a) and 27, started once: phase 25's
+    steps, then phase 27's ``cases``."""
+    _ddp_rank(work, dev)
+    _eval_split_rank(os.path.join(work, "eval_split"), cases, dev)
+
+
+def check_ddp_steps(torch, dev, work, cases, card=""):
     """Phase 25 (a): each of ``DDP_CASES`` in one process at batch 2 (the
     reference, kept on the host, the card freed after each), then on two
     ranks of one scene each on the same card (``ddp.launch``, gloo, which
-    carries CUDA tensors; NCCL refuses two ranks on one device).  Every
+    carries CUDA tensors; NCCL refuses two ranks on one device).  The
+    same two ranks then run phase 27's eval ``cases``, which
+    ``check_eval_split`` reads.  Every
     rank must hold rank 0's weights after the broadcast and after the step
     bit for bit, log the same metrics, launch K1 and K2 24 times a Swin
     step (0 a ResNet step), and read within ``DDP_LIMITS`` of the
@@ -2768,7 +2802,7 @@ def check_ddp_steps(torch, dev, work, card=""):
         del model, batch, sample
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ddp.launch(_ddp_rank, (work, dev), [dev, dev], "gloo")
+    ddp.launch(_paired_ranks, (work, cases, dev), [dev, dev], "gloo")
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(work, f"ddp_rank{r}.pt"), weights_only=False)
              for r in (0, 1)]
@@ -2834,7 +2868,8 @@ def check_ddp_steps(torch, dev, work, card=""):
         fail("data parallel: " + "; ".join(over))
     timed = [rank[DDP_TIMED] for rank in ranks]
     print(f"[data parallel] {card}: 2 ranks on one card over gloo: {ranks_s:.1f} s for "
-          f"{len(refs)} steps a rank; the Swin-S RPN's gradient all-reduce "
+          f"{len(refs)} steps and phase 27's {len(cases)} evals a rank; the Swin-S RPN's "
+          f"gradient all-reduce "
           f"({timed[0]['grad_mib']:.1f} MiB f32) {timed[0]['grad_all_reduce_ms']:.2f} ms on "
           f"rank 0, {timed[1]['grad_all_reduce_ms']:.2f} ms on rank 1", flush=True)
     return timed[0]["grad_all_reduce_ms"]
@@ -3184,11 +3219,12 @@ def same_reports(np, a, b, box_tol, what):
     return readings
 
 
-def check_eval_split(torch, work, cases, dev, gpus_case=None, resolution=160):
+def check_eval_split(torch, work, cases, gpus_case=None, resolution=160):
     """Phase 27: ``cases`` (name, driver, ``--mode eval`` arguments) on 3
-    scenes at ``--batch_size 2`` on two ranks of one card (``ddp.launch``,
-    gloo: NCCL refuses two ranks on one device): a batch of 2 splits (a
-    scene a rank), the ragged last batch goes to rank 0 alone.  The ranks'
+    scenes at ``--batch_size 2`` on two ranks of one card (gloo: NCCL
+    refuses two ranks on one device; phase 25 ran them, in its launch of
+    ``_paired_ranks``): a batch of 2 splits (a scene a rank), the ragged
+    last batch goes to rank 0 alone.  The ranks'
     files together must equal, byte for byte, one process's at
     ``--batch_size 1`` (the same batches), and rank 0 alone writes
     ``eval.json`` and the proposals; one process at ``--batch_size 2``
@@ -3202,12 +3238,8 @@ def check_eval_split(torch, work, cases, dev, gpus_case=None, resolution=160):
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
-    from nerf_rpn_tpu_torch.parallel import ddp
 
     root = os.path.join(work, "eval_split")
-    t0 = time.perf_counter()
-    ddp.launch(_eval_split_rank, (root, cases, dev), [dev, dev], "gloo")
-    ranks_s = time.perf_counter() - t0
     ranks = []
     for r in (0, 1):
         with open(os.path.join(root, f"eval_split_rank{r}.json")) as f:
@@ -3254,8 +3286,6 @@ def check_eval_split(torch, work, cases, dev, gpus_case=None, resolution=160):
                      f"byte-equal to batch 1; batch 2 against it: {json.dumps(readings)}")
     for line in lines:
         print(f"[eval split] {line}", flush=True)
-    print(f"[eval split] the two ranks' launch, {len(cases)} evals each: {ranks_s:.1f} s",
-          flush=True)
     if gpus_case is not None:
         name, driver, argv = gpus_case
         cli = importlib.import_module(f"nerf_rpn_tpu_torch.cli.{driver}")
@@ -3373,6 +3403,9 @@ def run_tools(torch, work, msgpack, proposals_dir, data, split_dir, resolution=1
 # taken over eight).
 GATE_SEEDS = (0, 1, 2, 3, 4, 5)
 JAX_GATE_PASSES = {"rpn_aabb": 2, "fcos_obb": 1, "rcnn": 3}
+# seeds of one combo that run on the card at once; a decided combo's share
+# goes to the first combo not yet decided
+GATE_WINDOW = 2
 
 
 def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb", "rcnn")):
@@ -3380,42 +3413,78 @@ def run_quality_gate(torch, workdir, combos=("rpn_aabb", "fcos_obb", "rcnn")):
     through ``run_rpn`` / ``run_fcos``, resnet_tiny, f32, 60 epochs at
     32^3), under torch's deterministic algorithms as the gate's CLI runs
     on the card (one seed, one result): AP@25, AP@50, Recall@25, the
-    validation Recall@50 curve and the seconds of each run.  Seeds run in
+    validation Recall@50 curve and the seconds of each run.  Seeds count in
     ``GATE_SEEDS``' order until a combo has cleared its gates (the
     script's thresholds) as many times as the JAX package's gate does on
     those seeds (``JAX_GATE_PASSES``), and at least once; the phase fails
-    if it does not.  The combos run at once, a process each on the card
-    (host-bound runs; each seed's result is the one it gives alone)."""
+    if it does not.  Each run is a process of its own on the card
+    (host-bound runs; each seed's result is the one it gives alone), up
+    to ``GATE_WINDOW`` seeds of a combo at once, and the first combo not
+    yet decided takes the share of each decided one: a combo's next seed
+    starts while its earlier ones run, and a run past the seed that
+    decides its combo is printed and not counted."""
     import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
 
-    with ProcessPoolExecutor(len(combos), mp_context=multiprocessing.get_context("spawn")) as pool:
-        futures = {combo: pool.submit(_gate_combo, combo, workdir) for combo in combos}
-        rows = {combo: f.result() for combo, f in futures.items()}
+    need = {combo: max(1, JAX_GATE_PASSES[combo]) for combo in combos}
+    done = {combo: {} for combo in combos}
+    started = {combo: 0 for combo in combos}
+
+    def counted(combo):
+        """The combo's rows in seed order up to the deciding seed, and
+        whether they decide it (its passes reached, or every seed run)."""
+        rows = []
+        for seed in GATE_SEEDS:
+            if seed not in done[combo]:
+                return rows, False
+            rows.append(done[combo][seed])
+            if sum(r["pass"] for r in rows) >= need[combo]:
+                return rows, True
+        return rows, True
+
+    running = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(GATE_WINDOW * len(combos), mp_context=ctx) as pool:
+        while True:
+            undecided = [combo for combo in combos if not counted(combo)[1]]
+            for combo in undecided:
+                in_flight = sum(c == combo for c, _ in running.values())
+                share = len(combos) - len(undecided) + 1 if combo == undecided[0] else 1
+                while (started[combo] < len(GATE_SEEDS)
+                       and in_flight < GATE_WINDOW * share):
+                    seed = GATE_SEEDS[started[combo]]
+                    running[pool.submit(_gate_seed, combo, seed, workdir)] = (combo, seed)
+                    started[combo] += 1
+                    in_flight += 1
+            if not running:
+                break
+            finished, _ = wait(running, return_when=FIRST_COMPLETED)
+            for fut in finished:
+                combo, seed = running.pop(fut)
+                done[combo][seed] = fut.result()
+    rows = {combo: counted(combo)[0] for combo in combos}
     for combo, combo_rows in rows.items():
-        need = max(1, JAX_GATE_PASSES[combo])
-        if sum(r["pass"] for r in combo_rows) < need:
+        if sum(r["pass"] for r in combo_rows) < need[combo]:
             fail(f"quality gate: {combo} cleared its gates at "
                  f"{sum(r['pass'] for r in combo_rows)} of seeds {GATE_SEEDS}, not "
-                 f"{need} (the JAX package's gate: {JAX_GATE_PASSES[combo]})")
+                 f"{need[combo]} (the JAX package's gate: {JAX_GATE_PASSES[combo]})")
+        extra = sorted(set(done[combo]) - {r["seed"] for r in combo_rows})
+        print(f"[quality gate] {combo}: seeds {[r['seed'] for r in combo_rows]} counted, "
+              f"{sum(r['pass'] for r in combo_rows)} cleared"
+              + (f"; seeds {extra} ran past the deciding seed, not counted" if extra else ""),
+              flush=True)
     return rows
 
 
-def _gate_combo(combo, workdir):
-    """One combo's gate runs, in a process of its own: seeds in order until
-    it has cleared its gates ``JAX_GATE_PASSES`` times (and at least once)."""
+def _gate_seed(combo, seed, workdir):
+    """One gate run, in a process of its own."""
     import torch
 
     from nerf_rpn_tpu_torch.cli import quality_gate
 
     torch.set_num_threads(2)
     quality_gate.use_deterministic_algorithms()
-    need, rows = max(1, JAX_GATE_PASSES[combo]), []
-    for seed in GATE_SEEDS:
-        rows.append(_gate_row(quality_gate, combo, seed, workdir))
-        if sum(r["pass"] for r in rows) >= need:
-            break
-    return rows
+    return _gate_row(quality_gate, combo, seed, workdir)
 
 
 def _gate_row(quality_gate, combo, seed, workdir):
@@ -3429,6 +3498,530 @@ def _gate_row(quality_gate, combo, seed, workdir):
     row["pass"] = quality_gate.passes(combo, ap25, ap50, aux)
     print("[quality gate]", json.dumps(row), flush=True)
     return row
+
+
+# ---------------------------------------------------------------------------
+# The host pipeline: the native resample, datatools, debug and profiling
+# ---------------------------------------------------------------------------
+
+# phase 29: the resample's grids (the train path's 160^3 and the Hypersim
+# eval's 200x200x136) and two (angle, scale) pairs inside the drivers'
+# augmentation range (+-pi/18, 0.9-1.1); values in [0, 1]
+NATIVE_GRIDS = ((160, 160, 160, 4), (200, 200, 136, 4))
+NATIVE_PAIRS = ((0.15, 0.93), (-0.12, 1.07))
+NATIVE_TOL = 5e-5
+# the extraction: a non-cubic scene bbox (160 x 160 x 120 samples), the
+# training poses of the mean-RGB query, the CPU float64 subset and its bound
+# (relative to the channel group's largest value)
+NERF_BBOX = ((-2.0, -2.0, -1.5), (2.0, 2.0, 1.5))
+NERF_MAX_RES, NERF_RES = 160, (160, 160, 120)
+NERF_POSES = 8
+NERF_CHECK_POINTS = 4096
+NERF_REL_TOL = 1e-4
+
+
+def check_native_resample(np):
+    """Phase 29 (a): the port's C++ resample (``native``, built here from
+    ``native/augment.cpp``) against its numpy twin at ``NATIVE_GRIDS`` x
+    ``NATIVE_PAIRS`` within ``NATIVE_TOL``, and seconds a resample of each
+    path: the native call the median of 3 at each pair, the twin the median
+    of its two calls (one a pair, the ones the check compares with), each
+    call alone."""
+    from nerf_rpn_tpu_torch import native
+    from nerf_rpn_tpu_torch.data.augment import rotate_scale_resample_plain
+
+    t0 = time.perf_counter()
+    native.library()
+    print(f"[native] {native.library_path().name} ({native.CXX} {' '.join(native.FLAGS)}) "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    rows = []
+    for shape in NATIVE_GRIDS:
+        vol = rng.uniform(0, 1, shape).astype(np.float32)
+        row, native_s, twin_s = {"grid": list(shape)}, [], []
+        for angle, scale in NATIVE_PAIRS:
+            got_s = []
+            for _ in range(3):
+                t = time.perf_counter()
+                got = native.rotate_scale_resample(vol, angle, scale)
+                got_s.append(time.perf_counter() - t)
+            native_s.append(float(np.median(got_s)))
+            t = time.perf_counter()
+            twin = rotate_scale_resample_plain(vol, angle, scale)
+            twin_s.append(time.perf_counter() - t)
+            err = float(np.abs(got - twin).max())
+            row[f"max_abs_err_{angle}_{scale}"] = err
+            if not np.isfinite(err) or err > NATIVE_TOL:
+                fail(f"native resample at {shape}, angle {angle}, scale {scale}: max |native - "
+                     f"twin| {err} > {NATIVE_TOL}")
+        row.update(native_s=float(np.median(native_s)), twin_s=float(np.median(twin_s)),
+                   native_s_by_pair=native_s, twin_s_by_pair=twin_s)
+        row["speedup"] = row["twin_s"] / row["native_s"]
+        print("[native resample]", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def time_obb_loader(np, work, data, common):
+    """Phase 29 (b): ``batch_iterator`` over phase 13's OBB train scenes as
+    ``run_rpn --mode train --rotated_bbox`` builds it (the drivers' default
+    augmentation, ``num_workers`` 4, batch 2): one epoch with the native
+    resample, then its first batch again with the numpy twin patched in,
+    each on a fresh dataset (the same draws): seconds per batch, and the
+    resamples each made in that first batch (the native counter must
+    rise, by as many as the twin's calls)."""
+    from nerf_rpn_tpu_torch import native
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.data import augment
+    from nerf_rpn_tpu_torch.data.datasets import batch_iterator, round_up
+
+    args = run_rpn.parse_args(["--mode", "train", *common,
+                               "--save_path", os.path.join(work, "loader")])
+    side = round_up(args.resolution, args.pad_multiple)  # the Trainer's mesh_shape
+
+    def batches(limit):
+        """Seconds of each of the first ``limit`` batches, and the native
+        resamples after each."""
+        train_set, _, _ = run_rpn.common.build_datasets(args, "train", augment=True)
+        times, calls, t = [], [], time.perf_counter()
+        for _ in batch_iterator(train_set, args.batch_size, shuffle=True, seed=1,
+                                drop_last=True, pad_multiple=args.pad_multiple,
+                                max_gt=args.max_gt, box_dim=7, fixed_shape=(side,) * 3,
+                                num_workers=args.num_workers):
+            times.append(time.perf_counter() - t)
+            calls.append(native.counts()["rotate_scale_resample"])
+            if len(times) == limit:
+                break
+            t = time.perf_counter()
+        return times, calls
+
+    native.reset_counts()
+    native_times, native_calls = batches(None)
+    twin_calls = []
+
+    def twin(volume, angle, scale):
+        twin_calls.append(angle)
+        return augment.rotate_scale_resample_plain(
+            np.ascontiguousarray(volume, np.float32), angle, scale)
+
+    library_call, native.rotate_scale_resample = native.rotate_scale_resample, twin
+    try:
+        twin_times, _ = batches(1)
+    finally:
+        native.rotate_scale_resample = library_call
+    if native_calls[0] <= 0 or native_calls[0] != len(twin_calls):
+        fail(f"OBB loader, first batch: {native_calls[0]} native resamples, "
+             f"{len(twin_calls)} with the twin")
+    row = {"scenes": len(native_times) * args.batch_size, "batch": args.batch_size,
+           "num_workers": args.num_workers, "rot_scale_prob": args.rot_scale_prob,
+           "resamples": native_calls[-1], "resamples_first_batch": native_calls[0],
+           "native_s_per_batch": native_times, "twin_s_first_batch": twin_times[0],
+           "native_s_per_batch_mean": float(np.mean(native_times))}
+    print("[OBB loader]", json.dumps(row), flush=True)
+    return row
+
+
+def run_native_obb_train(torch, work, common):
+    """Phase 29 (c): one ``run_rpn --mode train --rotated_bbox
+    --rot_scale_prob 1.0`` epoch on phase 13's scenes: every train sample
+    goes through the native resample, and each step launches K1 24 and K2
+    24 (the validation eval its batch's launches)."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels, native
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    save = os.path.join(work, "native_obb_train")
+    kernels.reset_counts()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    logged = run_rpn.main(["--mode", "train", "--num_epochs", "1", "--log_interval", "1",
+                           "--save_path", save, *common, "--rot_scale_prob", "1.0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, resamples = kernels.counts(), native.counts()["rotate_scale_resample"]
+    steps = len(logged)
+    if steps != 2 or not all(np.isfinite(m["loss"]) and m["loss"] > 0 for m in logged):
+        fail(f"native OBB train: logged {logged}")
+    if resamples != 2 * steps:
+        fail(f"native OBB train: {resamples} native resamples over {steps} steps of 2 scenes")
+    want = eval_launches(1, 2, rotated=True)
+    want["window_attention_fwd"] += 24 * steps
+    want["window_attention_bwd"] = 24 * steps
+    check_launches(launches, want, "native OBB train (run_rpn --rot_scale_prob 1.0)")
+    print(f"[native OBB train] {steps} steps + validation in {seconds:.1f} s, "
+          f"{resamples} native resamples; losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in logged), flush=True)
+    return launches
+
+
+def run_native_loader(torch, work, data, common, obb_steps):
+    """Phase 29: the native resample against its twin, the OBB loader with
+    either, beside phase 13's timed OBB train step (``obb_steps``), and the
+    OBB train epoch through the native path."""
+    import numpy as np
+
+    resample = check_native_resample(np)
+    loader = time_obb_loader(np, work, data, common)
+    print("[OBB loader vs step]", json.dumps({
+        "native_s_per_batch": loader["native_s_per_batch_mean"],
+        "native_s_first_batch": loader["native_s_per_batch"][0],
+        "twin_s_first_batch": loader["twin_s_first_batch"],
+        "obb_train_step_ms_mean": obb_steps["ms_per_step_mean"],
+        "obb_train_step_ms_median": obb_steps["ms_per_step_median"],
+        "native_resample_s_160": resample[0]["native_s"],
+        "twin_resample_s_160": resample[0]["twin_s"]}), flush=True)
+    return run_native_obb_train(torch, work, common)
+
+
+def make_ddp_nerf(torch, dev, seed):
+    """The dense-depth-priors NeRF that ``nerf_features`` was written for
+    (nerf-pytorch's ``NeRF`` with view directions: 8 layers of width 256,
+    the input skip into the fifth, 10 position and 4 direction frequencies,
+    a 128-wide view layer), in f32 on ``dev`` with random weights from a
+    seeded ``torch.Generator``: ``net(points (N, 3), viewdir (3,)) -> raw
+    (N, 4)`` (pre-sigmoid rgb, raw sigma)."""
+    nn = torch.nn
+    depth, width, skip, pos_freqs, dir_freqs = 8, 256, 4, 10, 4
+    cin, cdir = 3 + 6 * pos_freqs, 3 + 6 * dir_freqs
+
+    def embed(x, n):
+        return torch.cat([x] + [f(x * 2.0 ** k) for k in range(n)
+                                for f in (torch.sin, torch.cos)], -1)
+
+    class NeRF(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.pts_linears = nn.ModuleList(
+                [nn.Linear(cin, width)] + [nn.Linear(width + cin if i == skip else width, width)
+                                           for i in range(depth - 1)])
+            self.feature_linear = nn.Linear(width, width)
+            self.alpha_linear = nn.Linear(width, 1)
+            self.views_linears = nn.ModuleList([nn.Linear(cdir + width, width // 2)])
+            self.rgb_linear = nn.Linear(width // 2, 3)
+
+        def forward(self, pts, viewdir):
+            x = embed(pts, pos_freqs)
+            h = x
+            for i, layer in enumerate(self.pts_linears):
+                h = torch.relu(layer(h))
+                if i == skip:
+                    h = torch.cat([x, h], -1)
+            alpha = self.alpha_linear(h)
+            d = embed(viewdir.expand(len(pts), 3), dir_freqs)
+            h = torch.cat([self.feature_linear(h), d], -1)
+            h = torch.relu(self.views_linears[0](h))
+            return torch.cat([self.rgb_linear(h), alpha], -1)
+
+    net = NeRF().to(dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        for layer in net.modules():
+            if isinstance(layer, nn.Linear):
+                lim = 1.0 / math.sqrt(layer.in_features)
+                for p in (layer.weight, layer.bias):
+                    p.copy_((torch.rand(p.shape, generator=gen, device=dev) * 2 - 1) * lim)
+    return net.eval()
+
+
+def _random_poses(np, n, seed):
+    """``n`` camera-to-world (3, 4) matrices: random rotations and centres."""
+    rng = np.random.default_rng(seed)
+    poses = []
+    for _ in range(n):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        q[:, 0] *= np.sign(np.linalg.det(q))
+        poses.append(np.hstack([q, rng.uniform(-1, 1, (3, 1))]))
+    return np.stack(poses)
+
+
+def check_extraction(torch, dev, work):
+    """Phase 30 (a): ``extract_rgbsigma`` at ``max_res`` 160 over
+    ``NERF_BBOX`` through ``mean_rgb_over_poses`` with ``NERF_POSES``
+    poses, the NeRF of ``make_ddp_nerf`` on the card (f32, TF32 off):
+    seconds, grid points and point queries a second, peak GiB; a
+    ``NERF_CHECK_POINTS`` subset against the same network on the CPU in
+    float64 within ``NERF_REL_TOL``; then the npz written.  Returns the
+    npz's path."""
+    import copy
+
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.datatools.nerf_features import (build_sample_grid,
+                                                            extract_rgbsigma,
+                                                            mean_rgb_over_poses)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = make_ddp_nerf(torch, dev, seed=0)
+    poses = _random_poses(np, NERF_POSES, seed=1)
+
+    def nerf_fn(pts):
+        return mean_rgb_over_poses(net, poses, pts)
+
+    extract_rgbsigma(nerf_fn, *NERF_BBOX, max_res=16, device=dev)  # cuBLAS, kernels warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rgbsigma, res = extract_rgbsigma(nerf_fn, *NERF_BBOX, max_res=NERF_MAX_RES, device=dev)
+    seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = int(np.prod(res))
+    if tuple(res) != NERF_RES or not np.isfinite(rgbsigma).all():
+        fail(f"extraction: resolution {res}, finite {np.isfinite(rgbsigma).all()}")
+    scene_dir = os.path.join(work, "nerf_scene")
+    os.makedirs(scene_dir, exist_ok=True)
+    npz = os.path.join(scene_dir, "nerf000.npz")
+    t0 = time.perf_counter()
+    again, _ = extract_rgbsigma(nerf_fn, *NERF_BBOX, max_res=NERF_MAX_RES, device=dev,
+                                output_file=npz)
+    write_s = time.perf_counter() - t0
+
+    points, _ = build_sample_grid(*NERF_BBOX, NERF_MAX_RES)
+    idx = np.random.default_rng(2).choice(n, NERF_CHECK_POINTS, replace=False)
+    cpu = copy.deepcopy(net).double().cpu()
+    rgb, sigma = mean_rgb_over_poses(lambda p, d: cpu(p.double(), d.double()), poses,
+                                     torch.from_numpy(points[idx]))
+    got = rgbsigma.reshape(-1, 4)[idx]
+    err = {"rgb": float(np.abs(got[:, :3] - rgb.numpy()).max() / np.abs(rgb.numpy()).max()),
+           "sigma": float(np.abs(got[:, 3] - sigma.numpy()).max() / np.abs(sigma.numpy()).max())}
+    row = {"resolution": [int(r) for r in res], "points": n, "poses": NERF_POSES,
+           "seconds": seconds, "points_per_s": n / seconds,
+           "point_queries_per_s": n * NERF_POSES / seconds, "peak_gib": peak_gib,
+           "seconds_with_npz_write": write_s, "cpu_f64_rel_err": err,
+           "same_grid_twice": bool(np.array_equal(again, rgbsigma))}
+    print("[extraction]", json.dumps(row), flush=True)
+    if not all(np.isfinite(e) and e <= NERF_REL_TOL for e in err.values()):
+        fail(f"extraction: the card vs CPU float64 on {NERF_CHECK_POINTS} points: {err}")
+    return npz
+
+
+def eval_extracted_scene(torch, npz, ckpt, common):
+    """Phase 30 (b): the written npz through the port's ``load_scene``,
+    then ``run_rpn --mode eval`` of phase 13's Swin-S OBB ``model_best``
+    on it with phase 13's flags (``common``) and its own split and two gt
+    OBBs: one batch's launches (K5 24, K6 24, K4 12, K1 12, resolve 1) and
+    finite scores."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.data.datasets import load_scene
+
+    scene_dir = os.path.dirname(npz)
+    np.save(os.path.join(scene_dir, "nerf000.npy"),
+            np.array([[80, 80, 60, 30, 20, 24, 0.3], [40, 110, 50, 16, 24, 30, -0.6]],
+                     np.float32))
+    none = np.array([], dtype="<U7")
+    np.savez(os.path.join(scene_dir, "split.npz"), train_scenes=none, val_scenes=none,
+             test_scenes=np.array(["nerf000"]))
+    rgbsigma, boxes = load_scene(npz, os.path.join(scene_dir, "nerf000.npy"))
+    if rgbsigma.shape != (*NERF_RES, 4) or not np.isfinite(rgbsigma).all():
+        fail(f"load_scene of the extracted npz: {rgbsigma.shape}")
+    out = os.path.join(scene_dir, "eval")
+    kernels.reset_counts()
+    recalls, _ = run_rpn.main([
+        "--mode", "eval", "--checkpoint", ckpt, "--save_path", out, "--output_proposals",
+        *common, "--features_path", scene_dir, "--boxes_path", scene_dir,
+        "--dataset_split", os.path.join(scene_dir, "split.npz")])
+    torch.cuda.synchronize()
+    launches = kernels.counts()
+    check_launches(launches, eval_launches(1, 1, rotated=True), "extracted scene eval")
+    with np.load(os.path.join(out, "proposals", "nerf000.npz")) as z:
+        p, s = z["proposal"], z["score"]
+    if p.shape[0] == 0 or p.shape[1] != 7 or not (np.isfinite(p).all() and np.isfinite(s).all()):
+        fail(f"extracted scene eval: proposals {p.shape}, finite scores {np.isfinite(s).all()}")
+    print(f"[extracted scene eval] {p.shape[0]} proposals, scores {float(s.min()):.4f}-"
+          f"{float(s.max()):.4f}, recalls {[float(r) for r in recalls]}", flush=True)
+    return launches
+
+
+def run_box_tools(work):
+    """Phase 30 (c): ``scannet_boxes`` (generate, filter) on the synthetic
+    PLY scene and ``hypersim_boxes`` (OBB, AABB) on the synthetic
+    ``transforms.json``, through their CLIs: the ``.npy`` files bit-equal
+    to the digests that ``data/synthetic.py`` pins beside the writers."""
+    import hashlib
+
+    from nerf_rpn_tpu_torch.data.synthetic import (HYPERSIM_NPY_SHA256, SCANNET_NPY_SHA256,
+                                                   write_hypersim_scene, write_scannet_scene)
+    from nerf_rpn_tpu_torch.datatools import hypersim_boxes, scannet_boxes
+
+    def sha256(path):
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    root = os.path.join(work, "box_tools")
+    scans = write_scannet_scene(os.path.join(root, "scannet"))
+    scannet_boxes.main(["generate", "--scene_path", scans,
+                        "--output_path", os.path.join(root, "scannet", "json")])
+    scannet_boxes.main(["filter", "--feature_path", os.path.join(root, "scannet", "features"),
+                        "--json_path", os.path.join(root, "scannet", "json"),
+                        "--output_path", os.path.join(root, "scannet", "boxes")])
+    got = {"scannet": sha256(os.path.join(root, "scannet", "boxes", "scene0000_00.npy"))}
+    dataset = write_hypersim_scene(os.path.join(root, "hypersim"))
+    for fmt in ("obb", "aabb"):
+        hypersim_boxes.main(["--format", fmt, "--dataset_dir", dataset,
+                             "--feature_dir", os.path.join(root, "hypersim", "features"),
+                             "--output_dir", os.path.join(root, "hypersim", fmt),
+                             "--filter_by_size"])
+        got[f"hypersim {fmt}"] = sha256(os.path.join(root, "hypersim", fmt, "ai_001_001.npy"))
+    want = {"scannet": SCANNET_NPY_SHA256, "hypersim obb": HYPERSIM_NPY_SHA256["obb"],
+            "hypersim aabb": HYPERSIM_NPY_SHA256["aabb"]}
+    if got != want:
+        fail(f"box tools: digests {got}, data/synthetic.py pins {want}")
+    print("[box tools] scannet_boxes and hypersim_boxes .npy files bit-equal to the pinned ones",
+          flush=True)
+
+
+def run_prepare_scannet(np, work):
+    """Phase 30 (d): ``prepare_scannet``'s CLI on 12 synthetic frames
+    (noise images, blurred 0-2 times; one pose not finite) where PIL or
+    cv2 can read them: the layout written, the sharpest frame of each
+    chunk taken, sharpness falling with each blur.  What this
+    machine cannot run (``sharpness`` without PIL and cv2,
+    ``load_and_add_labels`` without ``h5py``) is said in a printed line:
+    the CPU tests cover it."""
+    import importlib.util
+
+    from nerf_rpn_tpu_torch.datatools import prepare_scannet
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2", "h5py")}
+    skipped = [] if have["h5py"] else ["hypersim_boxes.load_and_add_labels (no h5py)"]
+    if have["PIL"] or have["cv2"]:
+        rng = np.random.default_rng(3)
+        scene = os.path.join(work, "scannet_frames", "scene0000_00", "extract")
+        for sub in ("color", "pose", "intrinsic"):
+            os.makedirs(os.path.join(scene, sub), exist_ok=True)
+        for i in range(12):
+            img = rng.integers(0, 255, (48, 64)).astype(np.float32)
+            for _ in range(i % 3):
+                img = (np.roll(img, 1, 0) + img + np.roll(img, -1, 1)) / 3
+            path = os.path.join(scene, "color", f"{i}.jpg")
+            if have["PIL"]:
+                from PIL import Image
+
+                Image.fromarray(img.astype(np.uint8)).save(path)
+            else:
+                import cv2
+
+                cv2.imwrite(path, img.astype(np.uint8))
+            pose = np.eye(4)
+            pose[:3, 3] = rng.normal(size=3)
+            pose[0, 3] = np.nan if i == 5 else pose[0, 3]
+            np.savetxt(os.path.join(scene, "pose", f"{i}.txt"), pose)
+        out = os.path.join(work, "scannet_prepared")
+        prepare_scannet.main(["--scannet_path", os.path.join(work, "scannet_frames"),
+                              "--output_path", out, "--num_train_samples", "3",
+                              "--num_val_samples", "2", "--min_valid_frames", "4"])
+        color = os.path.join(scene, "color")
+        scores = {i: prepare_scannet.sharpness(os.path.join(color, f"{i}.jpg"))
+                  for i in range(12) if i != 5}
+        frames = sorted(scores)
+        want, _ = prepare_scannet.sample_train_frames(frames, 3, scores.get)
+        with open(os.path.join(out, "scene0000_00", "train_set.csv")) as f:
+            train = [int(line.split(".")[0]) for line in f.read().split()]
+        by_blur = [np.mean([v for i, v in scores.items() if i % 3 == b]) for b in range(3)]
+        if (train != want or not os.path.isdir(os.path.join(out, "scene0000_00", "colmap",
+                                                            "sparse_train"))
+                or not by_blur[0] > by_blur[1] > by_blur[2]):
+            fail(f"prepare_scannet: train frames {train}, the sharpest of each chunk {want}; "
+                 f"mean sharpness by blurs {by_blur}")
+        print(f"[prepare_scannet] train frames {train}, sharpness "
+              f"{json.dumps({str(k): round(v, 2) for k, v in scores.items()})} "
+              f"({'PIL' if have['PIL'] else 'cv2'})", flush=True)
+    else:
+        skipped.insert(0, "prepare_scannet.sharpness (no PIL or cv2)")
+    print(f"[datatools] modules here: {json.dumps(have)}; not run on this machine: "
+          f"{skipped or 'none'} (tests/test_torch_datatools.py covers them on the CPU)",
+          flush=True)
+
+
+def run_debug_profiling(torch, dev, work, data, common):
+    """Phase 31: ``inspect_anchor_gt_iou`` on the Swin-S anchors at 160^3
+    (4 levels, 13 anchors a voxel) on the card with phase 13's gt boxes;
+    ``trace`` around one Swin-S eval scene (the trace must name K5, K6, K4
+    and K1); ``benchmark_fn`` on that eval step beside
+    ``common.benchmark_eval_step``; ``nan_check`` on the RPN train step."""
+    import glob
+    import logging
+
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import common as cli_common
+    from nerf_rpn_tpu_torch.models.rpn import RPNConfig, build_level_tables
+    from nerf_rpn_tpu_torch.utils import profiling
+    from nerf_rpn_tpu_torch.utils.debug import inspect_anchor_gt_iou
+
+    # numpy anchors as build_level_tables returns them: the helper moves them
+    # to the card itself (its default device), and the time includes that copy
+    anchors, *_ = build_level_tables(RPNConfig(), (160,) * 3,
+                                     [(s,) * 3 for s in (40, 20, 10, 5)])
+    targets = [np.load(f) for f in sorted(glob.glob(os.path.join(data, "synth*.npy")))]
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = inspect_anchor_gt_iou(anchors, targets, print_fn=lines.append)
+    seconds = time.perf_counter() - t0
+    print("\n".join(lines), flush=True)
+    print("[inspect_anchor_gt_iou]", json.dumps({"anchors": int(anchors.shape[0]),
+                                                 "scenes": len(targets), "seconds": seconds,
+                                                 "stats": stats}), flush=True)
+
+    eval_step, grids, ori = bench_eval_step(torch)
+
+    def scene():
+        _, obj, dl, _ = eval_step.forward(grids)
+        return eval_step.propose(obj, dl, ori)
+
+    scene()
+    logdir = os.path.join(work, "trace")
+    with profiling.trace(logdir):
+        scene()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"trace: files {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    # K1 and K4 are one template, told apart by kTable (demangled or not)
+    found = {k: any(name in n and any(f in n for f in flags) for n in names)
+             for k, name, flags in (("K5", "ln_partition_qkv_kernel", ("",)),
+                                    ("K6", "fused_mlp_kernel", ("",)),
+                                    ("K4", "window_attention_kernel", (", true,", "Lb1E")),
+                                    ("K1", "window_attention_kernel", (", false,", "Lb0E")))}
+    print(f"[trace] {files[0]} ({os.path.getsize(files[0])} bytes), kernels named: "
+          f"{json.dumps(found)}", flush=True)
+    if not all(found.values()):
+        fail(f"trace: the kernels it names {found}")
+
+    def chained(g, o, carry):
+        _, obj, dl, _ = eval_step.forward(g + (carry * 0).to(g.dtype))
+        return carry + eval_step.propose(obj, dl, o)["valid"].sum()
+
+    bench_s = profiling.benchmark_fn(chained, grids, ori, warmup=3, reps=30)
+
+    def forward():
+        _, obj, dl, _ = eval_step.forward(grids)
+        return obj, dl, ori
+
+    res = cli_common.benchmark_eval_step(forward, eval_step.propose, 30, 3,
+                                         logging.getLogger("chip_smoke"), dev)
+    print("[eval step timing, two protocols, not a check]", json.dumps({
+        "benchmark_fn_ms": bench_s * 1e3,
+        "benchmark_eval_step_total_ms": res["total_ms"],
+        "benchmark_eval_step_median_ms": res["total_median_ms"]}), flush=True)
+
+    args, trainer, batch, state, step, gen, drop = train_step_setup(torch, data, common, 4)
+    checked = profiling.nan_check(step)
+    metrics = checked(state, batch, gen, drop)
+    print(f"[nan_check] finite step passes: loss {float(metrics['loss']):.4f}", flush=True)
+    bad = dict(batch, grids=batch["grids"].clone())
+    bad["grids"][0, 3, 5, 7, 0] = float("nan")
+    try:
+        checked(state, bad, gen, drop)
+    except FloatingPointError as e:
+        print(f"[nan_check] a grid with one NaN raises: {e}", flush=True)
+    else:
+        fail("nan_check: a grid with one NaN did not raise")
 
 
 def main() -> None:
@@ -3518,7 +4111,8 @@ def main() -> None:
         phase_done(torch, "OBB train path", t0)
 
         t0 = time.perf_counter()
-        time_train_steps(torch, data, common)
+        obb_data, obb_train_common = data, common
+        obb_steps = time_train_steps(torch, data, common)
         phase_done(torch, "timed OBB train steps", t0)
 
         t0 = time.perf_counter()
@@ -3570,15 +4164,16 @@ def main() -> None:
         paths["rcnn features"], _ = run_rcnn_features_path(torch, work, data, results)
         phase_done(torch, "RCNN features path and RoI align", t0)
 
+        import numpy as np
+
         t0 = time.perf_counter()
-        check_ddp_steps(torch, dev, work, smi)
+        cases = eval_split_cases(np, work, rcnn_common)
+        check_ddp_steps(torch, dev, work, cases, smi)
         ddp_paths, data, common = run_ddp_driver_paths(torch, work, paths["train"],
                                                        rcnn_common)
         paths.update(ddp_paths)
         time_gpus_flag(torch, data, common, card=smi)
         phase_done(torch, "data parallel", t0)
-
-        import numpy as np
 
         t0 = time.perf_counter()
         _, obb_common = write_train_data(work, rotated=True)
@@ -3590,8 +4185,7 @@ def main() -> None:
         phase_done(torch, "checkpoint formats", t0)
 
         t0 = time.perf_counter()
-        cases = eval_split_cases(np, work, rcnn_common)
-        paths.update(check_eval_split(torch, work, cases, dev, gpus_case=cases[0]))
+        paths.update(check_eval_split(torch, work, cases, gpus_case=cases[1]))
         phase_done(torch, "scene-parallel eval", t0)
 
         t0 = time.perf_counter()
@@ -3599,6 +4193,23 @@ def main() -> None:
         run_tools(torch, work, msgpack, os.path.join(rpn_obb_out, "proposals"), aabb_data,
                   os.path.join(work, "eval_split", cases[0][0], "one_b1"))
         phase_done(torch, "tools", t0)
+
+        t0 = time.perf_counter()
+        paths["native obb train"] = run_native_loader(torch, work, obb_data, obb_train_common,
+                                                      obb_steps)
+        phase_done(torch, "native resample and the OBB loader", t0)
+
+        t0 = time.perf_counter()
+        npz = check_extraction(torch, dev, work)
+        paths["extracted scene eval"] = eval_extracted_scene(
+            torch, npz, os.path.join(work, "obb_train", "model_best"), obb_train_common)
+        run_box_tools(work)
+        run_prepare_scannet(np, work)
+        phase_done(torch, "datatools", t0)
+
+        t0 = time.perf_counter()
+        run_debug_profiling(torch, dev, work, obb_data, obb_train_common)
+        phase_done(torch, "debug and profiling", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

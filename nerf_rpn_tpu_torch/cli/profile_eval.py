@@ -38,6 +38,7 @@ import torch
 
 from nerf_rpn_tpu_torch import kernels
 from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
+from nerf_rpn_tpu_torch.utils.profiling import span_union_us
 
 
 def parse_args(argv=None):
@@ -53,15 +54,6 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default="")
     return p.parse_args(argv)
-
-
-def _union_us(intervals) -> float:
-    total, end = 0.0, -np.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
 
 
 def layer_groups(model):
@@ -195,7 +187,7 @@ def main(argv=None) -> dict:
             by_name[e.name][1] += 1
             spans.append((e.time_range.start, e.time_range.end))
     n = args.profiled
-    busy_us = _union_us(spans)
+    busy_us = span_union_us(spans)
     summary = {"profiled_scenes": n, "device_kernels_per_scene": len(spans) / n,
                "device_busy_ms_per_scene": busy_us / n / 1e3,
                "profiled_wall_ms_per_scene": wall_us / n / 1e3,

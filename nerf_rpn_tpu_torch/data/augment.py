@@ -14,14 +14,18 @@ Grids are channels-LAST (W, L, H, C) in this framework (TPU layout); the
 augmentations operate on the spatial axes 0..2.
 
 Copy of ``nerf_rpn_tpu/data/augment.py`` for the torch port.  The small
-rotation + scale resamples in numpy only (the JAX package's native C++
-resample is not carried over); it runs for OBB boxes only
-(``run_rpn --rotated_bbox``).
+rotation + scale runs for OBB boxes only (``--rotated_bbox``) and resamples
+through the port's C++ library (``native.rotate_scale_resample``, built at
+first use; a failed build raises).  Its numpy twin,
+:func:`rotate_scale_resample_plain`, is what the tests and ``chip_smoke.py``
+hold the library to; the loader never calls it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from nerf_rpn_tpu_torch import native
 
 
 def rotate90_z(rgbsigma: np.ndarray, boxes: np.ndarray | None):
@@ -87,6 +91,33 @@ def _trilinear_sample(volume: np.ndarray, coords: np.ndarray) -> np.ndarray:
     return out
 
 
+def _rotation_scale(angle: float, scale: float) -> np.ndarray:
+    """R_z(angle) * scale, float32 (the reference's rotated sampling grid)."""
+    return np.array(
+        [
+            [np.cos(angle), -np.sin(angle), 0],
+            [np.sin(angle), np.cos(angle), 0],
+            [0, 0, 1],
+        ],
+        np.float32,
+    ) * scale
+
+
+def rotate_scale_resample_plain(volume: np.ndarray, angle: float, scale: float) -> np.ndarray:
+    """numpy twin of ``native.rotate_scale_resample``: trilinear samples of
+    (W, L, H, C) ``volume`` on its grid turned by ``angle`` about +z and
+    scaled by ``scale`` about the grid centre."""
+    res = volume.shape[:3]
+    axes = [np.linspace(-1, 1, r, dtype=np.float32) * r / 2 for r in res]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    grid = grid @ _rotation_scale(angle, scale).T
+    # centred coords -> voxel coords (align_corners=True convention)
+    src = np.empty_like(grid)
+    for a in range(3):
+        src[..., a] = (grid[..., a] / (res[a] / 2) + 1) / 2 * (res[a] - 1)
+    return _trilinear_sample(volume, src)
+
+
 def rotate_and_scale(
     rgbsigma: np.ndarray, boxes: np.ndarray | None, angle: float, scale: float
 ):
@@ -97,25 +128,9 @@ def rotate_and_scale(
     centres rotated by R/scale about the grid centre.
     """
     res = rgbsigma.shape[:3]
-    xform = np.array(
-        [
-            [np.cos(angle), -np.sin(angle), 0],
-            [np.sin(angle), np.cos(angle), 0],
-            [0, 0, 1],
-        ],
-        np.float32,
-    ) * scale
-
-    axes = [np.linspace(-1, 1, r, dtype=np.float32) * r / 2 for r in res]
-    grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
-    grid = grid @ xform.T
-    # centred coords -> voxel coords (align_corners=True convention)
-    src = np.empty_like(grid)
-    for a in range(3):
-        src[..., a] = (grid[..., a] / (res[a] / 2) + 1) / 2 * (res[a] - 1)
-    out = _trilinear_sample(rgbsigma, src)
-
+    out = native.rotate_scale_resample(rgbsigma, float(angle), float(scale))
     if boxes is not None:
+        xform = _rotation_scale(angle, scale)
         boxes = boxes.copy()
         boxes[:, 6] = boxes[:, 6] - angle
         boxes[:, 3:6] = boxes[:, 3:6] / scale

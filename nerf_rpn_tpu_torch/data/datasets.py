@@ -485,7 +485,8 @@ def batch_iterator(
 
     ``num_workers > 0`` loads the samples of each batch over a thread pool
     (the reference's ``DataLoader(num_workers=4)`` analogue — npz
-    decompression and the native resample release the GIL).  Batches and the
+    decompression and the OBB rotation + scale's C++ resample,
+    ``native.rotate_scale_resample``, release the GIL).  Batches and the
     samples within them keep their order; augmentation streams are
     per-(item, access) so results are bit-identical to the serial path
     (``_ItemRNG``).  Wrap the returned generator in

@@ -26,6 +26,7 @@ drivers should NOT pass --normalize_density), ``{name}.npy`` boxes
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -176,3 +177,105 @@ def write_synthetic_dataset(out_dir, n_train=24, n_val=4, n_test=8,
     }
     np.savez(os.path.join(out_dir, "split.npz"), **split)
     return split
+
+
+def _rotation(axis: int, theta: float) -> np.ndarray:
+    """3x3 rotation by ``theta`` about coordinate axis ``axis``."""
+    c, s = np.cos(theta), np.sin(theta)
+    i, j = [a for a in range(3) if a != axis]
+    r = np.eye(3)
+    r[i, i], r[i, j], r[j, i], r[j, j] = c, -s, s, c
+    return r
+
+
+# sha256 of the box files that scannet_boxes (generate, filter) and
+# hypersim_boxes (--filter_by_size) write from the default scenes below
+# (seed 0); the CPU tests and the GPU smoke hold their runs to these, and a
+# change to either writer changes them
+SCANNET_NPY_SHA256 = "7a8bd3898453edb44043ba9538d5d72a2417da10b6273adf436d0791be62410d"
+HYPERSIM_NPY_SHA256 = {
+    "obb": "6c5918b83dca7263834d426663382de62dd5e380e44efb4b3df9a4b7eacd8919",
+    "aabb": "8fb15ed37e38df6343d50d2d1786a6b2a3200e7af01f06f8f64a53157ef0d7a7"}
+
+
+def write_scannet_scene(root, name="scene0000_00", n_instances=6, seed=0,
+                        resolution=(96, 80, 48)):
+    """A synthetic ScanNet scene for ``datatools.scannet_boxes``:
+    ``{root}/scans/{name}/`` with the mesh vertices as a binary PLY
+    (``{name}_vh_clean_2.ply``: x, y, z and colour), their segment ids
+    (``{name}_vh_clean_2.0.010000.segs.json``) and the instance
+    aggregation (``{name}_vh_clean.aggregation.json``; labels the filter
+    keeps, excludes and drops by size), plus ``{root}/features/{name}.npz``
+    holding only ``resolution``, what ``filter_boxes`` reads.  Instances
+    are point clouds of boxes turned about +z, two segments each, among
+    background points of no instance.  Returns the scans directory."""
+    rng = np.random.default_rng(seed)
+    scans = os.path.join(root, "scans")
+    scene = os.path.join(scans, name)
+    os.makedirs(scene, exist_ok=True)
+    os.makedirs(os.path.join(root, "features"), exist_ok=True)
+    labels = ["chair", "table", "wall", "sofa", "cabinet", "lamp"]
+    verts = [rng.uniform([-3.0, -2.5, 0.0], [3.0, 2.5, 2.5], (300, 3))]
+    segs = [np.full(300, 1000)]
+    groups = []
+    for i in range(n_instances):
+        size = rng.uniform(0.02, 0.06, 3) if i == n_instances - 1 else rng.uniform(0.4, 1.5, 3)
+        local = rng.uniform(-0.5, 0.5, (200, 3)) * size
+        pts = local @ _rotation(2, rng.uniform(-np.pi, np.pi)).T + [
+            rng.uniform(-2, 2), rng.uniform(-1.5, 1.5), size[2] / 2 + 0.05]
+        verts.append(pts)
+        segs.append(2 * i + (np.arange(200) % 2))
+        groups.append({"id": i, "objectId": i, "label": labels[i % len(labels)],
+                       "segments": [2 * i, 2 * i + 1]})
+    verts = np.concatenate(verts).astype(np.float32)
+    segs = np.concatenate(segs)
+    vertex = np.zeros(len(verts), np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                            ("red", "u1"), ("green", "u1"),
+                                            ("blue", "u1")]))
+    vertex["x"], vertex["y"], vertex["z"] = verts.T
+    vertex["red"] = rng.integers(0, 256, len(verts))
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+              "element face 0\nproperty list uchar int vertex_indices\nend_header\n")
+    with open(os.path.join(scene, f"{name}_vh_clean_2.ply"), "wb") as f:
+        f.write(header.encode("ascii") + vertex.tobytes())
+    segs_file = f"{name}_vh_clean_2.0.010000.segs.json"
+    with open(os.path.join(scene, segs_file), "w") as f:
+        json.dump({"sceneId": name, "segIndices": segs.tolist()}, f)
+    with open(os.path.join(scene, f"{name}_vh_clean.aggregation.json"), "w") as f:
+        json.dump({"sceneId": name, "segmentsFile": "scannet." + segs_file,
+                   "segGroups": groups}, f)
+    np.savez(os.path.join(root, "features", f"{name}.npz"),
+             resolution=np.asarray(resolution))
+    return scans
+
+
+def write_hypersim_scene(root, name="ai_001_001", n_boxes=8, seed=0):
+    """A synthetic Hypersim scene for ``datatools.hypersim_boxes``:
+    ``{root}/dataset/{name}/train/transforms.json`` with ``bounding_boxes``
+    (extents, a rotation about nerf's z axis, position, NYU40 label; two
+    boxes fall outside the scene bbox) and ``{root}/features/{name}.npz``
+    with the scene parameters the converter reads (resolution, bbox,
+    scale, offset, ``from_mitsuba``)."""
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "dataset", name, "train")
+    os.makedirs(scene, exist_ok=True)
+    os.makedirs(os.path.join(root, "features"), exist_ok=True)
+    boxes = []
+    for i in range(n_boxes):
+        far = 0.9 if i >= n_boxes - 2 else 0.0
+        boxes.append({
+            "extents": rng.uniform(0.05, 0.4, 3).tolist(),
+            "orientation": _rotation(2, rng.uniform(-np.pi, np.pi)).tolist(),
+            "position": (rng.uniform(-0.35, 0.35, 3) + far).tolist(),
+            "label": int(rng.integers(1, 41)),
+        })
+    with open(os.path.join(scene, "transforms.json"), "w") as f:
+        json.dump({"bounding_boxes": boxes}, f)
+    np.savez(os.path.join(root, "features", f"{name}.npz"),
+             resolution=np.array([160, 128, 144]), bbox_min=np.array([0.0, 0.0, 0.0]),
+             bbox_max=np.array([1.0, 0.8, 0.9]), scale=1.2, offset=np.array([0.5, 0.4, 0.45]),
+             from_mitsuba=False)
+    return os.path.join(root, "dataset")

@@ -1,7 +1,10 @@
 """The torch port imports neither jax nor the JAX package ``nerf_rpn_tpu``.
 
 A subprocess blocks jax / jaxlib / flax / optax / orbax and ``nerf_rpn_tpu``
-with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch``,
+with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch`` (the
+native loader, ``datatools`` and ``utils/debug``, ``utils/profiling``
+among them), runs ``python -m nerf_rpn_tpu_torch.datatools.scannet_boxes
+--help``,
 writes synthetic 32^3 datasets with the port's own writer and runs the CPU
 slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
 then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
@@ -48,6 +51,21 @@ sys.meta_path.insert(0, Block())
 import nerf_rpn_tpu_torch
 for mod in pkgutil.walk_packages(nerf_rpn_tpu_torch.__path__, "nerf_rpn_tpu_torch."):
     importlib.import_module(mod.name)
+for name in ("native", "datatools.nerf_features", "datatools.scannet_boxes",
+             "datatools.hypersim_boxes", "datatools.prepare_scannet", "utils.debug",
+             "utils.profiling"):
+    assert "nerf_rpn_tpu_torch." + name in sys.modules, name
+
+# a datatools CLI as ``python -m`` runs it
+import contextlib, io, runpy
+argv, sys.argv = sys.argv, ["scannet_boxes", "--help"]
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    try:
+        runpy.run_module("nerf_rpn_tpu_torch.datatools.scannet_boxes", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+sys.argv = argv
+assert "generate" in out.getvalue() and "filter" in out.getvalue(), out.getvalue()
 
 from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
@@ -199,7 +217,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "cli/quality_gate.py", "ops/roi_align.py", "models/detector.py",
                 "cli/run_rpn_detect.py", "train/flax_msgpack.py", "tools/convert_weights.py",
                 "tools/proposals2ngp.py", "tools/render_heatmap.py", "tools/visualize_bbox.py",
-                "tools/visualize_rpn_input.py"):
+                "tools/visualize_rpn_input.py", "native/__init__.py", "datatools/nerf_features.py",
+                "datatools/scannet_boxes.py", "datatools/hypersim_boxes.py",
+                "datatools/prepare_scannet.py", "utils/debug.py", "utils/profiling.py"):
         assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]
