@@ -17,14 +17,16 @@ nonzero before the result lines:
    main path runs it -- the four stages of the Swin-S eval bench shape
    without a mask (W x H = 1521x3, 245x6, 48x12, 8x24) and the train stage
    0 with the real shift mask (2000x3, mask (1000, 64, 64)), f32 (TF32
-   off) and bf16 -- with times and each row's head group G;
+   off) and bf16 -- with each row's time and head group G (the plain twin
+   and SDPA's yardstick timed on the row that the record reads);
 4. kernel K2 (window-attention backward: a block of 4 warps per (run of
    windows, head) walking its run in order with the next window's
    16-byte cp.async copies in flight, the five products on bf16
    ``mma.sync`` (3xTF32 for f32), dbias kept per block and summed over
    runs in a fixed order) against its twin at the four Swin-S train
    shapes (160^3, batch 2), f32 and bf16, masked and not, with times,
-   each row's number of runs and bit-equal results over two runs; the
+   each row's number of runs and bit-equal results over two runs (the
+   plain twin and SDPA's backward timed on the row the record reads); the
    autograd function (K1 forward, K2 backward) against autograd through
    K1's twin;
 5. kernel K3 (AABB suppression graph) against its twin, bit for bit, on
@@ -149,7 +151,7 @@ nonzero before the result lines:
    filter; device-busy ms);
 24. the features mode: ``run_rpn_detect`` without ``--fine_tune`` on
    phase 23's saved levels (Swin-S, 256 channels), OBB and AABB (the
-   enclosing boxes), on 2 train, 1 validation and 2 test scenes, one epoch
+   enclosing boxes), on 2 train, 1 validation and 1 test scene, one epoch
    and an eval each; then RoI align alone at 2 x 1024 RoIs: device ms
    against the bound of the feature rows its samples touch;
 25. data parallel (``parallel/ddp.py``): (a) four train steps at full
@@ -220,6 +222,22 @@ nonzero before the result lines:
    on that eval step beside ``common.benchmark_eval_step`` (two
    protocols), ``nan_check`` on the RPN train step (a finite step passes,
    a grid with one NaN raises).
+32. the space axis (``parallel/space.py``: a scene's x extent split over
+   a space group) on phase 25's two ranks of the card (gloo), one space
+   group, (n_data, n_space) = (1, 2): the Swin-S RPN eval at 208x208x144
+   (random weights) in bf16, AABB and OBB, and in f32 (TF32 off, AABB)
+   against the same eval in this process -- level outputs within
+   ``close_enough``, the proposals the same set (``same_proposal_sets``;
+   f32: the keep-set equal) -- and phase 25's Swin-S OBB RPN train step
+   (f32, 160^3, batch 2) with both scenes split along x against phase 25's
+   one process within ``DDP_LIMITS``, the ranks bit-equal; each rank's
+   launches those of one eval scene / train step; peak GiB a rank, ms a
+   scene and a step on the ranks and in one process (before and after
+   them), the exchanges a forward with their MiB and ms; K5's slab form
+   (``XSlab``) at stages 0 and 2 on each rank's window columns against
+   its twin and the whole-grid kernel, and its origin-0 call against the
+   call without a slab, bit for bit.  Gloo on one card says nothing of
+   NCCL across cards.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -236,8 +254,9 @@ Each path (AABB eval, AABB train, OBB eval, OBB train, FCOS OBB and AABB
 eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
 fine-tune and features paths, phase 25's ``--gpus 0`` paths, phase 26's
 evals from each format and phase 27's evals, on the ranks and in one
-process, phase 29's native OBB train epoch and phase 30's eval of the
-extracted scene) runs with the launch counts set to 0 just before it and
+process, phase 29's native OBB train epoch, phase 30's eval of the
+extracted scene and phase 32's evals and train step on each rank) runs
+with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
 true, "device": {...}}``.  Imports no jax.
@@ -335,6 +354,15 @@ def time_pair(torch, plain, kernel):
     plain with CUDA events."""
     p1, k1, k2, p2 = (time_one(torch, f) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_row(torch, plain, kernel, recorded):
+    """``time_pair`` on the row that the kernels' record reads
+    (``recorded``); the kernel alone (plain ms None) on the other rows of a
+    check, for the script's time."""
+    if recorded:
+        return time_pair(torch, plain, kernel)
+    return time_one(torch, kernel), None
 
 
 def nbytes(*tensors) -> int:
@@ -473,16 +501,19 @@ def check_window_attention(torch, dev):
             if not ok:
                 fail(f"K1 {name} {dtype} mask={mask is not None}: max|err| {err} "
                      f"outside the tolerance")
-            ms, plain_ms = time_pair(
+            recorded = name == "train stage0" and dtype == torch.bfloat16
+            ms, plain_ms = time_row(
                 torch, lambda: window_attention_reference(qkv, bias, mask, heads),
-                lambda: window_attention(qkv, bias, mask, heads))
-            q, k, v = sdpa_views(qkv, heads)
-            am = bias[None] if mask is None else bias[None] + mask.repeat(
-                w // mask.shape[0], 1, 1)[:, None]
-            am = am.to(dtype)
-            library_ms = time_one(
-                torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
-            del am
+                lambda: window_attention(qkv, bias, mask, heads), recorded)
+            library_ms = None
+            if recorded:
+                q, k, v = sdpa_views(qkv, heads)
+                am = bias[None] if mask is None else bias[None] + mask.repeat(
+                    w // mask.shape[0], 1, 1)[:, None]
+                am = am.to(dtype)
+                library_ms = time_one(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+                del am
             d = c // heads
             group = head_group(w, heads, d, dtype)
             row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
@@ -492,7 +523,7 @@ def check_window_attention(torch, dev):
                                dtype_name(dtype)))
             rows.append(row)
             print("K1", json.dumps(row), flush=True)
-            if name == "train stage0" and dtype == torch.bfloat16:
+            if recorded:
                 main = row
     return rows, main
 
@@ -540,21 +571,24 @@ def check_window_attention_backward(torch, dev):
                 if not ok:
                     fail(f"K2 {name} {dtype} mask={masked}: dqkv max|err| {err}, "
                          f"dbias {b_err}: outside the tolerance")
-                ms, plain_ms = time_pair(
+                recorded = name == "stage0" and dtype == torch.bfloat16 and masked
+                ms, plain_ms = time_row(
                     torch,
                     lambda: window_attention_backward_reference(qkv, dout, bias, mask, heads),
-                    lambda: window_attention_backward(qkv, dout, bias, mask, heads))
+                    lambda: window_attention_backward(qkv, dout, bias, mask, heads), recorded)
                 # the library yardstick: SDPA's autograd backward to qkv and bias
-                lq = qkv.detach().requires_grad_()
-                lb = bias.detach().requires_grad_()
-                am = lb[None] if mask is None else lb[None] + mask.repeat(
-                    w // mask.shape[0], 1, 1)[:, None]
-                lo = F.scaled_dot_product_attention(*sdpa_views(lq, heads),
-                                                    attn_mask=am.to(dtype))
-                lo = lo.transpose(1, 2).reshape(w, 64, c)
-                library_ms = time_one(torch, lambda: torch.autograd.grad(
-                    lo, (lq, lb), dout, retain_graph=True))
-                del lq, lb, am, lo
+                library_ms = None
+                if recorded:
+                    lq = qkv.detach().requires_grad_()
+                    lb = bias.detach().requires_grad_()
+                    am = lb[None] if mask is None else lb[None] + mask.repeat(
+                        w // mask.shape[0], 1, 1)[:, None]
+                    lo = F.scaled_dot_product_attention(*sdpa_views(lq, heads),
+                                                        attn_mask=am.to(dtype))
+                    lo = lo.transpose(1, 2).reshape(w, 64, c)
+                    library_ms = time_one(torch, lambda: torch.autograd.grad(
+                        lo, (lq, lb), dout, retain_graph=True))
+                    del lq, lb, am, lo
                 d = c // heads
                 row = dict(stage=name, W=w, H=heads, C=c, dtype=dtype_name(dtype),
                            mask=masked, runs=backward_groups(w, heads, d, dtype),
@@ -565,7 +599,7 @@ def check_window_attention_backward(torch, dev):
                                    10 * w * heads * 64 * 64 * d, dtype_name(dtype)))
                 rows.append(row)
                 print("K2", json.dumps(row), flush=True)
-                if name == "stage0" and dtype == torch.bfloat16 and masked:
+                if recorded:
                     main = row
 
     # the autograd function against autograd through the twin (f32: the
@@ -998,12 +1032,15 @@ def check_fused_window_attention(torch, dev):
             err, ok = close_enough(torch, out, ref, dtype)
             if not ok:
                 fail(f"K4 {name} {dtype}: max|err| {err} outside the tolerance")
-            ms, plain_ms = time_pair(
+            recorded = name == "stage0" and dtype == torch.bfloat16
+            ms, plain_ms = time_row(
                 torch, lambda: fused_window_attention_reference(q, k, v, bias, table, ids),
-                lambda: fused_window_attention(q, k, v, bias, table, ids))
-            am = (bias[None] + table[ids.long()][:, None]).to(dtype)
-            library_ms = time_one(
-                torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+                lambda: fused_window_attention(q, k, v, bias, table, ids), recorded)
+            library_ms = None
+            if recorded:
+                am = (bias[None] + table[ids.long()][:, None]).to(dtype)
+                library_ms = time_one(
+                    torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
             group = head_group(w, heads, d, dtype)
             row = dict(stage=name, B=b, W=w, H=heads, C=c, P=len(table_np),
                        dtype=dtype_name(dtype),
@@ -1013,7 +1050,7 @@ def check_fused_window_attention(torch, dev):
                                4 * w * heads * 64 * 64 * d, dtype_name(dtype)))
             rows.append(row)
             print("K4", json.dumps(row), flush=True)
-            if name == "stage0" and dtype == torch.bfloat16:
+            if recorded:
                 main = row
     return rows, main
 
@@ -2405,12 +2442,12 @@ def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
 
 def _features_split(np, data, workdir):
     """Phase 24's split of phase 23's scenes: its first 2 train scenes, its
-    first validation scene and its 2 test scenes (a scene's saved levels
+    first validation scene and its first test scene (a scene's saved levels
     load in ~9 s: ``level_features`` holds its values as Python floats,
     the JAX driver's layout)."""
     with np.load(os.path.join(data, "split.npz")) as z:
         split = {"train_scenes": z["train_scenes"][:2], "val_scenes": z["val_scenes"][:1],
-                 "test_scenes": z["test_scenes"]}
+                 "test_scenes": z["test_scenes"][:1]}
     path = os.path.join(workdir, "split_features.npz")
     np.savez(path, **split)
     return path, split
@@ -2440,7 +2477,7 @@ def _aabb_copy(np, data, results, workdir):
 def run_rcnn_features_path(torch, workdir, data, results):
     """``run_rpn_detect`` without ``--fine_tune`` on phase 23's saved FPN
     levels (Swin-S, 256 channels), OBB and AABB (the enclosing boxes of the
-    same gt and RoIs), on 2 train, 1 validation and 2 test scenes: one
+    same gt and RoIs), on 2 train, 1 validation and 1 test scene: one
     epoch with validation, then ``--mode eval --checkpoint model_best``;
     no hand kernel but the filter's (resolve once a scene, K3 once a scene
     for AABBs).  Then RoI align alone at 2 x 1024 RoIs of these levels
@@ -2481,7 +2518,7 @@ def run_rcnn_features_path(torch, workdir, data, results):
             fail(f"{path}: logged {logged}")
         if not np.isfinite(report["classification"]["accuracy"]):
             fail(f"{path}: eval {report}")
-        # the validation batch (1 scene, padded to 2) and the 2 test scenes
+        # the validation batch and the test batch (1 scene each, padded to 2)
         want = {"nms_resolve": 4, "aabb_suppression_graph": 4 if form == "aabb" else 0}
         if any(got[k] != v for k, v in want.items()) or any(got[k] for k in SWIN_KERNELS):
             fail(f"{path}: launches {got}, expected {want} and no Swin kernel")
@@ -2664,8 +2701,8 @@ def _ddp_case(torch, name, dev):
             sample = list(rpn_lib.sample_anchors(cfg, matches,
                                                  torch.Generator(dev).manual_seed(0)))
 
-            def run(model, state, batch, sample):
-                step = make_rpn_train_step(model, cfg, shape, SCALES, device=dev)
+            def run(model, state, batch, sample, space=None):
+                step = make_rpn_train_step(model, cfg, shape, SCALES, device=dev, space=space)
                 return step(state, batch, torch.Generator(dev).manual_seed(0),
                             torch.Generator(dev).manual_seed(1), indices=sample)
     model.to(dev)
@@ -2767,10 +2804,39 @@ def _ddp_rank(work, dev):
 
 
 def _paired_ranks(work, cases, dev):
-    """The two ranks of phases 25 (a) and 27, started once: phase 25's
-    steps, then phase 27's ``cases``."""
+    """The two ranks of phases 25 (a), 27 and 32, started once: phase 25's
+    steps, phase 27's ``cases``, then phase 32's space axis."""
     _ddp_rank(work, dev)
     _eval_split_rank(os.path.join(work, "eval_split"), cases, dev)
+    _space_rank(os.path.join(work, "space"), dev)
+
+
+def step_readings(got, got_state, metrics, state, params):
+    """A train step's readings against the one process's (``metrics``,
+    ``state``, the trained ``params``), as ``DDP_LIMITS`` bounds them: the
+    loss terms, ``grad_norm`` and ``param_norm`` relative (a term that is
+    0, the 2D term at weight 0, must stay 0), the running statistics to
+    their leaf's largest entry, and the share of the parameters whose AdamW
+    step flipped (differs by more than the first step, lr / 25); and the
+    flipped steps."""
+    lr0 = DDP_LR / 25.0
+    counts = [k for k in metrics if k.endswith("_rois") or k == "dropped_positives"]
+    rel = {k: abs(got[k] - metrics[k]) / (abs(metrics[k]) or 1.0) for k in metrics
+           if k not in counts}
+    read = {"loss_terms": max(rel[k] for k in metrics if k.startswith("loss")),
+            "grad_norm": rel["grad_norm"], "param_norm": rel["param_norm"],
+            "step_flips": 0.0, "running_stats": 0.0}
+    flips = entries = 0
+    for k, want in state.items():
+        diff = (got_state[k].double() - want.double()).abs()
+        if "running_" in k:
+            read["running_stats"] = max(read["running_stats"],
+                                        diff.max().item() / want.abs().max().item())
+        elif k in params:
+            flips += int((diff > lr0).sum())
+            entries += diff.numel()
+    read["step_flips"] = flips / entries
+    return read, flips
 
 
 def check_ddp_steps(torch, dev, work, cases, card=""):
@@ -2783,8 +2849,10 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
     rank must hold rank 0's weights after the broadcast and after the step
     bit for bit, log the same metrics, launch K1 and K2 24 times a Swin
     step (0 a ResNet step), and read within ``DDP_LIMITS`` of the
-    reference.  Returns the Swin-S RPN's gradient all-reduce ms, printed
-    after ``card`` (the ``nvidia-smi`` name and power limit)."""
+    reference.  Prints the Swin-S RPN's gradient all-reduce ms after
+    ``card`` (the ``nvidia-smi`` name and power limit); returns the Swin-S
+    RPN's one-process step ``(metrics, state, params, peak GiB)``, which
+    phase 32 reads."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
@@ -2822,25 +2890,10 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
         got = r0["metrics"]
         if set(got) != set(metrics):
             fail(f"data parallel {name}: metrics {sorted(got)} vs {sorted(metrics)}")
-        terms = [k for k in metrics if k.startswith("loss")]
         counts = [k for k in metrics if k.endswith("_rois") or k == "dropped_positives"]
         if any(got[k] != metrics[k] for k in counts):
             fail(f"data parallel {name}: counts {[(got[k], metrics[k]) for k in counts]}")
-        # (a term that is 0, the 2D term at weight 0, must stay 0)
-        rel = {k: abs(got[k] - metrics[k]) / (abs(metrics[k]) or 1.0) for k in metrics
-               if k not in counts}
-        read = {"loss_terms": max(rel[k] for k in terms), "grad_norm": rel["grad_norm"],
-                "param_norm": rel["param_norm"], "step_flips": 0.0, "running_stats": 0.0}
-        flips = entries = 0
-        for k, want in state.items():
-            diff = (r0["state"][k].double() - want.double()).abs()
-            if "running_" in k:
-                read["running_stats"] = max(read["running_stats"],
-                                            diff.max().item() / want.abs().max().item())
-            elif k in params:
-                flips += int((diff > lr0).sum())
-                entries += diff.numel()
-        read["step_flips"] = flips / entries
+        read, flips = step_readings(got, r0["state"], metrics, state, params)
         limits = DDP_LIMITS[DDP_CASES[name].get("dtype", "float32")]
         row = {"case": name, "readings": read, "limits": limits, "flipped_steps": flips,
                "loss": metrics["loss"], "grad_norm": metrics["grad_norm"],
@@ -2872,7 +2925,401 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
           f"gradient all-reduce "
           f"({timed[0]['grad_mib']:.1f} MiB f32) {timed[0]['grad_all_reduce_ms']:.2f} ms on "
           f"rank 0, {timed[1]['grad_all_reduce_ms']:.2f} ms on rank 1", flush=True)
-    return timed[0]["grad_all_reduce_ms"]
+    return refs[DDP_TIMED]
+
+
+# Phase 32: the space axis (``parallel/space.py``) on phase 25's two ranks,
+# one space group, (n_data, n_space) = (1, 2): the Swin-S RPN eval at the
+# bench's 208x208x144 (random weights from seed 32) in bf16, AABB and OBB,
+# and in f32 with TF32 off (AABB); the bf16 AABB eval is timed
+SPACE_EVALS = {"bf16 aabb": ("bfloat16", False), "bf16 obb": ("bfloat16", True),
+               "f32 aabb": ("float32", False)}
+SPACE_TIMED = "bf16 aabb"
+SPACE_REPS = 5
+SPACE_BACKBONE = "swin_s"
+SPACE_SIZE = None  # None: the bench scene, run_rpn.BENCH_SHAPE, padded to 16
+
+
+def _space_eval_case(torch, name, dev):
+    """Phase 32's eval ``name``: ``(model, cfg, shape, grids, ori)`` on
+    ``dev``, the same in every process."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import run_rpn
+    from nerf_rpn_tpu_torch.models import rpn as rpn_lib
+    from nerf_rpn_tpu_torch.models.nerf_rpn import NeRFRPN, init_params
+
+    dtype_name, rotated = SPACE_EVALS[name]
+    dtype = getattr(torch, dtype_name)
+    size = SPACE_SIZE or run_rpn.BENCH_SHAPE
+    shape = tuple(-(-s // 16) * 16 for s in size)
+    model = NeRFRPN(SPACE_BACKBONE, rotated=rotated, dtype=dtype).to(dev)
+    init_params(model, torch.Generator(dev).manual_seed(32))
+    rng = np.random.default_rng(32)
+    grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(dev, dtype)
+    ori = torch.tensor([size], dtype=torch.int32, device=dev)
+    return model.eval(), rpn_lib.RPNConfig(rotated=rotated), shape, grids, ori
+
+
+def _eval_outputs(step, grids, ori):
+    """One eval scene through ``step``'s parts: the (gathered) level
+    outputs and the proposals, on the host."""
+    _, obj, dl, _ = step.forward(grids)
+    out = step.propose(obj, dl, ori)
+    return {"obj": [t.cpu() for t in obj], "dl": [t.cpu() for t in dl],
+            "proposals": {k: out[k].cpu() for k in ("boxes", "scores", "valid", "level_idx")}}
+
+
+def _ms(torch, fn, reps):
+    """Host ms a call of ``fn`` over ``reps`` calls, the device drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _traced(torch, sp, fn):
+    """The exchanges of one ``fn()`` by kind: count, MiB reaching the rank,
+    ms (``space.trace_exchanges``)."""
+    with sp.trace_exchanges() as log:
+        fn()
+    torch.cuda.synchronize()
+    out = {}
+    for kind, nbytes, ms in log:
+        row = out.setdefault(kind, {"count": 0, "mib": 0.0, "ms": 0.0})
+        row["count"] += 1
+        row["mib"] += nbytes / 2 ** 20
+        row["ms"] += ms
+    return out
+
+
+def space_eval_references(torch, dev):
+    """Phase 32's one-process evals in this process, before the ranks
+    start (the card freed after each): host outputs by case, the timed
+    case's peak GiB of one scene after a warm-up one; and the one
+    process's times before the ranks (``time_alone`` on the timed case's
+    eval step)."""
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for name in SPACE_EVALS:
+        model, cfg, shape, grids, ori = _space_eval_case(torch, name, dev)
+        step = make_rpn_eval_step(model, cfg, shape, device=dev)
+        if name == SPACE_TIMED:
+            step(grids, ori)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        refs[name] = _eval_outputs(step, grids, ori)
+        if name == SPACE_TIMED:
+            refs[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            alone = time_alone(torch, dev, (step, grids, ori))
+        del model, grids, step
+        torch.cuda.empty_cache()
+    return refs, alone
+
+
+def time_alone(torch, dev, eval_case=None):
+    """Phase 32's one-process times in this process, which the ranks' are
+    read against in turns (before and after them): the bf16 AABB eval's
+    ms a scene (``eval_case``: its eval step, grids and sizes, if built),
+    and phase 25's Swin-S OBB RPN train step's ms (two steps after a
+    warm-up one)."""
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
+
+    if eval_case is None:
+        model, cfg, shape, grids, ori = _space_eval_case(torch, SPACE_TIMED, dev)
+        eval_case = (make_rpn_eval_step(model, cfg, shape, device=dev), grids, ori)
+        del model, grids
+    step, grids, ori = eval_case
+    step(grids, ori)
+    out = {"eval_ms": _ms(torch, lambda: step(grids, ori), SPACE_REPS)}
+    del eval_case, step, grids
+    model, batch, sample, run = _ddp_case(torch, DDP_TIMED, dev)
+    state = TrainState(model, DDP_LR, 10)
+    run(model, state, batch, sample)
+    out["train_ms"] = _ms(torch, lambda: run(model, state, batch, sample), 2)
+    del model, batch, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _space_rank(work, dev):
+    """A rank of phase 32, in a space group of the two ranks: each eval of
+    ``SPACE_EVALS`` on its slab (warmed up, then one scene with the launch
+    counts set to 0 just before it and read just after, its peak GiB);
+    the bf16 AABB eval's ms a scene (over ``SPACE_REPS``) and its
+    exchanges; phase 25's Swin-S OBB RPN train step with both scenes split
+    along x (K1 and K2 launches, peak GiB, whether the ranks' weights are
+    bit-equal after it), its exchanges and ms a step (over two).
+    The one process's times come from this process before and after the
+    ranks (``time_alone``: a one-process train step in a group of two
+    would all-reduce with a rank that runs none).  Writes
+    ``space_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+    from nerf_rpn_tpu_torch.parallel import space as sp
+    from nerf_rpn_tpu_torch.train.state import TrainState
+    from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
+
+    os.makedirs(work, exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    groups = sp.make_groups(1, 2)
+    r, out = ddp.rank(), {"evals": {}}
+    try:
+        for name in SPACE_EVALS:
+            model, cfg, shape, grids, ori = _space_eval_case(torch, name, dev)
+            step = make_rpn_eval_step(model, cfg, shape, device=dev, space=groups)
+            part = sp.shard_grid(grids, groups)
+            step(part, ori)  # warm-up: plans, masks, cuDNN
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            entry = _eval_outputs(step, part, ori)
+            torch.cuda.synchronize()
+            entry.update(launches=kernels.counts(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if name == SPACE_TIMED:
+                entry["ms"] = _ms(torch, lambda: step(part, ori), SPACE_REPS)
+                entry["exchanges"] = _traced(torch, sp, lambda: step.forward(part))
+            out["evals"][name] = entry
+            del model, grids, part, step
+            torch.cuda.empty_cache()
+
+        model, batch, sample, run = _ddp_case(torch, DDP_TIMED, dev)
+        part = sp.shard_batch(batch, groups)
+        state = TrainState(model, DDP_LR, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        metrics = run(model, state, part, sample, space=groups)
+        torch.cuda.synchronize()
+        train = {"metrics": {k: float(v) for k, v in metrics.items()},
+                 "launches": kernels.counts(),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        train["ranks_equal"] = bool(torch.equal(flat, ref))
+        if r == 0:
+            train["state"] = {k: v.detach().to("cpu", copy=True)
+                              for k, v in model.state_dict().items()}
+        del flat, ref
+        train["exchanges"] = _traced(torch, sp, lambda: run(model, state, part, sample,
+                                                              space=groups))
+        train["ms"] = _ms(torch, lambda: run(model, state, part, sample, space=groups), 2)
+        out["train"] = train
+        del model, batch, part, state
+        torch.cuda.empty_cache()
+    finally:
+        ddp.set_layout(None)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(work, f"space_rank{r}.pt"))
+
+
+def level_ulps(torch, got, want):
+    """The largest difference of two bf16 level outputs in ulps of the
+    level's largest magnitude (``close_enough``'s rule with the level as
+    the row)."""
+    scale = want.float().abs().max().clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return ((got.float() - want.float()).abs().max() / ulp).item()
+
+
+def level_rel(got, want):
+    """The largest difference of two level outputs over the level's
+    largest magnitude."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def matched_proposals(np, want, got, box_tol, score_tol):
+    """The share of ``want``'s kept proposals that ``got`` keeps too: the
+    same level, a score within ``score_tol`` and a box within ``box_tol``,
+    each of ``got``'s rows matched once."""
+    hit = total = 0
+    for b in range(want["valid"].shape[0]):
+        wv, gv = want["valid"][b].numpy(), got["valid"][b].numpy()
+        ws, wb = want["scores"][b].float().numpy()[wv], want["boxes"][b].float().numpy()[wv]
+        gs, gb = got["scores"][b].float().numpy()[gv], got["boxes"][b].float().numpy()[gv]
+        wl, gl = want["level_idx"][b].numpy()[wv], got["level_idx"][b].numpy()[gv]
+        free = np.ones(len(gl), bool)
+        for i in range(len(wl)):
+            ok = free & (gl == wl[i]) & (np.abs(gs - ws[i]) <= score_tol) & (
+                np.abs(gb - wb[i]).max(axis=1) <= box_tol)
+            total += 1
+            if ok.any():
+                free[int(np.flatnonzero(ok)[0])] = False
+                hit += 1
+    return hit / max(total, 1)
+
+
+# Phase 32's bf16 rule.  The split rounds intermediate bf16 values at other
+# points than one process does (other slab shapes, other cuBLAS / cuDNN
+# kernels), and 24 blocks carry those roundings to ~2% of a level's
+# largest output: as far as the one process's bf16 eval itself sits from
+# the f32 eval of the same weights and grid (f32 holds the split to
+# rounding, 5e-6).  So the bf16 split may sit at most SPACE_BF16_NOISE
+# times bf16's own distance from f32 (that of the one process's AABB
+# eval, the same backbone as the OBB's) from the one process, and, on
+# AABBs, from the f32 eval; a row on the wrong rank or a missing halo
+# moves outputs by the scale itself.  Proposals: at least
+# SPACE_BF16_MATCHED of the one process's kept boxes kept too (the same
+# level, the score within 2e-2, the box within a voxel).
+SPACE_BF16_NOISE = 2.0
+SPACE_BF16_MATCHED = 0.9
+
+
+def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
+    """Phase 32's checks of the ranks' results (``_space_rank``) against
+    the one process's: f32, the level outputs within ``close_enough`` (1e-5
+    of the scale) and the proposals the same set (``same_proposal_sets``)
+    with the keep-set equal; bf16, by the rule above (``level_rel``,
+    ``matched_proposals``), with each level's difference in ulps of its
+    largest output beside it;
+    each rank's launches those of one eval scene (K5 24, K6 24, K4 12, K1
+    12, resolve 1, K3 1 on AABBs); the train step's readings within phase
+    25's ``DDP_LIMITS`` of phase 25's one process, the ranks bit-equal, K1
+    and K2 24 a rank.  Prints each reading beside ``card``, with the one
+    process's times (``alone``: before and after the ranks), and returns
+    the launches by path."""
+    import numpy as np
+
+    ranks = [torch.load(os.path.join(work, "space", f"space_rank{r}.pt"), weights_only=False)
+             for r in (0, 1)]
+    paths, bad = {}, []
+    truth = eval_refs["f32 aabb"]
+    f32 = [w for part in ("obj", "dl") for w in truth[part]]
+    one_bf16 = [w for part in ("obj", "dl") for w in eval_refs["bf16 aabb"][part]]
+    noise = max(level_rel(w, t) for w, t in zip(one_bf16, f32))
+    print(f"[space axis] {card}: the one process's bf16 AABB eval sits {noise:.4g} of a "
+          "level's largest output from its f32 eval", flush=True)
+    for name, want in eval_refs.items():
+        dtype = getattr(torch, SPACE_EVALS[name][0])
+        rotated = SPACE_EVALS[name][1]
+        per_scene = OBB_EVAL_LAUNCHES_PER_SCENE if rotated else EVAL_LAUNCHES_PER_SCENE
+        for r, rank in enumerate(ranks):
+            got = rank["evals"][name]
+            pairs = [(g, w) for part in ("obj", "dl") for g, w in zip(got[part], want[part])]
+            launches = {k: v for k, v in got["launches"].items() if v}
+            paths[f"space eval {name} rank {r}"] = got["launches"]
+            row = {"case": name, "rank": r,
+                   "level_max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                            for g, w in pairs),
+                   "level_max_rel_err": max(level_rel(g, w) for g, w in pairs),
+                   "kept": int(want["proposals"]["valid"].sum()),
+                   "keep_set_equal": torch.equal(got["proposals"]["valid"],
+                                                 want["proposals"]["valid"]),
+                   "launches": launches, "peak_gib": got["peak_gib"]}
+            if dtype == torch.float32:
+                row["levels_close"] = all(close_enough(torch, g, w, dtype)[1] for g, w in pairs)
+                row["proposal_box_err"] = same_proposal_sets(
+                    np, want["proposals"], got["proposals"], 1e-4)
+                ok = (row["levels_close"] and row["proposal_box_err"] is not None
+                      and row["keep_set_equal"])
+            else:
+                row["level_ulps"] = max(level_ulps(torch, g, w) for g, w in pairs)
+                row["matched"] = matched_proposals(np, want["proposals"], got["proposals"],
+                                                   1.0, 2e-2)
+                ok = (row["level_max_rel_err"] <= SPACE_BF16_NOISE * noise
+                      and row["matched"] >= SPACE_BF16_MATCHED)
+                if not rotated:  # the split against the f32 eval
+                    row["rel_err_to_f32"] = max(level_rel(g, t) for (g, _), t in zip(pairs, f32))
+                    ok = ok and row["rel_err_to_f32"] <= SPACE_BF16_NOISE * noise
+            if name == SPACE_TIMED:
+                row.update(ms=got["ms"], exchanges=got["exchanges"],
+                           one_process_ms=[a["eval_ms"] for a in alone],
+                           one_process_peak_gib=want["peak_gib"])
+            print(f"[space axis] {card}:", json.dumps(row), flush=True)
+            if not ok:
+                bad.append(f"eval {name} rank {r}: outputs differ from the one process's "
+                           "beyond the phase's rule")
+            if launches != {k: int(v) for k, v in per_scene.items() if v}:
+                bad.append(f"eval {name} rank {r}: launches {launches}, one scene's "
+                           f"{per_scene}")
+    metrics, state, params, peak = train_ref
+    train = [rank["train"] for rank in ranks]
+    read, flips = step_readings(train[0]["metrics"], train[0]["state"], metrics, state, params)
+    row = {"case": DDP_TIMED, "readings": read, "limits": DDP_LIMITS["float32"],
+           "flipped_steps": flips, "ranks_equal": [t["ranks_equal"] for t in train],
+           "one_process_peak_gib": peak, "rank_peak_gib": [t["peak_gib"] for t in train],
+           "launches_per_rank": [{k: v for k, v in t["launches"].items() if v} for t in train],
+           "ms": train[0]["ms"], "one_process_ms": [a["train_ms"] for a in alone],
+           "exchanges": train[0]["exchanges"]}
+    print(f"[space axis train step] {card}:", json.dumps(row), flush=True)
+    for r, t in enumerate(train):
+        paths[f"space train rank {r}"] = t["launches"]
+        if {k: v for k, v in t["launches"].items() if v} != {"window_attention_fwd": 24,
+                                                             "window_attention_bwd": 24}:
+            bad.append(f"train rank {r}: launches {t['launches']}, K1 24 and K2 24 expected")
+    if not all(t["ranks_equal"] for t in train) or train[0]["metrics"] != train[1]["metrics"]:
+        bad.append("train: the ranks differ after the step")
+    bad += [f"train: {k} {v} over its limit {DDP_LIMITS['float32'][k]}" for k, v in read.items()
+            if not (np.isfinite(v) and v <= DDP_LIMITS["float32"][k])]
+    print(f"[space axis] the ranks' part: {ranks[0]['seconds']:.1f} s (gloo on one card: "
+          "says nothing of NCCL across cards)", flush=True)
+    if bad:
+        fail("space axis: " + "; ".join(bad))
+    return paths
+
+
+def check_k5_slabs(torch, dev):
+    """Phase 32: K5's slab form at stages 0 and 2 of the bench shape
+    (token grids 52x52x36, C 96, and 13x13x9, C 384), bf16, on each of two
+    ranks' window columns, shifted (stage 2's last slab holds the pad rows
+    13-15 between real rows and the wrapped 0-1; its NaN rows must never be
+    read) and not: the kernel against its twin (``close_enough``) and
+    against the whole-grid kernel's windows (bit for bit where equal); the
+    origin-0 slab of the whole grid against the call without one, bit for
+    bit."""
+    from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (XSlab, ln_partition_qkv,
+                                                     ln_partition_qkv_reference, rank_slab)
+    from nerf_rpn_tpu_torch.parallel.space import window_bounds
+
+    rows, bad = [], []
+    for stage, (name, size, _, c, _) in enumerate(EVAL_STAGES):
+        if stage not in (0, 2):
+            continue
+        gen = torch.Generator(device=dev).manual_seed(320 + stage)
+        x = torch.randn((1, *size, c), generator=gen, device=dev).to(torch.bfloat16)
+        s = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
+        t = 0.2 * torch.randn(c, generator=gen, device=dev)
+        w = (torch.randn((3 * c, c), generator=gen, device=dev) * c ** -0.5).to(
+            torch.bfloat16).t()
+        b = 0.5 * torch.randn(3 * c, generator=gen, device=dev)
+        pad = tuple(-(-n // 4) * 4 for n in size)
+        for shift in ((0, 0, 0), (2, 2, 2)):
+            whole = ln_partition_qkv(x, s, t, w, b, (4, 4, 4), pad, shift)
+            full = XSlab(0, size[0], 0, pad[0] // 4)
+            if not torch.equal(ln_partition_qkv(x, s, t, w, b, (4, 4, 4), pad, shift, full),
+                               whole):
+                bad.append(f"{name} shift {shift}: the origin-0 slab differs from the call "
+                           "without one")
+            ny, nz = pad[1] // 4, pad[2] // 4
+            for r, cols in enumerate(window_bounds(size[0], 4, 2)[1]):
+                xs, slab = rank_slab(x, (4, 4, 4), pad, shift, cols)
+                got = ln_partition_qkv(xs, s, t, w, b, (4, 4, 4), pad, shift, slab)
+                twin = ln_partition_qkv_reference(xs, s, t, w, b, (4, 4, 4), pad, shift, slab)
+                err, ok = close_enough(torch, got, twin, torch.bfloat16)
+                mine = whole.view(pad[0] // 4, ny * nz, *whole.shape[1:])[cols[0]:cols[1]]
+                same = torch.equal(got, mine.reshape(got.shape))
+                rows.append({"stage": name, "shift": shift[0], "rank": r, "slab": list(slab),
+                             "max_abs_err": err, "twin_close": ok, "whole_grid_bit_equal": same})
+                if not ok:
+                    bad.append(f"{name} shift {shift} rank {r}: K5 slab off its twin by {err}")
+    torch.cuda.synchronize()
+    print("[space axis] K5 slabs:", json.dumps(rows), flush=True)
+    if bad:
+        fail("K5 slab form: " + "; ".join(bad))
 
 
 def run_ddp_driver_paths(torch, work, rpn_train_launches, rcnn_common):
@@ -4167,13 +4614,22 @@ def main() -> None:
         import numpy as np
 
         t0 = time.perf_counter()
+        space_refs, space_before = space_eval_references(torch, dev)
+        space_alone = [space_before]
+        space_s = time.perf_counter() - t0
+        print(f"[space axis] phase 32's one-process evals and times: {space_s:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
         cases = eval_split_cases(np, work, rcnn_common)
-        check_ddp_steps(torch, dev, work, cases, smi)
+        space_train_ref = check_ddp_steps(torch, dev, work, cases, smi)
         ddp_paths, data, common = run_ddp_driver_paths(torch, work, paths["train"],
                                                        rcnn_common)
         paths.update(ddp_paths)
         time_gpus_flag(torch, data, common, card=smi)
-        phase_done(torch, "data parallel", t0)
+        phase_done(torch, "data parallel (with phase 32's ranks)", t0)
+        t0 = time.perf_counter()
+        space_alone.append(time_alone(torch, dev))
+        space_s += time.perf_counter() - t0
 
         t0 = time.perf_counter()
         _, obb_common = write_train_data(work, rotated=True)
@@ -4210,6 +4666,14 @@ def main() -> None:
         t0 = time.perf_counter()
         run_debug_profiling(torch, dev, work, obb_data, obb_train_common)
         phase_done(torch, "debug and profiling", t0)
+
+        t0 = time.perf_counter()
+        paths.update(check_space_axis(torch, work, space_refs, space_train_ref, space_alone,
+                                      smi))
+        check_k5_slabs(torch, dev)
+        phase_done(torch, "space axis checks", t0)
+        print(f"[space axis] phase 32 in all: {space_s + time.perf_counter() - t0:.1f} s here "
+              "and the ranks' part (above)", flush=True)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

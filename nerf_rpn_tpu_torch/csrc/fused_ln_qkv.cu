@@ -13,6 +13,16 @@
 // LN output (its qkv row is just b), as the model pads after the LayerNorm.
 // With shift 0 and a divisible grid it is exactly the JAX kernel.
 //
+// A slab of the grid along x (the space axis, parallel/space.py) is placed
+// by (X0, RX, WX0, NWX): P and s stay the global grid's; x's local row i
+// holds global row (X0 + i) mod PX; the block grid covers the rolled
+// frame's window columns WX0 .. WX0 + NWX - 1; a token at global rolled row
+// j reads global row q = (j + shx) mod PX, a pad row (zero LN output) where
+// q >= RX -- wherever it lies in the slab, the last rank's wrapped rows
+// included -- else local row (q - X0) mod PX, which the wrapper checks lies
+// in x.  The whole grid is (0, SX, 0, PX / wx): the same arithmetic as
+// without a slab.
+//
 // What bounds it on the H100: at the Swin-S bench shape, stage 0 reads
 // 18.7 MB of x and writes 56 MB of qkv (bf16) for 5.4 GFLOP of products:
 // bytes bound it (~22 us at 3.35 TB/s); at stage 2 (48 windows, C = 384)
@@ -59,6 +69,7 @@ constexpr float kEps = 1e-5f;
 
 struct Geometry {
   int SX, SY, SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz;
+  int X0, RX, WX0, NWX;  // the x slab: origin, real size, window columns
 };
 
 template <typename T>
@@ -72,16 +83,18 @@ size_t smem_bytes(int C, int R, int BN, int BK) {
 // element offset in x of window `win`'s token p, or -1 for a pad voxel
 __device__ __forceinline__ long long token_source(const Geometry& g, int win,
                                                   int p) {
-  const int nx = g.PX / g.wx, ny = g.PY / g.wy, nz = g.PZ / g.wz;
+  const int nx = g.NWX, ny = g.PY / g.wy, nz = g.PZ / g.wz;
   const int iz = win % nz, iy = (win / nz) % ny, ix = (win / nz / ny) % nx;
   const int b = win / (nx * ny * nz);
-  int X = ix * g.wx + p / (g.wy * g.wz) + g.shx;
+  int X = (g.WX0 + ix) * g.wx + p / (g.wy * g.wz) + g.shx;
   int Y = iy * g.wy + (p / g.wz) % g.wy + g.shy;
   int Z = iz * g.wz + p % g.wz + g.shz;
   X -= X >= g.PX ? g.PX : 0;
   Y -= Y >= g.PY ? g.PY : 0;
   Z -= Z >= g.PZ ? g.PZ : 0;
-  if (X >= g.SX || Y >= g.SY || Z >= g.SZ) return -1;
+  if (X >= g.RX || Y >= g.SY || Z >= g.SZ) return -1;
+  X -= g.X0;
+  X += X < 0 ? g.PX : 0;
   return (((static_cast<long long>(b) * g.SX + X) * g.SY + Y) * g.SZ + Z) *
          g.C;
 }
@@ -209,7 +222,7 @@ int launch(const void* x, const void* s, const void* t, const void* w,
   const size_t smem = smem_bytes<T>(C, R, BN, BK);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>(B) * (geo.PX / geo.wx) *
+  const long long blocks = static_cast<long long>(B) * geo.NWX *
                            (geo.PY / geo.wy) * (geo.PZ / geo.wz) *
                            (n_tok / R) * (3 * C / BN / G);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -244,9 +257,11 @@ int launch(const void* x, const void* s, const void* t, const void* w,
 
 // x (B, SX, SY, SZ, C) f32|bf16, ln scale / bias (C,) f32, w (3C, C) of x's
 // type (nn.Linear's layout), b (3C,) f32, out (B * nW, wx*wy*wz, 3C) of x's
-// type with nW = (PX/wx)(PY/wy)(PZ/wz); all contiguous and 16-byte aligned.
-// P >= S and divisible by the window, 0 <= shift < P, C a multiple of 16
-// and at most 1536.  The plan: `rows` (R) tokens of a window and `group`
+// type with nW = NWX (PY/wy)(PZ/wz); all contiguous and 16-byte aligned.
+// P >= S (x: P >= RX and P >= SX) and divisible by the window, 0 <= shift
+// < P, C a multiple of 16 and at most 1536; the x slab (X0, RX, WX0, NWX)
+// as the header says, with 0 <= X0 < PX, NWX >= 1 and (WX0 + NWX) wx <= PX
+// (the wrapper checks that every real row read lies in x).  The plan: `rows` (R) tokens of a window and `group`
 // (G) tiles of `cols` (BN) output columns a block, weight k-chunks of
 // `k_chunk` (BK): R in {16, 32, 64} dividing the window volume, BN a
 // multiple of 16 dividing 3C, G dividing 3C / BN, BK in {16, 32, 64}
@@ -258,14 +273,18 @@ extern "C" int ln_partition_qkv(const void* x, const void* ln_scale,
                                 const void* b, void* out, int B, int SX,
                                 int SY, int SZ, int C, int PX, int PY, int PZ,
                                 int shx, int shy, int shz, int wx, int wy,
-                                int wz, int rows, int cols, int k_chunk,
-                                int group, int dtype_code, void* stream) {
+                                int wz, int X0, int RX, int WX0, int NWX,
+                                int rows, int cols, int k_chunk, int group,
+                                int dtype_code, void* stream) {
   if (B <= 0 || C <= 0 || C % 16 || C > kMaxC || wx <= 0 || wy <= 0 ||
       wz <= 0 || PX % wx || PY % wy || PZ % wz || SX > PX || SY > PY ||
       SZ > PZ || SX <= 0 || SY <= 0 || SZ <= 0 || shx < 0 || shy < 0 ||
-      shz < 0 || shx >= PX || shy >= PY || shz >= PZ)
+      shz < 0 || shx >= PX || shy >= PY || shz >= PZ || X0 < 0 ||
+      X0 >= PX || RX <= 0 || RX > PX || WX0 < 0 || NWX <= 0 ||
+      (WX0 + NWX) * wx > PX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry geo{SX, SY, SZ, C, PX, PY, PZ, shx, shy, shz, wx, wy, wz};
+  const Geometry geo{SX, SY, SZ, C,  PX, PY, PZ,  shx, shy,
+                     shz, wx, wy, wz, X0, RX, WX0, NWX};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == kFloat32)
     return launch<float>(x, ln_scale, ln_bias, w, b, out, B, geo, rows, cols,

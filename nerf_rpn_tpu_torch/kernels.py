@@ -75,9 +75,10 @@ SIGNATURES = {
     "ln_partition_qkv": (
         "fused_ln_qkv",
         # x, ln_scale, ln_bias, w (3C, C), b, out, B, SX, SY, SZ, C, PX, PY,
-        # PZ, shift x/y/z, window x/y/z, plan rows / cols / k_chunk /
+        # PZ, shift x/y/z, window x/y/z, x slab origin / real size / first
+        # window column / window columns, plan rows / cols / k_chunk /
         # group, dtype_code, stream
-        [_P, _P, _P, _P, _P, _P, *[_I] * 19, _P]),
+        [_P, _P, _P, _P, _P, _P, *[_I] * 23, _P]),
     "fused_mlp_block": (
         "fused_mlp",
         # x, ln_scale, ln_bias, w1 (Hd, C), b1, w2 (C, Hd), b2, out,

@@ -51,17 +51,19 @@ class RPNHead3D(nn.Module):
         self.cls_logits = nn.Conv3d(in_channels, num_anchors, 1)
         self.bbox_pred = nn.Conv3d(in_channels, num_anchors * self.reg_ch, 1)
 
-    def forward(self, features: Sequence[torch.Tensor]):
+    def forward(self, features: Sequence[torch.Tensor], slabs: Sequence | None = None):
         """Per level (B, X, Y, Z, C) -> (logits, deltas) lists of
-        (B, X, Y, Z, A) and (B, X, Y, Z, A * reg_ch)."""
+        (B, X, Y, Z, A) and (B, X, Y, Z, A * reg_ch).  ``slabs``: the
+        levels' slabs on the space axis, where each 3^3 conv of the tower
+        takes a halo of one row."""
         a = self.num_anchors
         weight = torch.cat([self.cls_logits.weight, self.bbox_pred.weight], 0)
         weight = weight.reshape(weight.shape[0], -1).to(self.dtype)
         bias = torch.cat([self.cls_logits.bias, self.bbox_pred.bias]).to(self.dtype)
         logits, deltas = [], []
-        for t in features:
+        for t, slab in zip(features, slabs or [None] * len(features)):
             for conv in self.conv[::2]:
-                t = torch.relu(conv3d(t, conv, self.dtype))
+                t = torch.relu(conv3d(t, conv, self.dtype, slab))
             y = F.linear(t, weight, bias)
             logits.append(y[..., :a])
             deltas.append(y[..., a:])

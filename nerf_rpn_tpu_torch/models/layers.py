@@ -8,6 +8,13 @@ BatchNorm follows flax's ``nn.BatchNorm`` (:func:`batch_norm`).
 Activations are channels-last ``(B, X, Y, Z, C)`` like the JAX package; a
 convolution sees them as a channels-first view (the ``channels_last_3d``
 memory format), so no copy is made around it.
+
+On the ``space`` axis (``parallel/space.py``) a convolution takes a slab:
+:func:`conv3d` given its slabs fetches the x rows its output slab reads (a halo of
+``k // 2`` rows for a stride-1 3^3 conv, zero beyond the global edges; a
+strided conv's rows from the output slab's global origin) and runs with no
+x padding.  Train-mode BatchNorm sums its moments over every rank, slab
+rows once each (``ddp.batch_moments``).
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_rpn_tpu_torch.parallel import ddp
+from nerf_rpn_tpu_torch.parallel import ddp, space
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -30,11 +37,33 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
     return y.to(dtype)
 
 
-def conv3d(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
-    """Channels-last (B, X, Y, Z, C) in and out."""
+def conv3d(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype,
+           src: "space.Slab | None" = None, dst: "space.Slab | None" = None) -> torch.Tensor:
+    """Channels-last (B, X, Y, Z, C) in and out.  On the space axis: from
+    the input slabs ``src`` into the output slabs ``dst`` (default
+    ``src``; the conv's global x extent ``dst.extent``); every rank of the
+    space group calls it."""
+    if src is None:
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), conv.weight.to(dtype),
+                     conv.bias.to(dtype) if conv.bias is not None else None,
+                     conv.stride, conv.padding)
+        return y.permute(0, 2, 3, 4, 1)
+    return _conv3d_slab(x, conv, dtype, src, dst or src)
+
+
+def _conv3d_slab(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype,
+                 src: "space.Slab", dst: "space.Slab") -> torch.Tensor:
+    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    if not (k == 1 and s == 1 and src.bounds == dst.bounds):
+        x = space.reshard_x(x, src, space.window_rows(src, dst, k, s, p))
+    if dst.rows == 0:
+        shape = (x.shape[0], 0, *(-(-(n + 2 * q - kk + 1) // st) for n, q, kk, st in zip(
+            x.shape[2:4], conv.padding[1:], conv.kernel_size[1:], conv.stride[1:])),
+            conv.out_channels)
+        return space.keep_graph_empty(shape, x.to(dtype), conv.weight, conv.bias)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), conv.weight.to(dtype),
                  conv.bias.to(dtype) if conv.bias is not None else None,
-                 conv.stride, conv.padding)
+                 conv.stride, (0, *conv.padding[1:]))
     return y.permute(0, 2, 3, 4, 1)
 
 

@@ -54,12 +54,29 @@ class NeRFRPN(nn.Module):
         self.rpn_head = RPNHead3D(self.backbone.out_channels, num_anchors, conv_depth,
                                   rotated, dtype)
 
-    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
+    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None,
+                space=None):
         """``generator`` draws the Swin backbone's stochastic-depth masks in
-        train mode (unused in eval and by the CNN backbones)."""
-        features = list(self.backbone(grids, generator))
-        logits, deltas = self.rpn_head(features)
+        train mode (unused in eval and by the CNN backbones).  ``space``:
+        the grids' slabs on the space axis (``parallel/space.py``); every
+        output is then this rank's slab of its level,
+        ``self.level_slabs(space)``."""
+        if space is None:
+            features = list(self.backbone(grids, generator))
+            logits, deltas = self.rpn_head(features)
+            return features, logits, deltas
+        slabs = self.level_slabs(space)
+        features = list(self.backbone(grids, generator, space))
+        logits, deltas = self.rpn_head(features, slabs)
         return features, logits, deltas
+
+    def level_slabs(self, space) -> list:
+        """The levels' slabs for the grids' slabs ``space``; the Swin and
+        ResNet backbones take the space axis (VGG not yet)."""
+        if not hasattr(self.backbone, "level_slabs"):
+            raise NotImplementedError(f"the {self.backbone_type} backbone has no space-axis "
+                                      "form (the Swin and ResNet backbones do)")
+        return self.backbone.level_slabs(space)
 
 
 class FCOSOverNeRF(nn.Module):

@@ -22,6 +22,14 @@ Module names are the reference torch keys that
 module's name, for ``weights.py``.  The JAX stem's z-unfolded and s2d
 forms (``StemConv3D``, ``NERF_RPN_TPU_STEM_S2D``) are the plain 7^3 conv in
 a TPU layout and are not ported.
+
+On the ``space`` axis (``parallel/space.py``) ``ResNetFPN.forward`` takes a
+slab of the grid (``space=`` its input slabs) and gives each level on even
+slabs of its global x extent (:meth:`ResNetFPN.level_slabs`): the stem,
+the strided bottlenecks and the 3^3 convs fetch their input rows
+(``layers.conv3d`` given slabs), the stem pool its -inf-padded ones
+(``pooling.max_pool_slab``), and the top-down path reads its source rows by
+global coordinate (:func:`upsample_nearest_slab`).
 """
 
 from __future__ import annotations
@@ -32,9 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_rpn_tpu_torch.models.fpn import upsample_nearest
+from nerf_rpn_tpu_torch.models.fpn import upsample_nearest, upsample_nearest_slab
 from nerf_rpn_tpu_torch.models.layers import batch_norm, bn3d, conv3d
-from nerf_rpn_tpu_torch.ops.pooling import stem_pool
+from nerf_rpn_tpu_torch.ops.pooling import max_pool_slab, stem_pool
 
 
 def upsample_trilinear(x: torch.Tensor, target_shape: Sequence[int]) -> torch.Tensor:
@@ -68,13 +76,14 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 nn.Conv3d(in_channels, out, 1, stride=stride, bias=False), bn3d(out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, src=None, dst=None) -> torch.Tensor:
+        """``src`` / ``dst``: the input and output slabs on the space axis."""
         d = self.dtype
-        y = torch.relu(batch_norm(conv3d(x, self.conv1, d), self.bn1, d))
-        y = torch.relu(batch_norm(conv3d(y, self.conv2, d), self.bn2, d))
-        y = batch_norm(conv3d(y, self.conv3, d), self.bn3, d)
+        y = torch.relu(batch_norm(conv3d(x, self.conv1, d, src, dst), self.bn1, d))
+        y = torch.relu(batch_norm(conv3d(y, self.conv2, d, dst), self.bn2, d))
+        y = batch_norm(conv3d(y, self.conv3, d, dst), self.bn3, d)
         if self.downsample is not None:
-            x = batch_norm(conv3d(x, self.downsample[0], d), self.downsample[1], d)
+            x = batch_norm(conv3d(x, self.downsample[0], d, src, dst), self.downsample[1], d)
         return torch.relu(y + x)
 
 
@@ -111,9 +120,13 @@ class ResNetFPN(nn.Module):
         self.smooths = nn.ModuleList(nn.Conv3d(out_channels, out_channels, 3, padding=1)
                                      for _ in range(n - 1))
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, ...]:
-        """``generator`` is unused: the CNN backbones draw nothing."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                space=None) -> tuple[torch.Tensor, ...]:
+        """``generator`` is unused: the CNN backbones draw nothing.
+        ``space``: ``x``'s slabs on the space axis; each level is then this
+        rank's slab of :meth:`level_slabs`."""
+        if space is not None:
+            return self._forward_slabs(x, space)
         y = self.stem(x)
         c_out = []
         for stage in self.layers:
@@ -121,19 +134,59 @@ class ResNetFPN(nn.Module):
             c_out.append(y)
         return self.top_down(c_out)
 
+    def _extents(self, x_extent: int) -> list[int]:
+        """Global x extents: the stem conv's, the stem pool's (or the stem
+        again without one) and each stage's."""
+        k, s, p = self.conv1.kernel_size[0], self.conv1.stride[0], self.conv1.padding[0]
+        e = [(x_extent + 2 * p - k) // s + 1]
+        e.append((e[0] - 1) // 2 + 1 if self.is_max_pool else e[0])
+        for i in range(len(self.layers)):
+            e.append(e[-1] if i == 0 else (e[-1] - 1) // 2 + 1)
+        return e
+
+    def level_slabs(self, src) -> list:
+        """The slabs of each output level, for the input slabs ``src``."""
+        return [src.even(e) for e in self._extents(src.extent)[2:]]
+
+    def _forward_slabs(self, x: torch.Tensor, src) -> tuple[torch.Tensor, ...]:
+        d = self.dtype
+        stem, pooled, *levels = [src.even(e) for e in self._extents(src.extent)]
+        y = torch.relu(batch_norm(conv3d(x, self.conv1, d, src, stem), self.bn1, d))
+        if self.is_max_pool:
+            y = max_pool_slab(y, stem, pooled, 3, 2, 1)
+        at, c_out = pooled, []
+        for stage, level in zip(self.layers, levels):
+            for j, block in enumerate(stage):
+                y = block(y, at if j == 0 else level, level)
+            at = level
+            c_out.append(y)
+        return self.top_down(c_out, levels)
+
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(batch_norm(conv3d(x, self.conv1, self.dtype), self.bn1, self.dtype))
         return stem_pool(y) if self.is_max_pool else y
 
-    def top_down(self, c_out: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
-        """The built-in FPN: laterals, the top-down sums and the smooths."""
+    def top_down(self, c_out: Sequence[torch.Tensor],
+                 slabs: Sequence | None = None) -> tuple[torch.Tensor, ...]:
+        """The built-in FPN: laterals, the top-down sums and the smooths
+        (``slabs``: the levels' slabs on the space axis)."""
         d, n = self.dtype, len(c_out)
-        laterals = [conv3d(c_out[i], self.latlayers[n - 1 - i], d) for i in range(n)]
+        slabs = slabs or [None] * n
+        laterals = [conv3d(c_out[i], self.latlayers[n - 1 - i], d, slabs[i]) for i in range(n)]
         p = [laterals[-1]]
         for i in range(n - 2, -1, -1):
-            p.insert(0, laterals[i] + self.upsample(p[0], laterals[i].shape[1:4]))
+            if slabs[i] is None:
+                up = self.upsample(p[0], laterals[i].shape[1:4])
+            elif self.upsample is upsample_nearest:
+                up = upsample_nearest_slab(p[0], slabs[i + 1], slabs[i],
+                                           laterals[i].shape[2:4])
+            else:
+                raise NotImplementedError("the trilinear top-down path has no space-axis "
+                                          "form; the RPN backbones resnet / resnet_tiny "
+                                          "upsample nearest")
+            p.insert(0, laterals[i] + up)
         for i in range(n - 1):
-            p[i] = conv3d(p[i], self.smooths[n - 2 - i], d)
+            p[i] = conv3d(p[i], self.smooths[n - 2 - i], d, slabs[i])
         return tuple(p)
 
     def flax_names(self) -> dict[str, str]:

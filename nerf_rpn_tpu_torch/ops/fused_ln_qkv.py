@@ -14,6 +14,18 @@ the padded size and the shift: window token p reads voxel
 is a zero LN output (its row is just ``b``), as the model pads after the
 LayerNorm.  With shift 0 and a divisible grid it is the JAX function.
 
+A slab of the grid along x (the ``space`` axis, ``parallel/space.py``)
+goes in with an :class:`XSlab` ``(origin, real, first, count)``; ``pad_size``
+and ``shift`` stay the global grid's.  x's local row i then holds global
+row ``(origin + i) mod P_x``; the output is the windows of the rolled
+frame's window columns ``first .. first + count - 1``; token p of such a
+window, at global rolled row j, reads global row ``q = (j + shift_x) mod
+P_x``: a pad row (a zero LN output) where ``q >= real`` -- wherever it lies
+in the slab, the last rank's wrapped rows included -- else local row ``(q -
+origin) mod P_x``, which must lie in x.  A pad row's contents are never
+read.  Without a slab: ``(0, X, 0, P_x / w_x)``, the whole grid, and the
+kernel's arithmetic is exactly the one without it.
+
 ``ln_partition_qkv`` launches the CUDA kernel (``csrc/fused_ln_qkv.cu``) on
 CUDA tensors and takes the plain twin ``ln_partition_qkv_reference`` on CPU
 tensors; nothing falls back from the kernel to the twin.
@@ -58,6 +70,15 @@ WARP_TILES = (2, 4, 6, 8, 12)  # n8 column tiles a warp holds (R * BN / 512), as
 # output elements (per 1024).
 W_PASS, W_CHUNK, W_MMA, W_KB = 0.778, 0.231, 0.0102, 0.0150
 W_SM_MMA, W_SM_LN, W_SM_OUT = 0.00996, 0.0914, 0.00983
+
+
+class XSlab(NamedTuple):
+    """Where a K5 input slab lies in the global grid along x (module
+    docstring)."""
+    origin: int  # global row of local row 0 (mod the padded size)
+    real: int    # the global grid's real x size
+    first: int   # first window column of the rolled frame to compute
+    count: int   # window columns to compute
 
 
 class Plan(NamedTuple):
@@ -131,65 +152,121 @@ def ln_qkv_plan(n_windows: int, c: int, dtype: torch.dtype, n_tok: int = 64) -> 
                                      -p.rows, -p.k_chunk))
 
 
-def _geometry(x: torch.Tensor, window: Sequence[int], pad_size, shift):
+def _geometry(x: torch.Tensor, window: Sequence[int], pad_size, shift, slab=None):
+    """Checked ``(pad_size, shift, slab)``; a slab's every read row lies in x."""
     if x.dim() != 5:
         raise ValueError(f"x must be (B, X, Y, Z, C), got {tuple(x.shape)}")
     size = tuple(x.shape[1:4])
     pad_size = size if pad_size is None else tuple(int(p) for p in pad_size)
     shift = tuple(int(s) for s in shift)
+    if slab is not None:
+        slab = XSlab(*(int(v) for v in slab))
+        size = (slab.real, *size[1:])
     for s, p, w, sh in zip(size, pad_size, window, shift):
         if p < s or p % w or not 0 <= sh < p:
             raise ValueError(f"grid {size}, pad_size {pad_size}, window "
                              f"{tuple(window)}, shift {shift}: need pad_size >= "
                              "grid, divisible by the window, 0 <= shift < pad_size")
-    return pad_size, shift
+    if slab is None:
+        return pad_size, shift, XSlab(0, x.shape[1], 0, pad_size[0] // window[0])
+    p = pad_size[0]
+    if not (0 <= slab.origin < p and slab.first >= 0 and slab.count >= 0
+            and (slab.first + slab.count) * window[0] <= p and x.shape[1] <= p):
+        raise ValueError(f"K5 slab {tuple(slab)} of x rows {x.shape[1]} does not fit the "
+                         f"padded x size {p} in windows of {window[0]}")
+    rows = _slab_rows(slab, window[0], p, shift[0])
+    if rows.numel() and int(rows.max()) >= x.shape[1]:
+        raise ValueError(f"K5 slab {tuple(slab)}: a real row it reads lies past the "
+                         f"{x.shape[1]} rows of x")
+    return pad_size, shift, slab
+
+
+def _slab_rows(slab: XSlab, w: int, p: int, shift: int) -> torch.Tensor:
+    """The local x row each of the slab's rolled rows reads, -1 for a pad
+    row (the docstring's contract)."""
+    j = torch.arange(slab.first * w, (slab.first + slab.count) * w)
+    q = (j + shift) % p
+    return torch.where(q >= slab.real, -1, (q - slab.origin) % p)
 
 
 def ln_partition_qkv_reference(x, ln_scale, ln_bias, w, b, window,
-                               pad_size=None, shift=(0, 0, 0)) -> torch.Tensor:
+                               pad_size=None, shift=(0, 0, 0), slab=None) -> torch.Tensor:
     """Plain PyTorch twin of kernel K5 (same arguments): LN, zero pad to
     ``pad_size``, roll by ``-shift``, window partition, f32 product + f32
-    bias, one rounding.  Returns (B * nW, N, 3C) in x's dtype."""
-    pad_size, shift = _geometry(x, window, pad_size, shift)
+    bias, one rounding (f64 throughout for f64 input, which the kernel does
+    not take).  Returns (B * nW, N, 3C) in x's dtype.  With a
+    ``slab``, the rolled frame's rows of its window columns are gathered
+    from x's LayerNorm'd rows by the module docstring's map (zero for a
+    pad row) and y and z are padded and rolled in place."""
+    pad_size, shift, xslab = _geometry(x, window, pad_size, shift, slab)
     dtype = x.dtype
-    xf = x.float()
+    acc = torch.promote_types(dtype, torch.float32)  # f64 input computes in f64
+    xf = x.to(acc)
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     h = (xf - mu) * torch.rsqrt(var + EPS)
-    h = (h * ln_scale.float() + ln_bias.float()).to(dtype)
-    pad = [p - s for p, s in zip(pad_size, x.shape[1:4])]
-    if any(pad):
-        h = F.pad(h, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
-    if any(shift):
-        h = torch.roll(h, tuple(-s for s in shift), dims=(1, 2, 3))
+    h = (h * ln_scale.to(acc) + ln_bias.to(acc)).to(dtype)
+    if slab is None:
+        pad = [p - s for p, s in zip(pad_size, x.shape[1:4])]
+        if any(pad):
+            h = F.pad(h, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        if any(shift):
+            h = torch.roll(h, tuple(-s for s in shift), dims=(1, 2, 3))
+    else:
+        rows = _slab_rows(xslab, window[0], pad_size[0], shift[0]).to(h.device)
+        h = torch.cat([h, h.new_zeros((h.shape[0], 1, *h.shape[2:]))], 1)
+        h = h.index_select(1, torch.where(rows < 0, x.shape[1], rows))
+        h = F.pad(h, (0, 0, 0, pad_size[2] - x.shape[3], 0, pad_size[1] - x.shape[2]))
+        if shift[1] or shift[2]:
+            h = torch.roll(h, (-shift[1], -shift[2]), dims=(2, 3))
+        pad_size = (xslab.count * window[0], *pad_size[1:])
     bsz, c = x.shape[0], x.shape[-1]
     (px, py, pz), (wx, wy, wz) = pad_size, window
     h = h.reshape(bsz, px // wx, wx, py // wy, wy, pz // wz, wz, c)
-    h = h.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, wx * wy * wz, c)
-    y = torch.matmul(h.float(), w.to(dtype).float()) + b.float()
+    h = h.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
+        bsz * (px // wx) * (py // wy) * (pz // wz), wx * wy * wz, c)
+    y = torch.matmul(h.to(acc), w.to(dtype).to(acc)) + b.to(acc)
     return y.to(dtype)
+
+
+def rank_slab(x: torch.Tensor, window: Sequence[int], pad_size: Sequence[int],
+              shift: Sequence[int], cols: tuple[int, int]) -> tuple[torch.Tensor, XSlab]:
+    """The input and :class:`XSlab` that a rank holding the window columns
+    ``cols`` of the whole grid ``x`` hands K5 on the space axis (as
+    ``models/swin.py`` builds them): with the x shift on, the rolled
+    frame's rows of its columns, pad rows filled with NaN (K5 never reads
+    them); without it, its real rows.  For checks of the slab form."""
+    w, p, s = window[0], pad_size[0], shift[0]
+    lo, hi = min(cols[0] * w, x.shape[1]), min(cols[1] * w, x.shape[1])
+    if not s:
+        return x[:, lo:hi], XSlab(lo % p, x.shape[1], cols[0], cols[1] - cols[0])
+    q = (torch.arange(cols[0] * w, cols[1] * w) + s) % p
+    slab = torch.cat([x, x.new_full((x.shape[0], 1, *x.shape[2:]), float("nan"))], 1)
+    slab = slab.index_select(1, torch.where(q < x.shape[1], q, x.shape[1]).to(x.device))
+    return slab, XSlab((cols[0] * w + s) % p, x.shape[1], cols[0], cols[1] - cols[0])
 
 
 def ln_partition_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                      w: torch.Tensor, b: torch.Tensor, window: Sequence[int],
                      pad_size: Sequence[int] | None = None,
-                     shift: Sequence[int] = (0, 0, 0)) -> torch.Tensor:
+                     shift: Sequence[int] = (0, 0, 0), slab: XSlab | None = None) -> torch.Tensor:
     """(B, X, Y, Z, C) x, (C,) LN scale and bias, (C, 3C) packed qkv weight,
     (3C,) bias -> (B * nW, N, 3C) in x's dtype, windows batch-major.
 
     ``pad_size`` (default: the grid) is the window-divisible size the grid is
-    zero-padded to after the LayerNorm, ``shift`` the cyclic shift.  CPU
-    tensors take the plain twin; CUDA tensors launch kernel K5 or raise.
-    The kernel reads ``w.t()``, so a weight passed as ``Linear.weight.t()``
-    (as the model passes it) is read where it lies, cast to x's dtype if
-    needed, and never transposed.
+    zero-padded to after the LayerNorm, ``shift`` the cyclic shift; ``slab``
+    places x along x in the global grid (module docstring).  CPU tensors
+    take the plain twin; CUDA tensors launch kernel K5 or raise; a slab of
+    no window columns launches nothing.  The kernel reads ``w.t()``, so a
+    weight passed as ``Linear.weight.t()`` (as the model passes it) is read
+    where it lies, cast to x's dtype if needed, and never transposed.
     """
     if x.device.type == "cpu":
         return ln_partition_qkv_reference(x, ln_scale, ln_bias, w, b, window,
-                                          pad_size, shift)
+                                          pad_size, shift, slab)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    pad_size, shift = _geometry(x, window, pad_size, shift)
+    pad_size, shift, xslab = _geometry(x, window, pad_size, shift, slab)
     if x.dtype not in kernels.DTYPE_CODES:
         raise TypeError(f"K5 takes f32 or bf16, got {x.dtype}")
     bsz, sx, sy, sz, c = x.shape
@@ -206,16 +283,17 @@ def ln_partition_qkv(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Ten
     b = b.to(device=dev, dtype=torch.float32).contiguous()
     s = ln_scale.to(device=dev, dtype=torch.float32).contiguous()
     t = ln_bias.to(device=dev, dtype=torch.float32).contiguous()
-    n_win = bsz * (pad_size[0] // window[0]) * (pad_size[1] // window[1]) * \
-        (pad_size[2] // window[2])
+    n_win = bsz * xslab.count * (pad_size[1] // window[1]) * (pad_size[2] // window[2])
     out = torch.empty((n_win, n, 3 * c), dtype=x.dtype, device=dev)
+    if n_win == 0:
+        return out
     if any(v.data_ptr() % 16 for v in (x, wt, b, s, t)):
         raise ValueError("K5's 16-byte loads need x, w, b and the LN params to "
                          "start on 16-byte boundaries")
     kernels.launch(
         "ln_partition_qkv",
         x.data_ptr(), s.data_ptr(), t.data_ptr(), wt.data_ptr(), b.data_ptr(),
-        out.data_ptr(), bsz, sx, sy, sz, c, *pad_size, *shift, *window,
+        out.data_ptr(), bsz, sx, sy, sz, c, *pad_size, *shift, *window, *xslab,
         *ln_qkv_plan(n_win, c, x.dtype, n), kernels.DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     return out

@@ -151,18 +151,20 @@ def mlp_plan(tokens: int, c: int, hd: int, dtype: torch.dtype) -> Plan:
 
 def fused_mlp_block_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
                               eps: float = EPS) -> torch.Tensor:
-    """Plain PyTorch twin of kernel K6 (same arguments and rounding)."""
+    """Plain PyTorch twin of kernel K6 (same arguments and rounding; f64
+    throughout for f64 input, which the kernel does not take)."""
     _check(x, ln_scale, ln_bias, w1, b1, w2, b2)
     dtype = x.dtype
-    xf = x.float()
+    acc = torch.promote_types(dtype, torch.float32)
+    xf = x.to(acc)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = (y * ln_scale.float() + ln_bias.float()).to(dtype)
-    h = torch.matmul(y.float(), w1.to(dtype).float()).to(dtype) + b1.to(dtype)
-    hf = h.float()
+    y = (y * ln_scale.to(acc) + ln_bias.to(acc)).to(dtype)
+    h = torch.matmul(y.to(acc), w1.to(dtype).to(acc)).to(dtype) + b1.to(dtype)
+    hf = h.to(acc)
     h = (hf * 0.5 * (1.0 + _erf_as7126(hf / math.sqrt(2.0)))).to(dtype)
-    o = torch.matmul(h.float(), w2.to(dtype).float()).to(dtype) + b2.to(dtype)
+    o = torch.matmul(h.to(acc), w2.to(dtype).to(acc)).to(dtype) + b2.to(dtype)
     return x + o
 
 
@@ -173,7 +175,8 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     w2, (C,) b2 -> (T, C) in x's dtype.  The weights are cast to x's dtype
     once per call, as flax's Dense casts them.
 
-    CPU tensors take the plain twin; CUDA tensors launch kernel K6 or raise.
+    CPU tensors take the plain twin; CUDA tensors launch kernel K6 or raise;
+    no tokens (a slab of the space axis that holds none) launch nothing.
     The kernel reads ``w1.t()`` and ``w2.t()``, so weights passed as
     ``Linear.weight.t()`` (as the model passes them) are read where they
     lie, cast to x's dtype if needed, and never transposed.
@@ -188,6 +191,8 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     if c % 16 or c > MAX_C or hd % 64:
         raise ValueError(f"K6 needs C a multiple of 16 up to {MAX_C} and a hidden "
                          f"width that is a multiple of 64, got C={c}, Hd={hd}")
+    if t == 0:
+        return torch.empty_like(x)
     dev, dtype = x.device, x.dtype
     x = x.contiguous()
     s = ln_scale.to(device=dev, dtype=torch.float32).contiguous()

@@ -10,12 +10,18 @@ Under ``torch.use_deterministic_algorithms(True)`` a pool that needs a
 gradient on the card routes its backward through ``index_put_`` with
 ``accumulate=True``, which has a deterministic form; ``F.max_pool3d``'s own
 CUDA backward adds with atomics and has none.
+
+On the ``space`` axis (``parallel/space.py``) :func:`max_pool_slab` fetches
+the x rows of its output slab's windows: -inf beyond the global edges only,
+the neighbours' real rows everywhere else.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from nerf_rpn_tpu_torch.parallel import space
 
 
 class _MaxPool3dIndexPut(torch.autograd.Function):
@@ -44,7 +50,7 @@ class _MaxPool3dIndexPut(torch.autograd.Function):
         return gx.view(ctx.in_shape), None, None, None, None
 
 
-def _pool(x: torch.Tensor, kernel: int, stride: int, padding: int,
+def _pool(x: torch.Tensor, kernel: int, stride: int, padding,
           ceil_mode: bool) -> torch.Tensor:
     x = x.permute(0, 4, 1, 2, 3)
     if x.is_cuda and x.requires_grad and torch.are_deterministic_algorithms_enabled():
@@ -68,3 +74,16 @@ def max_pool_3x3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
 
 
 stem_pool = max_pool_3x3x3_s2_p1
+
+
+def max_pool_slab(x: torch.Tensor, src: "space.Slab", dst: "space.Slab", kernel: int,
+                  stride: int, padding: int) -> torch.Tensor:
+    """A ``kernel``^3 max pool of stride ``stride`` and -inf ``padding`` from
+    the input slabs ``src`` into the output slabs ``dst`` (of the pool's
+    global output extent).  Every rank of the space group calls it."""
+    x = space.reshard_x(x, src, space.window_rows(src, dst, kernel, stride, padding),
+                        fill=float("-inf"))
+    if dst.rows == 0:
+        yz = [(n + 2 * padding - kernel) // stride + 1 for n in x.shape[2:4]]
+        return space.keep_graph_empty((x.shape[0], 0, *yz, x.shape[-1]), x)
+    return _pool(x, kernel, stride, (0, padding, padding), False)

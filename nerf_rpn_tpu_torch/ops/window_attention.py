@@ -145,13 +145,16 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     """(W, 64, 3C) qkv, (H, 64, 64) bias, (nW, 64, 64) mask or None ->
     (W, 64, C) in the qkv dtype, heads in lane order.
 
-    CPU tensors take the plain twin; CUDA tensors launch kernel K1 or raise.
+    CPU tensors take the plain twin; CUDA tensors launch kernel K1 or raise;
+    no windows (a slab of the space axis that holds none) launch nothing.
     """
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, bias, mask, num_heads)
     w, c, nw, bias, mask = _kernel_args(qkv, bias, mask, num_heads)
     d = c // num_heads
     _check_vector_width(d, qkv.dtype)
+    if w == 0:
+        return qkv.new_empty((0, qkv.shape[1], c))
     qkv = qkv.contiguous()
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on a 16-byte boundary")
@@ -331,14 +334,15 @@ def fused_window_attention_reference(q, k, v, bias, mask_table, pattern_ids):
     ``mask_table[pattern_ids[w]]`` and the softmax in f32, P kept in f32,
     the output cast to the input dtype.  Returns (W, H, 64, D)."""
     _check_k4(q, k, v, bias, mask_table, pattern_ids)
+    acc = torch.promote_types(q.dtype, torch.float32)  # f64 input computes in f64
     scale = q.shape[-1] ** -0.5
-    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    s = s + bias.float()[None]
-    s = s + mask_table.float()[pattern_ids.long()][:, None]
+    s = torch.matmul(q.to(acc) * scale, k.to(acc).transpose(-1, -2))
+    s = s + bias.to(acc)[None]
+    s = s + mask_table.to(acc)[pattern_ids.long()][:, None]
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = e / e.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    return torch.matmul(p, v.to(acc)).to(q.dtype)
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -349,7 +353,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The result is a (W, H, 64, D) view of a (W, 64, H, D) tensor, so that
     ``out.transpose(1, 2).reshape(W, 64, H * D)`` makes no copy.  CPU
-    tensors take the plain twin; CUDA tensors launch kernel K4 or raise.
+    tensors take the plain twin; CUDA tensors launch kernel K4 or raise; no
+    windows (a slab of the space axis that holds none) launch nothing.
     """
     if q.device.type == "cpu":
         return fused_window_attention_reference(q, k, v, bias, mask_table, pattern_ids)
@@ -363,6 +368,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head width {d} > {MAX_HEAD_DIM}")
     _check_vector_width(d, q.dtype)
+    if w == 0:
+        return q.new_empty((0, N_TOKENS, h, d)).transpose(1, 2)
     vec = 16 // q.element_size()
     for t in (q, k, v):
         if t.device != q.device or t.stride(-1) != 1:

@@ -23,6 +23,17 @@ prepared, and one coalesced all-reduce after the backward serves the three
 steps alike.  Every helper is a no-op without a process group or at world
 1, so a one-process run computes what it computed without this module.
 
+Under an ``n_data x n_space`` layout (``parallel/space.py``, the JAX
+mesh's ``space`` axis) every rank of a space group computes the same loss
+from its group's gathered head outputs, so the loss normalisers and the
+logged terms are summed over the rank's data group only
+(:func:`all_reduce_sum`; a world sum would count each scene ``n_space``
+times), while BatchNorm moments (each slab row once) and the gradients
+(each rank's slab's share) are summed over the world.  The sampling and
+drop-path seeds follow the data group (:func:`seed_for_rank`), so a space
+group draws alike.  :func:`set_layout` records the layout; without one
+the data group is the world.
+
 Evaluation is scene parallel, as the JAX drivers evaluate a batch over a
 mesh of their devices (``make_mesh_for_batch``, ``mesh.py:112-139``): an
 eval batch of m scenes goes to the first n ranks, n the largest count that
@@ -87,6 +98,25 @@ def rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+# the ``n_data x n_space`` layout of ``parallel/space.make_groups``, or None
+_LAYOUT = None
+
+
+def set_layout(layout) -> None:
+    """Records a ``space.SpaceGroups`` layout (None: no space axis)."""
+    global _LAYOUT
+    _LAYOUT = layout
+
+
+def data_world() -> int:
+    """The ranks of this rank's data group: the world without a layout."""
+    return _LAYOUT.n_data if _LAYOUT is not None else world()
+
+
+def data_rank() -> int:
+    return _LAYOUT.data_index if _LAYOUT is not None else rank()
+
+
 def is_main() -> bool:
     return rank() == 0
 
@@ -100,20 +130,21 @@ def barrier() -> None:
 
 
 def seed_for_rank(seed: int) -> int:
-    """Rank r's seed for its sampling and drop-path generators: rank 0 keeps
-    ``seed``'s streams, the other ranks draw streams of their own."""
-    return seed + 1_000_003 * rank()
+    """Rank r's seed for its sampling and drop-path generators: data group 0
+    keeps ``seed``'s streams, the other data groups draw streams of their
+    own; the ranks of a space group draw alike."""
+    return seed + 1_000_003 * data_rank()
 
 
 def all_reduce_sum(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The sums over the ranks of detached tensors (counts, loss terms,
-    metrics), in one collective; each keeps its shape and dtype (the sum
-    runs in f64, exact for counts).  At world 1 the tensors come back as
-    given."""
-    if world() == 1:
+    """The sums over the data group's ranks of detached tensors (counts,
+    loss terms, metrics), in one collective; each keeps its shape and dtype
+    (the sum runs in f64, exact for counts).  In a data group of one the
+    tensors come back as given."""
+    if data_world() == 1:
         return tensors
     flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_LAYOUT.data_group if _LAYOUT is not None else None)
     out = flat.split([t.numel() for t in tensors])
     return tuple(o.reshape(t.shape).to(t.dtype) for o, t in zip(out, tensors))
 
@@ -251,37 +282,56 @@ def free_port() -> int:
 
 
 def run_in_group(fn, fn_args, rank: int, world: int, device: torch.device, backend: str,
-                 init_method: str):
+                 init_method: str, n_space: int = 1):
     """``fn(*fn_args)`` as rank ``rank`` of ``world`` on ``device`` (``cuda``
-    alone: the current CUDA device); the group is destroyed after it,
+    alone: the current CUDA device); with ``n_space`` > 1 in the layout
+    ``world / n_space x n_space`` (``space.make_groups``, which ``fn`` reads
+    back with ``space_groups()``).  The group is destroyed after it,
     whatever it raised."""
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=TIMEOUT)
     try:
+        if n_space > 1:
+            from nerf_rpn_tpu_torch.parallel import space
+
+            space.make_groups(world // n_space, n_space)
         return fn(*fn_args)
     finally:
+        set_layout(None)
         dist.destroy_process_group()
 
 
-def _spawned(index, fn, fn_args, devices, backend, init_method):
-    run_in_group(fn, fn_args, index, len(devices), devices[index], backend, init_method)
+def space_groups():
+    """The layout that ``run_in_group`` made, or None."""
+    return _LAYOUT
 
 
-def launch(fn, fn_args, devices, backend: str, init_method: str | None = None):
+def _spawned(index, fn, fn_args, devices, backend, init_method, n_space):
+    run_in_group(fn, fn_args, index, len(devices), devices[index], backend, init_method,
+                 n_space)
+
+
+def launch(fn, fn_args, devices, backend: str, init_method: str | None = None,
+           n_space: int = 1):
     """``fn(*fn_args)`` on one rank a device of ``devices`` (rank r on
     ``devices[r]``), with ``backend`` (``"nccl"``, or ``"gloo"``, which also
-    carries CUDA tensors for all-reduce and broadcast) and a TCP rendezvous
-    at a free port unless ``init_method`` says otherwise.  One device: in
-    this process, returning ``fn``'s result; more: spawned processes, which
+    carries CUDA tensors for all-reduce, all-gather and broadcast) and a TCP
+    rendezvous at a free port unless ``init_method`` says otherwise; with
+    ``n_space`` > 1 the ranks form ``len(devices) / n_space x n_space``
+    data and space groups (``parallel/space.py``).  One device: in this
+    process, returning ``fn``'s result; more: spawned processes, which
     leave their results where ``fn`` writes them, and None here.  A rank
     that raises makes this raise."""
     init_method = init_method or f"tcp://127.0.0.1:{free_port()}"
+    if len(devices) % n_space:
+        raise ValueError(f"{len(devices)} ranks do not form space groups of {n_space}")
     if len(devices) == 1:
         return run_in_group(fn, fn_args, 0, 1, devices[0], backend, init_method)
-    torch.multiprocessing.spawn(_spawned, args=(fn, fn_args, devices, backend, init_method),
-                                nprocs=len(devices), join=True)
+    torch.multiprocessing.spawn(
+        _spawned, args=(fn, fn_args, devices, backend, init_method, n_space),
+        nprocs=len(devices), join=True)
     return None
 
 

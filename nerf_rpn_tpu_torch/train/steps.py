@@ -32,6 +32,14 @@ the positives beyond the loss's gather capacity (``models/fcos.py``).
 ``eval_step.forward`` gives the flattened (B, L, .) head outputs and the
 voxel scores, ``eval_step.propose`` the proposals.
 
+The anchor-RPN steps also run on the ``space`` axis (``space=`` a
+``parallel/space.SpaceGroups``; ``space.shard_batch`` splits the batch):
+each rank's grids are its data group's scenes, its slab of their x
+extent; the model runs on the slabs, each level's head outputs are
+gathered over the space group (``space.gather_x``), and the eval step
+proposes on every rank of the group (the replicated result of GSPMD's
+all-gather), the train step takes the losses on the gathered outputs.
+
 Under a process group (``parallel/ddp.py``) each rank runs a train step on
 its share of the global batch: the losses divide by the global batch's
 normalisers, the gradients are summed over the ranks before the clip, the
@@ -68,6 +76,7 @@ from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
 from nerf_rpn_tpu_torch.models.rpn import RPNConfig
 from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
 from nerf_rpn_tpu_torch.parallel import ddp
+from nerf_rpn_tpu_torch.parallel import space as sp
 from nerf_rpn_tpu_torch.train.state import global_norm
 
 
@@ -109,11 +118,24 @@ def _level_tables(model, cfg: RPNConfig, mesh_shape, strides):
     return shapes, anchors_np, level_strides, counts
 
 
+def _slab_forward(model, grids, generator, groups):
+    """The model on this rank's slab of the grids (``groups``: the space
+    layout), each level's head outputs gathered over the space group; the
+    levels' slabs too."""
+    src = sp.input_slab(groups, grids.shape[1] * groups.n_space)
+    slabs = model.level_slabs(src)
+    feats, logits, deltas = model(grids, generator, src)
+    return (feats, [sp.gather_x(t, sl) for t, sl in zip(logits, slabs)],
+            [sp.gather_x(t, sl) for t, sl in zip(deltas, slabs)], slabs)
+
+
 def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                         strides: Sequence[int] = (4, 8, 16, 32),
-                        device: torch.device | str = "cpu"):
+                        device: torch.device | str = "cpu", space=None):
     """Returns ``train_step(state, batch, generator, drop_generator,
-    indices=None) -> metrics``.
+    indices=None) -> metrics``.  ``space``: the ``SpaceGroups`` of the
+    space axis, ``batch`` then this rank's part (``space.shard_batch``);
+    every rank of a space group must draw its generators alike.
 
     ``batch``: device tensors ``grids`` (B, X, Y, Z, 4), ``ori_sizes``
     (B, 3), ``gt_boxes`` (B, G, ``cfg.box_dim``): AABBs, or OBBs with
@@ -136,7 +158,10 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
         b = grids.shape[0]
         padding = rpn_lib.dynamic_padding_masks(
             shapes, level_strides, anchors_per_loc, batch["ori_sizes"])
-        _, logits, deltas = model(grids, drop_generator)
+        if space is None:
+            _, logits, deltas = model(grids, drop_generator)
+        else:
+            _, logits, deltas, _ = _slab_forward(model, grids, drop_generator, space)
         obj = torch.cat([l.reshape(b, -1) for l in logits[:n_levels]], dim=1)
         # deltas stay in the head's native per-level layout; the loss
         # gathers its K sampled rows level by level
@@ -158,10 +183,14 @@ def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
 
 def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
                        strides: Sequence[int] = (4, 8, 16, 32),
-                       device: torch.device | str = "cpu", return_features: bool = False):
+                       device: torch.device | str = "cpu", return_features: bool = False,
+                       space=None):
     """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict,
     with boxes (B, K, ``cfg.box_dim``); with ``return_features`` also the
-    FPN levels in f32 under ``features`` (``run_rpn --save_results``)."""
+    FPN levels in f32 under ``features`` (``run_rpn --save_results``).
+    ``space``: the ``SpaceGroups`` of the space axis; ``grids`` is then
+    this rank's slab (``space.shard_grid``) and every rank of the space
+    group returns its scenes' whole result (the features gathered too)."""
     shapes, anchors_np, level_strides, counts = _level_tables(
         model, cfg, mesh_shape, strides)
     anchors_per_loc = model.num_anchors
@@ -177,7 +206,12 @@ def make_rpn_eval_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
     @torch.inference_mode()
     def forward(grids: torch.Tensor):
         model.eval()
-        feats, logits, deltas = model(grids)
+        if space is None:
+            feats, logits, deltas = model(grids)
+        else:
+            feats, logits, deltas, slabs = _slab_forward(model, grids, None, space)
+            if return_features:
+                feats = [sp.gather_x(f, sl) for f, sl in zip(feats, slabs)]
         b = grids.shape[0]
         obj_l = [l.reshape(b, -1) for l in logits[:n_levels]]
         # deltas stay in the head's voxel-major (B, V, A*D) layout; the

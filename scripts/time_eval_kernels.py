@@ -24,7 +24,10 @@ launches per stage.
 Inputs come from a fixed seed per row, so two trees get the same inputs:
 to compare a parent commit, unpack it with ``git archive`` into a directory
 that ``.gitignore`` lists and run both in turns (parent, this, this,
-parent) in one chip call.
+parent) in one chip call.  ``--dump DIR`` writes each row's kernel output
+to DIR; ``--against DIR`` reads another tree's dump and adds to each row
+whether the output equals it bit for bit (``bit_equal``; the summary's
+``all_bit_equal``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,12 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=str(ROOT))
     p.add_argument("--label", default="")
+    p.add_argument("--dump", default="", help="write each row's output to this directory")
+    p.add_argument("--against", default="",
+                   help="a --dump directory of another tree to compare with bit for bit")
     args = p.parse_args(argv)
+    if args.dump:
+        Path(args.dump).mkdir(parents=True, exist_ok=True)
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
 
@@ -63,7 +71,7 @@ def main(argv=None) -> dict:
     kernels.build_all()
 
     rows = []
-    for stage, (name, size, _, c) in enumerate(cs.EVAL_STAGES):
+    for stage, (name, size, _, c, _) in enumerate(cs.EVAL_STAGES):
         pad = tuple(-(-s // 4) * 4 for s in size)
         tokens, hd = math.prod(size), 4 * c
         for dtype in (torch.bfloat16, torch.float32):
@@ -99,6 +107,11 @@ def main(argv=None) -> dict:
                            plain_ms=cs.time_one(torch, lambda: twin(*a)),
                            **cs.bound(moved, ops, cs.dtype_name(dtype)),
                            max_abs_err=err, ok=ok)
+                tag = f"{kern}_{stage}_{cs.dtype_name(dtype)}.pt"
+                if args.dump:
+                    torch.save(out.cpu(), Path(args.dump, tag))
+                if args.against:
+                    row["bit_equal"] = torch.equal(out.cpu(), torch.load(Path(args.against, tag)))
                 if kern == "K5" and hasattr(k5, "ln_qkv_plan"):
                     n_win = out.shape[0]
                     plan = k5.ln_qkv_plan(n_win, c, dtype)
@@ -120,6 +133,8 @@ def main(argv=None) -> dict:
                    k5_scene_f32_ms=scene("K5", "float32"),
                    k6_scene_f32_ms=scene("K6", "float32"),
                    all_ok=all(r["ok"] for r in rows))
+    if args.against:
+        summary["all_bit_equal"] = all(r["bit_equal"] for r in rows)
     print("[summary]", json.dumps(summary), flush=True)
     return summary
 

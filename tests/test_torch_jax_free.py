@@ -53,7 +53,7 @@ for mod in pkgutil.walk_packages(nerf_rpn_tpu_torch.__path__, "nerf_rpn_tpu_torc
     importlib.import_module(mod.name)
 for name in ("native", "datatools.nerf_features", "datatools.scannet_boxes",
              "datatools.hypersim_boxes", "datatools.prepare_scannet", "utils.debug",
-             "utils.profiling"):
+             "utils.profiling", "parallel.space"):
     assert "nerf_rpn_tpu_torch." + name in sys.modules, name
 
 # a datatools CLI as ``python -m`` runs it
@@ -219,7 +219,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 "tools/proposals2ngp.py", "tools/render_heatmap.py", "tools/visualize_bbox.py",
                 "tools/visualize_rpn_input.py", "native/__init__.py", "datatools/nerf_features.py",
                 "datatools/scannet_boxes.py", "datatools/hypersim_boxes.py",
-                "datatools/prepare_scannet.py", "utils/debug.py", "utils/profiling.py"):
+                "datatools/prepare_scannet.py", "utils/debug.py", "utils/profiling.py",
+                "parallel/space.py"):
         assert f"nerf_rpn_tpu_torch/{new}" in names, new
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BLOCKED]

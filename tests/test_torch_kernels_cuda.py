@@ -16,7 +16,12 @@ import torch
 
 from nerf_rpn_tpu_torch import kernels
 from nerf_rpn_tpu_torch.models.swin import shift_attn_mask, shift_mask_patterns
-from nerf_rpn_tpu_torch.ops.fused_ln_qkv import ln_partition_qkv, ln_partition_qkv_reference
+from nerf_rpn_tpu_torch.ops.fused_ln_qkv import (
+    XSlab,
+    ln_partition_qkv,
+    ln_partition_qkv_reference,
+    rank_slab,
+)
 from nerf_rpn_tpu_torch.ops.fused_mlp import (
     Plan,
     fused_mlp_block,
@@ -560,6 +565,40 @@ def test_ln_partition_qkv_weight_view_matches_contiguous(cuda, dtype):
                        ln_partition_qkv(x, s, t, w.contiguous(), bias, *args))
 
 
+# K5's slab form (the space axis): each rank's window columns of a space
+# group of 2 or 3, shifted (the last rank's slab holds the global pad rows
+# between real rows and the wrapped rows; their NaN contents must never be
+# read) and not; the kernel against its twin and against the whole-grid
+# kernel's windows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size,c,n_space", [((13, 13, 9), 384, 2),   # the bench's stage 2
+                                            ((52, 52, 36), 96, 2),   # stage 0
+                                            ((17, 8, 6), 96, 3)])
+@pytest.mark.parametrize("shift", [(0, 0, 0), (2, 2, 2)])
+def test_ln_partition_qkv_kernel_slab_matches_twin(cuda, size, c, n_space, shift, dtype):
+    from nerf_rpn_tpu_torch.parallel.space import window_bounds
+
+    x = torch.randn((1, *size, c), generator=torch.Generator(cuda).manual_seed(12),
+                    device=cuda).to(dtype)
+    s, t, _, bias = _ln_qkv_inputs(c, dtype, cuda)
+    w = _linear_weight_view(c, dtype, cuda)
+    pad = tuple(-(-q // 4) * 4 for q in size)
+    whole = ln_partition_qkv(x, s, t, w, bias, (4, 4, 4), pad, shift)
+    full = XSlab(0, size[0], 0, pad[0] // 4)
+    assert torch.equal(ln_partition_qkv(x, s, t, w, bias, (4, 4, 4), pad, shift, full), whole)
+    n_yz = (pad[1] // 4) * (pad[2] // 4)
+    for cols in window_bounds(size[0], 4, n_space)[1]:
+        xs, slab = rank_slab(x, (4, 4, 4), pad, shift, cols)
+        before = kernels.counts()["ln_partition_qkv"]
+        got = ln_partition_qkv(xs, s, t, w, bias, (4, 4, 4), pad, shift, slab)
+        torch.cuda.synchronize()
+        assert kernels.counts()["ln_partition_qkv"] == before + (cols[1] > cols[0])
+        check_close(got, ln_partition_qkv_reference(xs, s, t, w, bias, (4, 4, 4), pad, shift,
+                                                    slab), dtype)
+        mine = whole.view(pad[0] // 4, n_yz, *whole.shape[1:])[cols[0]:cols[1]]
+        check_close(got, mine.reshape(got.shape), dtype)
+
+
 def test_ln_partition_qkv_entry_rejects_plans_it_does_not_take(cuda):
     c = 160
     x = torch.zeros((1, 4, 4, 4, c), device=cuda)
@@ -570,7 +609,7 @@ def test_ln_partition_qkv_entry_rejects_plans_it_does_not_take(cuda):
     def launch(rows, cols, k_chunk, group):
         kernels.launch("ln_partition_qkv", x.data_ptr(), s.data_ptr(), s.data_ptr(),
                        w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 4, 4, 4, c,
-                       4, 4, 4, 0, 0, 0, 4, 4, 4, rows, cols, k_chunk, group,
+                       4, 4, 4, 0, 0, 0, 4, 4, 4, 0, 4, 0, 1, rows, cols, k_chunk, group,
                        kernels.DTYPE_CODES[torch.float32],
                        torch.cuda.current_stream(cuda).cuda_stream)
 
