@@ -238,6 +238,14 @@ nonzero before the result lines:
    its twin and the whole-grid kernel, and its origin-0 call against the
    call without a slab, bit for bit.  Gloo on one card says nothing of
    NCCL across cards.
+33. the space axis on FCOS and the VGG backbone, on the same ranks after
+   phase 32 and by its rules: the FCOS Swin-S eval at 160^3 (random
+   weights, ``test_fcos.sh``'s head flags) in bf16, AABB and OBB, and in
+   f32 (AABB; the proposals within 1e-5 of their scale), phase 25's FCOS
+   OBB train step with both scenes split along x, and the ``vgg_AF``
+   anchor-RPN eval at 208x208x144 in bf16 (AABB), each against the same
+   case in one process; each rank's launches asserted; peak GiB, ms and
+   the exchanges (the GroupNorms' all-reduces apart).
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -255,7 +263,8 @@ eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
 fine-tune and features paths, phase 25's ``--gpus 0`` paths, phase 26's
 evals from each format and phase 27's evals, on the ranks and in one
 process, phase 29's native OBB train epoch, phase 30's eval of the
-extracted scene and phase 32's evals and train step on each rank) runs
+extracted scene and phases 32's and 33's evals and train steps on each
+rank) runs
 with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
@@ -333,10 +342,14 @@ def time_one(torch, fn, reps=20, warmup=3):
     overhead between calls does not count (it does for a ``fn`` that
     synchronises)."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    host_ms = []
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
-    launch_ms = (time.perf_counter() - t0) * 1e3 / warmup
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    # the sleep covers the steady calls' host time: a first call's one-time
+    # costs (allocations, lazy set-up) would stretch it by seconds
+    launch_ms = max(host_ms[1:] or host_ms)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1667,11 +1680,11 @@ def _cnn_pair(torch, dev, backbone, seed, x):
     return cpu, gpu.to(dev)
 
 
-def same_proposal_sets(np, want, got, box_tol):
+def same_proposal_sets(np, want, got, box_tol, score_tol=1e-6):
     """The worst box error between two propose outputs that keep the same
-    proposals, or None.  Rows match by level, score (within 1e-6) and box
-    (within ``box_tol``): two scores within an ulp of each other -- one
-    device's sigmoid may tie what the other's separates -- may trade
+    proposals, or None.  Rows match by level, score (within ``score_tol``)
+    and box (within ``box_tol``): two scores within an ulp of each other --
+    one device's sigmoid may tie what the other's separates -- may trade
     places, so the rows are compared as sets, each matched once."""
     worst = 0.0
     for b in range(want["valid"].shape[0]):
@@ -1685,7 +1698,7 @@ def same_proposal_sets(np, want, got, box_tol):
         free = np.ones(len(gl), bool)
         for i in range(len(wl)):
             err = np.abs(g[1] - w[1][i]).max(axis=1)
-            ok = free & (gl == wl[i]) & (np.abs(g[0] - w[0][i]) <= 1e-6) & (err <= box_tol)
+            ok = free & (gl == wl[i]) & (np.abs(g[0] - w[0][i]) <= score_tol) & (err <= box_tol)
             if not ok.any():
                 return None
             j = int(np.flatnonzero(ok)[np.argmin(err[ok])])
@@ -2687,8 +2700,8 @@ def _ddp_case(torch, name, dev):
             model = FCOSOverNeRF(backbone, rotated=True, resolution=shape[0])
             sample = None
 
-            def run(model, state, batch, sample):
-                step = make_fcos_train_step(model, cfg, shape, device=dev)
+            def run(model, state, batch, sample, space=None):
+                step = make_fcos_train_step(model, cfg, shape, device=dev, space=space)
                 return step(state, batch, torch.Generator(dev).manual_seed(1))
         else:
             cfg = rpn_lib.RPNConfig(rotated=rotated, reg_loss_weight=5.0)
@@ -2804,11 +2817,13 @@ def _ddp_rank(work, dev):
 
 
 def _paired_ranks(work, cases, dev):
-    """The two ranks of phases 25 (a), 27 and 32, started once: phase 25's
-    steps, phase 27's ``cases``, then phase 32's space axis."""
+    """The two ranks of phases 25 (a), 27, 32 and 33, started once: phase
+    25's steps, phase 27's ``cases``, then phase 32's and phase 33's space
+    axis."""
     _ddp_rank(work, dev)
     _eval_split_rank(os.path.join(work, "eval_split"), cases, dev)
     _space_rank(os.path.join(work, "space"), dev)
+    _space_fcos_vgg_rank(os.path.join(work, "space33"), dev)
 
 
 def step_readings(got, got_state, metrics, state, params):
@@ -2845,14 +2860,14 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
     ranks of one scene each on the same card (``ddp.launch``, gloo, which
     carries CUDA tensors; NCCL refuses two ranks on one device).  The
     same two ranks then run phase 27's eval ``cases``, which
-    ``check_eval_split`` reads.  Every
+    ``check_eval_split`` reads, and phases 32 and 33.  Every
     rank must hold rank 0's weights after the broadcast and after the step
     bit for bit, log the same metrics, launch K1 and K2 24 times a Swin
     step (0 a ResNet step), and read within ``DDP_LIMITS`` of the
     reference.  Prints the Swin-S RPN's gradient all-reduce ms after
-    ``card`` (the ``nvidia-smi`` name and power limit); returns the Swin-S
-    RPN's one-process step ``(metrics, state, params, peak GiB)``, which
-    phase 32 reads."""
+    ``card`` (the ``nvidia-smi`` name and power limit); returns the
+    one-process steps ``(metrics, state, params, peak GiB)`` of the Swin-S
+    RPN and FCOS cases by name, which phases 32 and 33 read."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
@@ -2925,7 +2940,7 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
           f"gradient all-reduce "
           f"({timed[0]['grad_mib']:.1f} MiB f32) {timed[0]['grad_all_reduce_ms']:.2f} ms on "
           f"rank 0, {timed[1]['grad_all_reduce_ms']:.2f} ms on rank 1", flush=True)
-    return refs[DDP_TIMED]
+    return {name: refs[name] for name in (DDP_TIMED, SPACE_FCOS_TRAIN)}
 
 
 # Phase 32: the space axis (``parallel/space.py``) on phase 25's two ranks,
@@ -2940,9 +2955,10 @@ SPACE_BACKBONE = "swin_s"
 SPACE_SIZE = None  # None: the bench scene, run_rpn.BENCH_SHAPE, padded to 16
 
 
-def _space_eval_case(torch, name, dev):
+def _space_eval_case(torch, name, dev, backbone=None):
     """Phase 32's eval ``name``: ``(model, cfg, shape, grids, ori)`` on
-    ``dev``, the same in every process."""
+    ``dev``, the same in every process (``backbone``: another than
+    ``SPACE_BACKBONE``, phase 33's VGG)."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.cli import run_rpn
@@ -2953,7 +2969,7 @@ def _space_eval_case(torch, name, dev):
     dtype = getattr(torch, dtype_name)
     size = SPACE_SIZE or run_rpn.BENCH_SHAPE
     shape = tuple(-(-s // 16) * 16 for s in size)
-    model = NeRFRPN(SPACE_BACKBONE, rotated=rotated, dtype=dtype).to(dev)
+    model = NeRFRPN(backbone or SPACE_BACKBONE, rotated=rotated, dtype=dtype).to(dev)
     init_params(model, torch.Generator(dev).manual_seed(32))
     rng = np.random.default_rng(32)
     grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(dev, dtype)
@@ -3024,11 +3040,11 @@ def space_eval_references(torch, dev):
 
 
 def time_alone(torch, dev, eval_case=None):
-    """Phase 32's one-process times in this process, which the ranks' are
-    read against in turns (before and after them): the bf16 AABB eval's
-    ms a scene (``eval_case``: its eval step, grids and sizes, if built),
-    and phase 25's Swin-S OBB RPN train step's ms (two steps after a
-    warm-up one)."""
+    """Phases 32's and 33's one-process times in this process, which the
+    ranks' are read against in turns (before and after them): the bf16
+    AABB eval's ms a scene (``eval_case``: its eval step, grids and sizes,
+    if built), and phase 25's Swin-S OBB RPN and FCOS train steps' ms (two
+    steps after a warm-up one)."""
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
 
@@ -3040,12 +3056,13 @@ def time_alone(torch, dev, eval_case=None):
     step(grids, ori)
     out = {"eval_ms": _ms(torch, lambda: step(grids, ori), SPACE_REPS)}
     del eval_case, step, grids
-    model, batch, sample, run = _ddp_case(torch, DDP_TIMED, dev)
-    state = TrainState(model, DDP_LR, 10)
-    run(model, state, batch, sample)
-    out["train_ms"] = _ms(torch, lambda: run(model, state, batch, sample), 2)
-    del model, batch, state
-    torch.cuda.empty_cache()
+    for key, name in (("train_ms", DDP_TIMED), ("fcos_train_ms", SPACE_FCOS_TRAIN)):
+        model, batch, sample, run = _ddp_case(torch, name, dev)
+        state = TrainState(model, DDP_LR, 10)
+        run(model, state, batch, sample)
+        out[key] = _ms(torch, lambda: run(model, state, batch, sample), 2)
+        del model, batch, state
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3179,6 +3196,68 @@ SPACE_BF16_NOISE = 2.0
 SPACE_BF16_MATCHED = 0.9
 
 
+def _space_eval_row(torch, np, pairs, got, want, dtype, rotated, noise, truth,
+                    box_tol=1e-4, score_tol=1e-6):
+    """One rank's eval case against the one process's by phase 32's rule:
+    ``(readings, whether they hold)``.  ``pairs``: (the rank's, the one
+    process's) host outputs, a level or a head output each; ``got`` /
+    ``want``: the two entries (their ``proposals``); ``truth``: the one
+    process's f32 outputs, from which its bf16 eval sits ``noise``.  f32:
+    the outputs within ``close_enough`` and the proposals the same set
+    (boxes within ``box_tol``, scores within ``score_tol``) with the
+    keep-set equal; bf16: within ``SPACE_BF16_NOISE * noise`` of the one
+    process's outputs and, on AABBs, of ``truth``, ``SPACE_BF16_MATCHED``
+    of its proposals kept."""
+    row = {"max_abs_err": max((g.float() - w.float()).abs().max().item() for g, w in pairs),
+           "max_rel_err": max(level_rel(g, w) for g, w in pairs),
+           "kept": int(want["proposals"]["valid"].sum()),
+           "keep_set_equal": torch.equal(got["proposals"]["valid"],
+                                         want["proposals"]["valid"])}
+    if dtype == torch.float32:
+        row["close"] = all(close_enough(torch, g, w, dtype)[1] for g, w in pairs)
+        row["proposal_box_err"] = same_proposal_sets(np, want["proposals"], got["proposals"],
+                                                     box_tol, score_tol)
+        return row, (row["close"] and row["proposal_box_err"] is not None
+                     and row["keep_set_equal"])
+    row["ulps"] = max(level_ulps(torch, g, w) for g, w in pairs)
+    row["matched"] = matched_proposals(np, want["proposals"], got["proposals"], 1.0, 2e-2)
+    ok = row["max_rel_err"] <= SPACE_BF16_NOISE * noise and row["matched"] >= SPACE_BF16_MATCHED
+    if not rotated:  # the split against the f32 eval
+        row["rel_err_to_f32"] = max(level_rel(g, t) for (g, _), t in zip(pairs, truth))
+        ok = ok and row["rel_err_to_f32"] <= SPACE_BF16_NOISE * noise
+    return row, ok
+
+
+def _space_train_check(torch, np, train, ref, one_process_ms, case, card, tag):
+    """A train step on the ranks (``train``: each rank's entry) against
+    phase 25's one process (``ref``: metrics, state, parameter names, peak
+    GiB): the readings within ``DDP_LIMITS``, the ranks bit-equal, K1 and
+    K2 24 a rank.  Prints the row after ``tag``; returns ``(launches by
+    path, failures)``."""
+    metrics, state, params, peak = ref
+    read, flips = step_readings(train[0]["metrics"], train[0]["state"], metrics, state, params)
+    row = {"case": case, "readings": read, "limits": DDP_LIMITS["float32"],
+           "flipped_steps": flips, "ranks_equal": [t["ranks_equal"] for t in train],
+           "one_process_peak_gib": peak, "rank_peak_gib": [t["peak_gib"] for t in train],
+           "launches_per_rank": [{k: v for k, v in t["launches"].items() if v} for t in train],
+           "ms": train[0]["ms"], "one_process_ms": one_process_ms,
+           "exchanges": train[0]["exchanges"]}
+    print(f"[{tag}] {card}:", json.dumps(row), flush=True)
+    paths, bad = {}, []
+    for r, t in enumerate(train):
+        paths[f"{tag} rank {r}"] = t["launches"]
+        if {k: v for k, v in t["launches"].items() if v} != {"window_attention_fwd": 24,
+                                                             "window_attention_bwd": 24}:
+            bad.append(f"{case} rank {r}: launches {t['launches']}, K1 24 and K2 24 expected")
+    if not all(t["ranks_equal"] for t in train) or train[0]["metrics"] != train[1]["metrics"]:
+        bad.append(f"{case}: the ranks differ after the step")
+    if train[0]["metrics"].get("dropped_positives") != metrics.get("dropped_positives"):
+        bad.append(f"{case}: dropped_positives differs from the one process's")
+    bad += [f"{case}: {k} {v} over its limit {DDP_LIMITS['float32'][k]}"
+            for k, v in read.items() if not (np.isfinite(v) and v <= DDP_LIMITS["float32"][k])]
+    return paths, bad
+
+
 def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
     """Phase 32's checks of the ranks' results (``_space_rank``) against
     the one process's: f32, the level outputs within ``close_enough`` (1e-5
@@ -3212,29 +3291,9 @@ def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
             pairs = [(g, w) for part in ("obj", "dl") for g, w in zip(got[part], want[part])]
             launches = {k: v for k, v in got["launches"].items() if v}
             paths[f"space eval {name} rank {r}"] = got["launches"]
-            row = {"case": name, "rank": r,
-                   "level_max_abs_err": max((g.float() - w.float()).abs().max().item()
-                                            for g, w in pairs),
-                   "level_max_rel_err": max(level_rel(g, w) for g, w in pairs),
-                   "kept": int(want["proposals"]["valid"].sum()),
-                   "keep_set_equal": torch.equal(got["proposals"]["valid"],
-                                                 want["proposals"]["valid"]),
-                   "launches": launches, "peak_gib": got["peak_gib"]}
-            if dtype == torch.float32:
-                row["levels_close"] = all(close_enough(torch, g, w, dtype)[1] for g, w in pairs)
-                row["proposal_box_err"] = same_proposal_sets(
-                    np, want["proposals"], got["proposals"], 1e-4)
-                ok = (row["levels_close"] and row["proposal_box_err"] is not None
-                      and row["keep_set_equal"])
-            else:
-                row["level_ulps"] = max(level_ulps(torch, g, w) for g, w in pairs)
-                row["matched"] = matched_proposals(np, want["proposals"], got["proposals"],
-                                                   1.0, 2e-2)
-                ok = (row["level_max_rel_err"] <= SPACE_BF16_NOISE * noise
-                      and row["matched"] >= SPACE_BF16_MATCHED)
-                if not rotated:  # the split against the f32 eval
-                    row["rel_err_to_f32"] = max(level_rel(g, t) for (g, _), t in zip(pairs, f32))
-                    ok = ok and row["rel_err_to_f32"] <= SPACE_BF16_NOISE * noise
+            row, ok = _space_eval_row(torch, np, pairs, got, want, dtype, rotated, noise, f32)
+            row = {"case": name, "rank": r, **row, "launches": launches,
+                   "peak_gib": got["peak_gib"]}
             if name == SPACE_TIMED:
                 row.update(ms=got["ms"], exchanges=got["exchanges"],
                            one_process_ms=[a["eval_ms"] for a in alone],
@@ -3246,29 +3305,273 @@ def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
             if launches != {k: int(v) for k, v in per_scene.items() if v}:
                 bad.append(f"eval {name} rank {r}: launches {launches}, one scene's "
                            f"{per_scene}")
-    metrics, state, params, peak = train_ref
-    train = [rank["train"] for rank in ranks]
-    read, flips = step_readings(train[0]["metrics"], train[0]["state"], metrics, state, params)
-    row = {"case": DDP_TIMED, "readings": read, "limits": DDP_LIMITS["float32"],
-           "flipped_steps": flips, "ranks_equal": [t["ranks_equal"] for t in train],
-           "one_process_peak_gib": peak, "rank_peak_gib": [t["peak_gib"] for t in train],
-           "launches_per_rank": [{k: v for k, v in t["launches"].items() if v} for t in train],
-           "ms": train[0]["ms"], "one_process_ms": [a["train_ms"] for a in alone],
-           "exchanges": train[0]["exchanges"]}
-    print(f"[space axis train step] {card}:", json.dumps(row), flush=True)
-    for r, t in enumerate(train):
-        paths[f"space train rank {r}"] = t["launches"]
-        if {k: v for k, v in t["launches"].items() if v} != {"window_attention_fwd": 24,
-                                                             "window_attention_bwd": 24}:
-            bad.append(f"train rank {r}: launches {t['launches']}, K1 24 and K2 24 expected")
-    if not all(t["ranks_equal"] for t in train) or train[0]["metrics"] != train[1]["metrics"]:
-        bad.append("train: the ranks differ after the step")
-    bad += [f"train: {k} {v} over its limit {DDP_LIMITS['float32'][k]}" for k, v in read.items()
-            if not (np.isfinite(v) and v <= DDP_LIMITS["float32"][k])]
+    train_paths, train_bad = _space_train_check(
+        torch, np, [rank["train"] for rank in ranks], train_ref[DDP_TIMED],
+        [a["train_ms"] for a in alone], DDP_TIMED, card, "space axis train step")
+    paths.update(train_paths)
+    bad += train_bad
     print(f"[space axis] the ranks' part: {ranks[0]['seconds']:.1f} s (gloo on one card: "
           "says nothing of NCCL across cards)", flush=True)
     if bad:
         fail("space axis: " + "; ".join(bad))
+    return paths
+
+
+# Phase 33: the space axis on FCOS and on the VGG backbone, on phase 25's
+# two ranks after phase 32, by phase 32's rules.  The FCOS evals of
+# ``run_fcos --mode benchmark`` (Swin-S, 160^3, ``test_fcos.sh``'s head
+# flags, random weights from seed 33) in bf16, AABB and OBB, and in f32 with
+# TF32 off (AABB), the bf16 AABB eval timed; phase 25's Swin-S FCOS OBB train
+# step with both scenes split along x, against phase 25's one process; and
+# the ``vgg_AF`` anchor-RPN eval at the bench scene (PERF.md's CNN eval
+# cell) in bf16, AABB, against the one process's bf16 and f32 evals.
+SPACE_FCOS_EVALS = {"fcos bf16 aabb": ("bfloat16", False), "fcos bf16 obb": ("bfloat16", True),
+                    "fcos f32 aabb": ("float32", False)}
+SPACE_FCOS_TIMED = "fcos bf16 aabb"
+SPACE_FCOS_TRAIN = "swin_s fcos obb"
+SPACE_VGG = "vgg_AF"
+# the one process's VGG evals: the bf16 case the ranks run, and its f32
+# twin, which sets the bf16 rule's noise
+SPACE_VGG_EVALS = {"vgg bf16 aabb": ("bfloat16", False), "vgg f32 aabb": ("float32", False)}
+SPACE_VGG_RANKED = "vgg bf16 aabb"
+SPACE_FCOS_BACKBONE = "swin_s"
+SPACE_FCOS_SIZE = None  # None: run_fcos.BENCH_SHAPE
+
+
+def _space_fcos_case(torch, name, dev):
+    """Phase 33's FCOS eval ``name``: ``(model, cfg, shape, grids, ori)`` on
+    ``dev``, the same in every process."""
+    import numpy as np
+
+    from nerf_rpn_tpu_torch.cli import run_fcos
+    from nerf_rpn_tpu_torch.models.fcos import FCOSConfig
+    from nerf_rpn_tpu_torch.models.nerf_rpn import FCOSOverNeRF, init_params
+
+    dtype_name, rotated = SPACE_FCOS_EVALS[name]
+    args = run_fcos.parse_args(["--mode", "benchmark", "--backbone_type", SPACE_FCOS_BACKBONE,
+                                *FCOS_FLAGS, *(["--rotated_bbox"] if rotated else [])])
+    shape = SPACE_FCOS_SIZE or run_fcos.BENCH_SHAPE
+    model = FCOSOverNeRF(SPACE_FCOS_BACKBONE, args.num_convs, rotated, args.norm_reg_targets,
+                         args.centerness_on_reg, SCALES, getattr(torch, dtype_name),
+                         resolution=shape[0]).to(dev)
+    init_params(model, torch.Generator(dev).manual_seed(33))
+    cfg = FCOSConfig(rotated=rotated, fpn_strides=SCALES, nms_thresh=args.nms_thresh,
+                     pre_nms_top_n=args.pre_nms_top_n,
+                     fpn_post_nms_top_n=args.fpn_post_nms_top_n)
+    rng = np.random.default_rng(33)
+    grids = torch.from_numpy(rng.standard_normal((1, *shape, 4), np.float32)).to(
+        dev, getattr(torch, dtype_name))
+    ori = torch.tensor([shape], dtype=torch.int32, device=dev)
+    return model.eval(), cfg, shape, grids, ori
+
+
+def _fcos_outputs(step, grids, ori):
+    """One FCOS eval scene through ``step``'s parts: the (gathered)
+    flattened cls, reg and ctr and the proposals, on the host."""
+    cls_f, reg_f, ctr_f, _ = step.forward(grids)
+    out = step.propose(cls_f, reg_f, ctr_f, ori)
+    return {"heads": [t.cpu() for t in (cls_f, reg_f, ctr_f)],
+            "proposals": {k: out[k].cpu() for k in ("boxes", "scores", "valid", "level_idx")}}
+
+
+def _space33_steps(torch, dev, groups=None):
+    """Phase 33's eval cases on ``dev``, one at a time: ``(name, kind,
+    step, grids, ori, outputs)`` with ``outputs(step, grids, ori)`` one
+    scene's host outputs; with ``groups`` the space axis' steps and each
+    rank's slab of the grid (the ranks run the FCOS cases and the bf16
+    VGG case)."""
+    from nerf_rpn_tpu_torch.parallel import space as sp
+    from nerf_rpn_tpu_torch.train.steps import make_fcos_eval_step, make_rpn_eval_step
+
+    for name in SPACE_FCOS_EVALS:
+        model, cfg, shape, grids, ori = _space_fcos_case(torch, name, dev)
+        step = make_fcos_eval_step(model, cfg, shape, device=dev, space=groups)
+        yield name, "fcos", step, grids if groups is None else sp.shard_grid(grids, groups), \
+            ori, _fcos_outputs
+        del model, grids, step
+        torch.cuda.empty_cache()
+    for name in SPACE_VGG_EVALS:
+        if groups is not None and name != SPACE_VGG_RANKED:
+            continue
+        model, cfg, shape, grids, ori = _space_eval_case(
+            torch, {"vgg bf16 aabb": "bf16 aabb", "vgg f32 aabb": "f32 aabb"}[name], dev,
+            SPACE_VGG)
+        step = make_rpn_eval_step(model, cfg, shape, device=dev, space=groups)
+        yield name, "rpn", step, grids if groups is None else sp.shard_grid(grids, groups), \
+            ori, _eval_outputs
+        del model, grids, step
+        torch.cuda.empty_cache()
+
+
+def space33_references(torch, dev):
+    """Phase 33's one-process evals in this process, before the ranks
+    start: host outputs by case, each case's peak GiB of one scene after a
+    warm-up one, and the ms a scene of the timed FCOS case and of the VGG
+    case."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for name, _, step, grids, ori, outputs in _space33_steps(torch, dev):
+        outputs(step, grids, ori)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        refs[name] = outputs(step, grids, ori)
+        torch.cuda.synchronize()
+        refs[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name in (SPACE_FCOS_TIMED, SPACE_VGG_RANKED):
+            refs[name]["ms"] = _ms(torch, lambda: step(grids, ori), SPACE_REPS)
+        del step, grids  # before the next case is built
+    return refs
+
+
+def _space_fcos_vgg_rank(work, dev):
+    """A rank of phase 33, in a space group of the two ranks: each FCOS
+    eval and the bf16 VGG eval on its slab (warmed up, then one scene with
+    the launch counts set to 0 just before it and read just after, its peak
+    GiB), the timed cases' ms a scene (over ``SPACE_REPS``) and exchanges
+    a forward; phase 25's Swin-S FCOS OBB train step with both scenes split
+    along x (K1 and K2 launches, peak GiB, whether the ranks' weights are
+    bit-equal after it), its exchanges and ms a step (over two).  Writes
+    ``space33_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+    from nerf_rpn_tpu_torch.parallel import space as sp
+    from nerf_rpn_tpu_torch.train.state import TrainState
+
+    os.makedirs(work, exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    groups = sp.make_groups(1, 2)
+    r, out = ddp.rank(), {"evals": {}}
+    try:
+        for name, _, step, part, ori, outputs in _space33_steps(torch, dev, groups):
+            outputs(step, part, ori)  # warm-up: plans, masks, cuDNN
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            entry = outputs(step, part, ori)
+            torch.cuda.synchronize()
+            entry.update(launches=kernels.counts(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if name in (SPACE_FCOS_TIMED, SPACE_VGG_RANKED):
+                entry["ms"] = _ms(torch, lambda: step(part, ori), SPACE_REPS)
+                entry["exchanges"] = _traced(torch, sp, lambda: step.forward(part))
+            out["evals"][name] = entry
+            del step, part  # before the next case is built
+
+        model, batch, sample, run = _ddp_case(torch, SPACE_FCOS_TRAIN, dev)
+        part = sp.shard_batch(batch, groups)
+        state = TrainState(model, DDP_LR, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        metrics = run(model, state, part, sample, space=groups)
+        torch.cuda.synchronize()
+        train = {"metrics": {k: float(v) for k, v in metrics.items()},
+                 "launches": kernels.counts(),
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        train["ranks_equal"] = bool(torch.equal(flat, ref))
+        if r == 0:
+            train["state"] = {k: v.detach().to("cpu", copy=True)
+                              for k, v in model.state_dict().items()}
+        del flat, ref
+        train["exchanges"] = _traced(torch, sp, lambda: run(model, state, part, sample,
+                                                              space=groups))
+        train["ms"] = _ms(torch, lambda: run(model, state, part, sample, space=groups), 2)
+        out["train"] = train
+        del model, batch, part, state
+        torch.cuda.empty_cache()
+    finally:
+        ddp.set_layout(None)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(work, f"space33_rank{r}.pt"))
+
+
+def _parts(name, entry):
+    """The level outputs of an eval entry that phase 32's rules compare:
+    FCOS's flattened cls, reg and ctr, or the RPN's levels."""
+    if name.startswith("fcos"):
+        return entry["heads"]
+    return [*entry["obj"], *entry["dl"]]
+
+
+def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card=""):
+    """Phase 33's checks of the ranks' results (``_space_fcos_vgg_rank``)
+    against the one process's, by phase 32's rules: f32, the outputs within
+    ``close_enough`` and the proposals the same set (boxes and scores
+    within 1e-5 of their scale, ``close_enough``'s f32 rule) with the
+    keep-set equal; bf16, within ``SPACE_BF16_NOISE`` times the one process's bf16
+    distance from its f32 eval of the one process's outputs (and, on
+    AABBs, of the f32 eval), ``SPACE_BF16_MATCHED`` of its proposals kept;
+    each rank's launches those of one eval scene (FCOS: K5 24, K6 24, K4
+    12, K1 12, resolve 1, K3 1 on AABBs; VGG: K3 1, resolve 1, no Swin
+    kernel); the FCOS train step within phase 25's ``DDP_LIMITS`` of
+    phase 25's one process, the ranks bit-equal, K1 and K2 24 a rank.
+    Prints each reading beside ``card`` with the one process's peak GiB
+    and ms (``alone``: the FCOS train step's, before and after the ranks),
+    and returns the launches by path."""
+    import numpy as np
+
+    ranks = [torch.load(os.path.join(work, "space33", f"space33_rank{r}.pt"),
+                        weights_only=False) for r in (0, 1)]
+    paths, bad = {}, []
+    noise = {}
+    for family, (bf16, f32) in (("fcos", ("fcos bf16 aabb", "fcos f32 aabb")),
+                                ("vgg", ("vgg bf16 aabb", "vgg f32 aabb"))):
+        noise[family] = max(level_rel(w, t) for w, t in zip(_parts(bf16, refs[bf16]),
+                                                             _parts(f32, refs[f32])))
+        print(f"[space axis 33] {card}: the one process's {bf16} eval sits "
+              f"{noise[family]:.4g} of an output's largest magnitude from its f32 eval",
+              flush=True)
+    for name in (*SPACE_FCOS_EVALS, SPACE_VGG_RANKED):
+        want = refs[name]
+        family = name.split()[0]
+        dtype_name, rotated = SPACE_FCOS_EVALS.get(name) or SPACE_VGG_EVALS[name]
+        if family == "vgg":
+            per_scene = CNN_EVAL_LAUNCHES_PER_SCENE
+        else:
+            per_scene = OBB_EVAL_LAUNCHES_PER_SCENE if rotated else EVAL_LAUNCHES_PER_SCENE
+        # f32 proposals by close_enough's f32 rule, 1e-5 of their scale:
+        # the GroupNorms' f32 moments summed in another order move FCOS's
+        # outputs ~5e-6 of their largest, and its boxes are distances times
+        # the level's stride
+        props = want["proposals"]
+        tols = (1e-5 * (1.0 + props["boxes"].abs().max().item()),
+                1e-5 * (1.0 + props["scores"].abs().max().item()))
+        for r, rank in enumerate(ranks):
+            got = rank["evals"][name]
+            launches = {k: v for k, v in got["launches"].items() if v}
+            paths[f"space {name} rank {r}"] = got["launches"]
+            row, ok = _space_eval_row(
+                torch, np, list(zip(_parts(name, got), _parts(name, want))), got, want,
+                getattr(torch, dtype_name), rotated, noise[family],
+                _parts(name, refs[f"{family} f32 aabb"]), *tols)
+            row = {"case": name, "rank": r, **row, "launches": launches,
+                   "peak_gib": got["peak_gib"], "one_process_peak_gib": want["peak_gib"]}
+            if "ms" in got:
+                row.update(ms=got["ms"], one_process_ms=want["ms"], exchanges=got["exchanges"])
+            print(f"[space axis 33] {card}:", json.dumps(row), flush=True)
+            if not ok:
+                bad.append(f"eval {name} rank {r}: outputs differ from the one process's "
+                           "beyond phase 32's rule")
+            if launches != {k: int(v) for k, v in per_scene.items() if v}:
+                bad.append(f"eval {name} rank {r}: launches {launches}, one scene's "
+                           f"{per_scene}")
+    train_paths, train_bad = _space_train_check(
+        torch, np, [rank["train"] for rank in ranks], train_ref[SPACE_FCOS_TRAIN],
+        [a["fcos_train_ms"] for a in alone], SPACE_FCOS_TRAIN, card, "space fcos train")
+    paths.update(train_paths)
+    bad += train_bad
+    print(f"[space axis 33] the ranks' part: {ranks[0]['seconds']:.1f} s", flush=True)
+    if bad:
+        fail("space axis (FCOS, VGG): " + "; ".join(bad))
     return paths
 
 
@@ -4618,6 +4921,10 @@ def main() -> None:
         space_alone = [space_before]
         space_s = time.perf_counter() - t0
         print(f"[space axis] phase 32's one-process evals and times: {space_s:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        space33_refs = space33_references(torch, dev)
+        space33_s = time.perf_counter() - t0
+        print(f"[space axis 33] phase 33's one-process evals: {space33_s:.1f} s", flush=True)
 
         t0 = time.perf_counter()
         cases = eval_split_cases(np, work, rcnn_common)
@@ -4674,6 +4981,11 @@ def main() -> None:
         phase_done(torch, "space axis checks", t0)
         print(f"[space axis] phase 32 in all: {space_s + time.perf_counter() - t0:.1f} s here "
               "and the ranks' part (above)", flush=True)
+
+        t0 = time.perf_counter()
+        paths.update(check_space_fcos_vgg(torch, work, space33_refs, space_train_ref,
+                                          space_alone, smi))
+        phase_done(torch, "space axis on FCOS and VGG checks", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

@@ -21,8 +21,12 @@ through the ``Scale`` alone; without it every channel takes ``exp``.  The
 parameter names are the reference torch keys: ``cls_tower.{3d}`` (conv),
 ``cls_tower.{3d+1}`` (GroupNorm), the same for ``bbox_tower``,
 ``cls_logits``, ``bbox_pred``, ``centerness`` and ``scales.{lvl}.scale``.
-The JAX head's ``GroupNormFast`` and batch-folded tower are TPU forms of
-plain ``nn.GroupNorm`` and are not ported.
+The GroupNorms take the JAX head's ``GroupNormFast`` arithmetic
+(``models/layers.group_norm``); its batch-folded tower is a TPU form and
+is not ported.  On the ``space`` axis (``forward(..., slabs=)``) each 3^3
+conv of the towers and of the prediction takes a halo of one row and each
+GroupNorm sums its moments over the space group; ``Scale``, the ReLU and
+the stride multiply are pointwise.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_rpn_tpu_torch.models.layers import conv3d, group_norm
+from nerf_rpn_tpu_torch.models.layers import conv3d, conv3d_kernel, group_norm
 
 
 class RPNHead3D(nn.Module):
@@ -104,37 +108,38 @@ class FCOSHead3D(nn.Module):
         self.centerness = nn.Conv3d(in_channels, 1, 3, padding=1)
         self.scales = nn.ModuleList([Scale(1.0) for _ in range(num_levels)])
 
-    def _tower(self, x: torch.Tensor, tower: nn.Sequential) -> torch.Tensor:
+    def _tower(self, x: torch.Tensor, tower: nn.Sequential, slab=None) -> torch.Tensor:
         for conv, gn in zip(tower[0::3], tower[1::3]):
-            x = torch.relu(group_norm(conv3d(x, conv, self.dtype), gn, self.dtype))
+            x = torch.relu(group_norm(conv3d(x, conv, self.dtype, slab), gn, self.dtype, slab))
         return x
 
-    def _predict(self, x: torch.Tensor, convs: Sequence[nn.Conv3d]) -> torch.Tensor:
+    def _predict(self, x: torch.Tensor, convs: Sequence[nn.Conv3d], slab=None) -> torch.Tensor:
         """The 3^3 prediction convs that read one tower output, as one conv
-        of their concatenated kernels."""
-        w = torch.cat([c.weight for c in convs]).to(self.dtype)
-        b = torch.cat([c.bias for c in convs]).to(self.dtype)
-        y = torch.nn.functional.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=1)
-        return y.permute(0, 2, 3, 4, 1)
+        of their concatenated kernels (on a slab: a halo of one row)."""
+        w = torch.cat([c.weight for c in convs])
+        b = torch.cat([c.bias for c in convs])
+        return conv3d_kernel(x, w, b, (1, 1, 1), (1, 1, 1), self.dtype, slab)
 
-    def forward(self, features: Sequence[torch.Tensor]):
+    def forward(self, features: Sequence[torch.Tensor], slabs: Sequence | None = None):
         """Per level (B, X, Y, Z, C) -> (cls, reg, ctr) lists of (B, X, Y,
         Z, 1), (B, X, Y, Z, 6|8) and (B, X, Y, Z, 1).  ``reg`` is f32 (the
-        f32 ``Scale`` promotes it, as in the JAX head)."""
+        f32 ``Scale`` promotes it, as in the JAX head).  ``slabs``: the
+        levels' slabs on the space axis, where every 3^3 conv takes a halo
+        of one row and each GroupNorm the moments of the whole x extent."""
         cls_out, reg_out, ctr_out = [], [], []
-        for lvl, f in enumerate(features):
-            ct = self._tower(f, self.cls_tower)
-            bt = self._tower(f, self.bbox_tower)
+        for lvl, (f, slab) in enumerate(zip(features, slabs or [None] * len(features))):
+            ct = self._tower(f, self.cls_tower, slab)
+            bt = self._tower(f, self.bbox_tower, slab)
             if self.centerness_on_reg:
-                cls_out.append(self._predict(ct, [self.cls_logits]))
-                merged = self._predict(bt, [self.centerness, self.bbox_pred])
+                cls_out.append(self._predict(ct, [self.cls_logits], slab))
+                merged = self._predict(bt, [self.centerness, self.bbox_pred], slab)
                 ctr_out.append(merged[..., :1])
                 reg = merged[..., 1:]
             else:
-                merged = self._predict(ct, [self.cls_logits, self.centerness])
+                merged = self._predict(ct, [self.cls_logits, self.centerness], slab)
                 cls_out.append(merged[..., :1])
                 ctr_out.append(merged[..., 1:2])
-                reg = self._predict(bt, [self.bbox_pred])
+                reg = self._predict(bt, [self.bbox_pred], slab)
             reg = self.scales[lvl](reg)
             if self.norm_reg_targets:
                 dist = torch.relu(reg[..., :6])

@@ -14,7 +14,8 @@ On the ``space`` axis (``parallel/space.py``) a convolution takes a slab:
 ``k // 2`` rows for a stride-1 3^3 conv, zero beyond the global edges; a
 strided conv's rows from the output slab's global origin) and runs with no
 x padding.  Train-mode BatchNorm sums its moments over every rank, slab
-rows once each (``ddp.batch_moments``).
+rows once each (``ddp.batch_moments``); GroupNorm sums each scene's
+moments over the space group (:func:`group_norm`).
 """
 
 from __future__ import annotations
@@ -43,39 +44,69 @@ def conv3d(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype,
     the input slabs ``src`` into the output slabs ``dst`` (default
     ``src``; the conv's global x extent ``dst.extent``); every rank of the
     space group calls it."""
+    return conv3d_kernel(x, conv.weight, conv.bias, conv.stride, conv.padding, dtype, src, dst)
+
+
+def conv3d_kernel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                  stride, padding, dtype: torch.dtype, src: "space.Slab | None" = None,
+                  dst: "space.Slab | None" = None) -> torch.Tensor:
+    """:func:`conv3d` of a (Cout, Cin, k, k, k) ``weight`` and ``bias`` (the
+    FCOS head's concatenated prediction kernels)."""
+    bias = bias.to(dtype) if bias is not None else None
     if src is None:
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), conv.weight.to(dtype),
-                     conv.bias.to(dtype) if conv.bias is not None else None,
-                     conv.stride, conv.padding)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), weight.to(dtype), bias, stride,
+                     padding)
         return y.permute(0, 2, 3, 4, 1)
-    return _conv3d_slab(x, conv, dtype, src, dst or src)
-
-
-def _conv3d_slab(x: torch.Tensor, conv: nn.Conv3d, dtype: torch.dtype,
-                 src: "space.Slab", dst: "space.Slab") -> torch.Tensor:
-    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    dst = dst or src
+    k, s, p = weight.shape[2], stride[0], padding[0]
     if not (k == 1 and s == 1 and src.bounds == dst.bounds):
         x = space.reshard_x(x, src, space.window_rows(src, dst, k, s, p))
     if dst.rows == 0:
         shape = (x.shape[0], 0, *(-(-(n + 2 * q - kk + 1) // st) for n, q, kk, st in zip(
-            x.shape[2:4], conv.padding[1:], conv.kernel_size[1:], conv.stride[1:])),
-            conv.out_channels)
-        return space.keep_graph_empty(shape, x.to(dtype), conv.weight, conv.bias)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), conv.weight.to(dtype),
-                 conv.bias.to(dtype) if conv.bias is not None else None,
-                 conv.stride, (0, *conv.padding[1:]))
+            x.shape[2:4], padding[1:], weight.shape[3:], stride[1:])), weight.shape[0])
+        return space.keep_graph_empty(shape, x.to(dtype), weight, bias)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(dtype), weight.to(dtype), bias, stride,
+                 (0, *padding[1:]))
     return y.permute(0, 2, 3, 4, 1)
 
 
-def group_norm(x: torch.Tensor, gn: nn.GroupNorm, dtype: torch.dtype) -> torch.Tensor:
-    """Channels-last (B, X, Y, Z, C) in and out; statistics and affine in
-    f32 (f64 for f64 input), the output rounded to the compute dtype.  A
-    group of one value (``resnet_tiny``'s 32 channels in 32 groups at a 1^3
-    level) normalises to the bias, as in JAX: the aten op is called
-    directly, without ``F.group_norm``'s refusal of such groups."""
-    xf = x.permute(0, 4, 1, 2, 3).to(torch.promote_types(x.dtype, torch.float32))
-    y = torch.group_norm(xf, gn.num_groups, gn.weight, gn.bias, gn.eps)
-    return y.permute(0, 2, 3, 4, 1).to(dtype)
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm, dtype: torch.dtype,
+               slab: "space.Slab | None" = None) -> torch.Tensor:
+    """Channels-last (B, X, Y, Z, C) in and out, with the JAX head's
+    ``GroupNormFast`` arithmetic (``nerf_rpn_tpu/models/heads.py``): the
+    moments of each (scene, group) in f32 (f64 for f64 input) in one pass,
+    ``var = max(E[x^2] - E[x]^2, 0)``, folded into ``a = weight /
+    sqrt(var + eps)`` and ``b = bias - mean * a``, and the output ``x * a +
+    b`` in ``x``'s dtype (one ``addcmul``: the product and the sum rounded
+    once, as XLA fuses them), rounded to the compute dtype.  A group of one
+    value (``resnet_tiny``'s 32 channels in 32 groups at a 1^3 level) has
+    variance 0 and normalises to the bias up to the rounding of ``x * a``,
+    as in JAX.
+
+    ``slab``: ``x``'s slabs on the space axis.  The sums ``sum x`` and
+    ``sum x^2`` of the rank's rows are then summed over the space group
+    (``space.all_reduce_sum``; a slab with no rows adds zeros) and divided
+    by the whole extent's count, so each scene is normalised by the
+    statistics of all of its rows; one formula for the whole grid and the
+    slab."""
+    b, c, g = x.shape[0], x.shape[-1], gn.num_groups
+    ft = torch.promote_types(x.dtype, torch.float32)
+    rows = x.shape[1] * x.shape[2] * x.shape[3]
+    xf = x.reshape(b, rows, c).to(ft)
+    # per channel over the rows (a reduction along contiguous channels),
+    # then over each group's channels: (B, 2, G)
+    sums = torch.stack([xf.sum(1), (xf * xf).sum(1)], 1).view(b, 2, g, c // g).sum(-1)
+    count = rows * (c // g)
+    if slab is not None:
+        sums = space.all_reduce_sum(sums, slab.groups)
+        count = slab.extent * x.shape[2] * x.shape[3] * (c // g)
+    mean, mean2 = sums[:, 0] / count, sums[:, 1] / count
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    a = torch.rsqrt(var + gn.eps)[..., None] * gn.weight.to(ft).view(g, c // g)
+    shift = gn.bias.to(ft).view(g, c // g) - mean[..., None] * a
+    shape = (b, 1, 1, 1, c)
+    y = torch.addcmul(shift.reshape(shape).to(x.dtype), x, a.reshape(shape).to(x.dtype))
+    return y.to(dtype)
 
 
 def bn3d(channels: int) -> nn.BatchNorm3d:

@@ -71,11 +71,8 @@ class NeRFRPN(nn.Module):
         return features, logits, deltas
 
     def level_slabs(self, space) -> list:
-        """The levels' slabs for the grids' slabs ``space``; the Swin and
-        ResNet backbones take the space axis (VGG not yet)."""
-        if not hasattr(self.backbone, "level_slabs"):
-            raise NotImplementedError(f"the {self.backbone_type} backbone has no space-axis "
-                                      "form (the Swin and ResNet backbones do)")
+        """The levels' slabs for the grids' slabs ``space`` (every backbone
+        of the table takes the space axis)."""
         return self.backbone.level_slabs(space)
 
 
@@ -100,12 +97,23 @@ class FCOSOverNeRF(nn.Module):
                                     num_convs, rotated, centerness_on_reg, norm_reg_targets,
                                     self.fpn_strides, dtype)
 
-    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None):
+    def forward(self, grids: torch.Tensor, generator: torch.Generator | None = None,
+                space=None):
         """``generator`` draws the Swin backbone's stochastic-depth masks in
-        train mode (unused in eval and by the CNN backbones)."""
-        features = list(self.backbone(grids, generator))
-        cls, reg, ctr = self.fcos_head(features)
+        train mode (unused in eval and by the CNN backbones).  ``space``:
+        the grids' slabs on the space axis; every output is then this
+        rank's slab of its level, ``self.level_slabs(space)``."""
+        if space is None:
+            features = list(self.backbone(grids, generator))
+            cls, reg, ctr = self.fcos_head(features)
+            return features, cls, reg, ctr
+        features = list(self.backbone(grids, generator, space))
+        cls, reg, ctr = self.fcos_head(features, self.level_slabs(space))
         return features, cls, reg, ctr
+
+    def level_slabs(self, space) -> list:
+        """The levels' slabs for the grids' slabs ``space``."""
+        return self.backbone.level_slabs(space)
 
 
 # flax's lecun_normal is variance_scaling(1, "fan_in", "truncated_normal"):

@@ -19,6 +19,13 @@ Module names are the reference torch keys that
 fpn_convs}.*``.  ``flax_names`` maps them onto the JAX module's names.
 The JAX stem's TPU forms and the ``NERF_RPN_TPU_POOL2_REGROUP`` knob are
 not ported: the pools are ``ops/pooling.py``'s.
+
+On the ``space`` axis (``parallel/space.py``) ``VGGFPN.forward`` takes a
+slab of the grid (``space=`` its input slabs) and gives each level on even
+slabs of its global x extent (:meth:`VGGFPN.level_slabs`): every conv
+fetches its input rows (``layers.conv3d`` given slabs), the stem pool its
+-inf-padded ones and the 2^3 ceil-mode pools theirs, -inf past the global
+edge (``pooling.max_pool_slab``); the FPN neck takes the levels' slabs.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from torch import nn
 
 from nerf_rpn_tpu_torch.models.fpn import FPN
 from nerf_rpn_tpu_torch.models.layers import batch_norm, bn3d, conv3d
-from nerf_rpn_tpu_torch.ops.pooling import max_pool_2x2x2, stem_pool
+from nerf_rpn_tpu_torch.ops.pooling import max_pool_2x2x2, max_pool_slab, stem_pool
+from nerf_rpn_tpu_torch.parallel import space as sp
 
 VGG_CFGS: dict[str, tuple] = {
     "AF": (64, 128, "F", 256, 256, "M", "F", 512, 512, "M", "F", 512, 512, "M", "F"),
@@ -50,23 +58,44 @@ class CNNSequence(nn.Sequential):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_modules(self, x, self.dtype)
+        return run_modules(self, x, self.dtype)[0]
 
 
-def run_modules(modules, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def run_modules(modules, x: torch.Tensor, dtype: torch.dtype,
+                slab: "sp.Slab | None" = None) -> tuple[torch.Tensor, "sp.Slab | None"]:
     """Apply ``modules`` in order to channels-last ``x`` (see
     :class:`CNNSequence`); modules without arithmetic (``nn.Identity``)
-    pass ``x`` through."""
+    pass ``x`` through.  ``slab``: ``x``'s slabs on the space axis, where
+    each conv and pool fetches its input rows and puts its output on even
+    slabs of its global x extent.  Returns the output and its slabs (None
+    off the axis)."""
     for m in modules:
         if isinstance(m, nn.Conv3d):
-            x = conv3d(x, m, dtype)
+            out = None if slab is None else slab.even(_out_extent(m, slab.extent))
+            x, slab = conv3d(x, m, dtype, slab, out), out
         elif isinstance(m, nn.BatchNorm3d):
             x = batch_norm(x, m, dtype)
         elif isinstance(m, nn.ReLU):
             x = torch.relu(x)
         elif isinstance(m, nn.MaxPool3d):
-            x = stem_pool(x) if m.kernel_size == 3 else max_pool_2x2x2(x, ceil_mode=True)
-    return x
+            stem = m.kernel_size == 3
+            if slab is None:
+                x = stem_pool(x) if stem else max_pool_2x2x2(x, ceil_mode=True)
+                continue
+            out = slab.even(_out_extent(m, slab.extent))
+            x = (max_pool_slab(x, slab, out, 3, 2, 1) if stem else
+                 max_pool_slab(x, slab, out, 2, 2, 0, ceil_mode=True))
+            slab = out
+    return x, slab
+
+
+def _out_extent(m: nn.Module, extent: int) -> int:
+    """The x extent after a conv or pool module (others keep it)."""
+    if isinstance(m, nn.Conv3d):
+        return (extent + 2 * m.padding[0] - m.kernel_size[0]) // m.stride[0] + 1
+    if isinstance(m, nn.MaxPool3d):
+        return (extent - 1) // 2 + 1 if m.kernel_size == 3 else -(-extent // 2)
+    return extent
 
 
 class VGGFPN(nn.Module):
@@ -111,26 +140,46 @@ class VGGFPN(nn.Module):
         self.stem_len = len(stem)
         self.fpn_neck = FPN((128, 256, 512, 512), out_channels, dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> tuple[torch.Tensor, ...]:
-        """``generator`` is unused: the CNN backbones draw nothing."""
-        y, skip = self.stem(x)
-        features = []
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                space: "sp.Slab | None" = None) -> tuple[torch.Tensor, ...]:
+        """``generator`` is unused: the CNN backbones draw nothing.
+        ``space``: ``x``'s slabs on the space axis; each level is then this
+        rank's slab of :meth:`level_slabs`."""
+        y, skip, slab = self.stem(x, space)
+        features, slabs = [], []
         for stage in self.layers[self.stem_len:]:
-            y = stage(y)
+            if slab is None:  # the module's call: forward hooks see it
+                y = stage(y)
+            else:
+                y, slab = run_modules(stage, y, self.dtype, slab)
             features.append(y)
+            slabs.append(slab)
         if skip is not None:
             features[0] = features[0] + skip
-        return self.fpn_neck(features[-4:])
+        return self.fpn_neck(features[-4:], slabs[-4:] if space is not None else None)
 
-    def stem(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The stem's output and ``conv_at_start``'s downsampled skip (or
-        None)."""
+    def level_slabs(self, src: "sp.Slab") -> list:
+        """The slabs of each output level (even slabs of its global x
+        extent), for the input slabs ``src``."""
+        extent, out = src.extent, []
+        for m in self.layers[:self.stem_len]:
+            extent = _out_extent(m, extent)
+        for stage in self.layers[self.stem_len:]:
+            for m in stage:
+                extent = _out_extent(m, extent)
+            out.append(src.even(extent))
+        return out[-4:]
+
+    def stem(self, x: torch.Tensor, slab: "sp.Slab | None" = None):
+        """The stem's output, ``conv_at_start``'s downsampled skip (or
+        None) and the output's slabs (None off the space axis)."""
         skip = None
         if self.conv_at_start:
-            x = self.starting_layers(x)
-            skip = self.ds_layers(x)
-        return run_modules(self.layers[:self.stem_len], x, self.dtype), skip
+            x, slab_x = run_modules(self.starting_layers, x, self.dtype, slab)
+            skip = run_modules(self.ds_layers, x, self.dtype, slab_x)[0]
+            slab = slab_x
+        y, slab = run_modules(self.layers[:self.stem_len], x, self.dtype, slab)
+        return y, skip, slab
 
     def flax_names(self) -> dict[str, str]:
         """Torch module name -> the JAX module's (``/``-joined)."""

@@ -12,8 +12,9 @@ gradient on the card routes its backward through ``index_put_`` with
 CUDA backward adds with atomics and has none.
 
 On the ``space`` axis (``parallel/space.py``) :func:`max_pool_slab` fetches
-the x rows of its output slab's windows: -inf beyond the global edges only,
-the neighbours' real rows everywhere else.
+the x rows of its output slab's windows: -inf beyond the global edges only
+(the pad of the stem pool, the high side of a ceil-mode window), the
+neighbours' real rows everywhere else.
 """
 
 from __future__ import annotations
@@ -77,13 +78,26 @@ stem_pool = max_pool_3x3x3_s2_p1
 
 
 def max_pool_slab(x: torch.Tensor, src: "space.Slab", dst: "space.Slab", kernel: int,
-                  stride: int, padding: int) -> torch.Tensor:
+                  stride: int, padding: int, ceil_mode: bool = False) -> torch.Tensor:
     """A ``kernel``^3 max pool of stride ``stride`` and -inf ``padding`` from
     the input slabs ``src`` into the output slabs ``dst`` (of the pool's
-    global output extent).  Every rank of the space group calls it."""
+    global output extent: with ``ceil_mode`` the ceil-divided one, whose
+    last window reads x rows past the global edge, fetched as -inf).  y and
+    z keep ``ceil_mode`` as :func:`max_pool_2x2x2` does.  Every rank of the
+    space group calls it."""
     x = space.reshard_x(x, src, space.window_rows(src, dst, kernel, stride, padding),
                         fill=float("-inf"))
     if dst.rows == 0:
-        yz = [(n + 2 * padding - kernel) // stride + 1 for n in x.shape[2:4]]
+        yz = [_pooled(n, kernel, stride, padding, ceil_mode) for n in x.shape[2:4]]
         return space.keep_graph_empty((x.shape[0], 0, *yz, x.shape[-1]), x)
-    return _pool(x, kernel, stride, (0, padding, padding), False)
+    return _pool(x, kernel, stride, (0, padding, padding), ceil_mode)
+
+
+def _pooled(n: int, kernel: int, stride: int, padding: int, ceil_mode: bool) -> int:
+    """The output extent of a pool over ``n`` (``F.max_pool3d``'s rule: a
+    ceil-mode window starts inside the input or its left padding)."""
+    span = n + 2 * padding - kernel
+    out = (-(-span // stride) if ceil_mode else span // stride) + 1
+    if ceil_mode and (out - 1) * stride >= n + padding:
+        out -= 1
+    return out

@@ -3,9 +3,17 @@
 Counterpart of the JAX package's ``(data, space)`` mesh
 (``nerf_rpn_tpu/parallel/mesh.py``: ``make_mesh_2d``, ``grid_sharding``,
 ``GRID_KEYS``, ``shard_batch``), the path for grids too large for one card.
-There GSPMD inserts the convolutions' halo exchanges and the all-gathers
-before propose; here each op that reads across the x split names the
-global rows it needs, and one of three exchanges below brings them.
+There GSPMD inserts the convolutions' halo exchanges, the cross-slab
+statistics and the all-gathers before propose; here each op that reads
+across the x split names the global rows it needs, and one of the exchanges
+below brings them.
+
+Paths that take the axis: the anchor RPN's and the FCOS detector's eval and
+train steps (``train/steps.py``: ``make_rpn_*_step`` / ``make_fcos_*_step``
+with ``space=``) on every backbone of the table -- the Swin variants,
+``resnet`` / ``resnet_tiny`` and ``vgg_AF`` / ``vgg_EF`` (``level_slabs`` on
+each).  The RCNN second stage does not: its RoI align reads other ranks'
+rows.
 
 Layout (:func:`make_groups`): ``n_data * n_space`` ranks, rank
 ``d * n_space + s`` holding data group ``d``'s scenes and the ``s``-th slab
@@ -36,6 +44,9 @@ Exchanges (autograd-aware):
   the space group (the head outputs before propose).  Its backward returns
   the rank's own rows of the gradient, not a sum: every rank of a space
   group computes the same loss from the gathered outputs.
+- :func:`all_reduce_sum` -- a small tensor summed over the space group (the
+  FCOS head's GroupNorm moments, ``models/layers.group_norm``); its
+  backward is the same all-reduce of the gradient.
 
 Collectives: an exchange whose rows all stay on their rank runs none (every
 rank computes the same plan, so all agree).  Otherwise each rank packs the
@@ -439,6 +450,46 @@ def gather_x(x: torch.Tensor, slab: Slab) -> torch.Tensor:
     if slab.groups.n_space == 1:
         return x
     return _Gather.apply(x, slab)
+
+
+def _all_reduce(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    if _TRACE is None:
+        dist.all_reduce(out, group=group)
+    else:
+        sync = torch.cuda.synchronize if out.is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        dist.all_reduce(out, group=group)
+        sync()
+        _TRACE.append((kind, out.numel() * out.element_size(),
+                       (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """``all_reduce(SUM)`` over a space group: every rank reads the sum, so
+    a rank's input gradient is the sum over the ranks of the output
+    gradients -- the backward is the same all-reduce (``ddp.AllReduceSum``
+    over a group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group, "all_reduce")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group, "all_reduce backward"), None
+
+
+def all_reduce_sum(x: torch.Tensor, groups: SpaceGroups) -> torch.Tensor:
+    """``x`` summed over the rank's space group, with autograd; no
+    collective in a space group of one.  Every rank of the group calls
+    it."""
+    if groups.n_space == 1:
+        return x
+    return _AllReduce.apply(x, groups.space_group)
 
 
 def nearest_rows(in_extent: int, out_extent: int) -> tuple[int, ...]:

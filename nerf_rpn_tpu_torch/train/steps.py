@@ -32,13 +32,16 @@ the positives beyond the loss's gather capacity (``models/fcos.py``).
 ``eval_step.forward`` gives the flattened (B, L, .) head outputs and the
 voxel scores, ``eval_step.propose`` the proposals.
 
-The anchor-RPN steps also run on the ``space`` axis (``space=`` a
-``parallel/space.SpaceGroups``; ``space.shard_batch`` splits the batch):
-each rank's grids are its data group's scenes, its slab of their x
-extent; the model runs on the slabs, each level's head outputs are
-gathered over the space group (``space.gather_x``), and the eval step
-proposes on every rank of the group (the replicated result of GSPMD's
-all-gather), the train step takes the losses on the gathered outputs.
+The anchor-RPN and FCOS steps also run on the ``space`` axis (``space=`` a
+``parallel/space.SpaceGroups``; ``space.shard_batch`` splits the batch),
+on every backbone of the table (Swin, ResNet, VGG): each rank's grids are
+its data group's scenes, its slab of their x extent; the model runs on the
+slabs (the FCOS head's GroupNorms sum their moments over the space group),
+each level's head outputs are gathered over the space group
+(``space.gather_x``), and the eval step proposes on every rank of the
+group (the replicated result of GSPMD's all-gather), the train step takes
+the losses on the gathered outputs, their normalisers and logged terms
+summed over the data group.  The RCNN steps take no ``space``.
 
 Under a process group (``parallel/ddp.py``) each rank runs a train step on
 its share of the global batch: the losses divide by the global batch's
@@ -120,13 +123,14 @@ def _level_tables(model, cfg: RPNConfig, mesh_shape, strides):
 
 def _slab_forward(model, grids, generator, groups):
     """The model on this rank's slab of the grids (``groups``: the space
-    layout), each level's head outputs gathered over the space group; the
-    levels' slabs too."""
+    layout): ``(features, *head outputs, slabs)``, each level's head
+    outputs gathered over the space group, the features and the levels'
+    slabs as they are."""
     src = sp.input_slab(groups, grids.shape[1] * groups.n_space)
     slabs = model.level_slabs(src)
-    feats, logits, deltas = model(grids, generator, src)
-    return (feats, [sp.gather_x(t, sl) for t, sl in zip(logits, slabs)],
-            [sp.gather_x(t, sl) for t, sl in zip(deltas, slabs)], slabs)
+    feats, *heads = model(grids, generator, src)
+    return (feats, *([sp.gather_x(t, sl) for t, sl in zip(out, slabs)] for out in heads),
+            slabs)
 
 
 def make_rpn_train_step(model, cfg: RPNConfig, mesh_shape: Sequence[int],
@@ -258,20 +262,31 @@ def _fcos_tables(model, cfg: FCOSConfig, mesh_shape, device):
     return ([torch.from_numpy(a).to(device) for a in (loc, stride_of, soi)], counts)
 
 
+def _fcos_forward(model, grids, generator, space):
+    """(cls, reg, ctr) level lists of the whole scenes: on the space axis
+    each level gathered over the space group."""
+    if space is None:
+        return model(grids, generator)[1:]
+    return _slab_forward(model, grids, generator, space)[1:4]
+
+
 def make_fcos_train_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
-                         device: torch.device | str = "cpu"):
+                         device: torch.device | str = "cpu", space=None):
     """Returns ``train_step(state, batch, drop_generator) -> metrics``.
 
     ``batch`` as the RPN step's, with (B, G, 6|7) ``gt_boxes``.  Metrics:
     ``loss`` (the sum of the three terms), ``loss_cls``, ``loss_reg``,
     ``loss_centerness``, ``dropped_positives``, ``grad_norm`` (pre-clip)
-    and ``param_norm`` (after the update), device tensors all.
+    and ``param_norm`` (after the update), device tensors all.  ``space``:
+    the ``SpaceGroups`` of the space axis, ``batch`` then this rank's part
+    (``space.shard_batch``); every rank of a space group must draw
+    ``drop_generator`` alike.
     """
     (loc, stride_of, soi), _ = _fcos_tables(model, cfg, mesh_shape, device)
 
     def train_step(state, batch, drop_generator):
         model.train()
-        _, cls, reg, ctr = model(batch["grids"], drop_generator)
+        cls, reg, ctr = _fcos_forward(model, batch["grids"], drop_generator, space)
         losses = fcos_lib.fcos_losses(
             cfg, fcos_lib.flatten_fcos_outputs(cls, 1),
             fcos_lib.flatten_fcos_outputs(reg, cfg.reg_dim),
@@ -288,15 +303,18 @@ def make_fcos_train_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
 
 
 def make_fcos_eval_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
-                        device: torch.device | str = "cpu"):
+                        device: torch.device | str = "cpu", space=None):
     """Returns eval_step(grids (B, X, Y, Z, 4), ori_sizes (B, 3)) -> dict of
-    boxes (B, K, 6|7), scores, level_idx, valid (B, K) and voxel_scores."""
+    boxes (B, K, 6|7), scores, level_idx, valid (B, K) and voxel_scores.
+    ``space``: the ``SpaceGroups`` of the space axis; ``grids`` is then
+    this rank's slab (``space.shard_grid``) and every rank of the space
+    group returns its scenes' whole result."""
     (loc, _, _), counts = _fcos_tables(model, cfg, mesh_shape, device)
 
     @torch.inference_mode()
     def forward(grids: torch.Tensor):
         model.eval()
-        _, cls, reg, ctr = model(grids)
+        cls, reg, ctr = _fcos_forward(model, grids, None, space)
         return (fcos_lib.flatten_fcos_outputs(cls, 1),
                 fcos_lib.flatten_fcos_outputs(reg, cfg.reg_dim),
                 fcos_lib.flatten_fcos_outputs(ctr, 1),

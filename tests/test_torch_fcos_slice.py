@@ -15,6 +15,9 @@ both packages through ``weights.from_jax_params``, with ``num_convs`` 1
 Then ``run_fcos --device cpu`` trains one epoch on synthetic 32^3 OBB
 scenes and evaluates from ``model_best`` with ``--output_proposals
 --save_level_index --output_voxel_scores``; the files are checked.  The
+CLI run takes ``resnet_tiny``, whose levels sit at the Swin's strides:
+the CLI's plumbing does not depend on the backbone, and the Swin FCOS
+step is held to JAX's above and in ``test_torch_fcos_train_step.py``.  The
 JAX eval step takes its plain (non-Pallas) attention on the CPU.
 """
 
@@ -110,7 +113,7 @@ def test_run_fcos_train_then_eval_on_cpu(tmp_path):
     data = str(tmp_path / "data")
     write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32),
                             rotated=True)
-    common = ["--backbone_type", "swin_t", "--resolution", "32", "--num_convs", "1",
+    common = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--num_convs", "1",
               "--rotated_bbox", "--norm_reg_targets", "--centerness_on_reg",
               "--center_sampling_radius", "1.5", "--iou_loss_type", "iou",
               "--pre_nms_top_n", "64", "--fpn_post_nms_top_n", "32", "--device", "cpu",

@@ -57,11 +57,14 @@ def test_laws_match_flax():
 
 
 def test_seeded_generator_repeats_and_head_stays_normal():
-    a, b, c = (NeRFRPN("swin_t", conv_depth=1) for _ in range(3))
-    init_params(a, torch.Generator().manual_seed(5))
-    init_params(b, torch.Generator().manual_seed(5))
-    init_params(c, torch.Generator().manual_seed(6))
-    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    # one model drawn three times: init_params sets every parameter and
+    # buffer, whatever the model held before
+    a = NeRFRPN("swin_t", conv_depth=1)
+    states = []
+    for seed in (6, 5, 5):
+        init_params(a, torch.Generator().manual_seed(seed))
+        states.append({k: v.clone() for k, v in a.state_dict().items()})
+    sc, sb, sa = states
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["backbone.stages.0.0.attn.qkv.weight"],
                            sc["backbone.stages.0.0.attn.qkv.weight"])

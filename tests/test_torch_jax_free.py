@@ -1,27 +1,33 @@
 """The torch port imports neither jax nor the JAX package ``nerf_rpn_tpu``.
 
-A subprocess blocks jax / jaxlib / flax / optax / orbax and ``nerf_rpn_tpu``
-with a meta-path hook, imports every module of ``nerf_rpn_tpu_torch`` (the
-native loader, ``datatools`` and ``utils/debug``, ``utils/profiling``
-among them), runs ``python -m nerf_rpn_tpu_torch.datatools.scannet_boxes
---help``,
-writes synthetic 32^3 datasets with the port's own writer and runs the CPU
-slice end to end through the CLI -- ``run_rpn --mode train`` for one epoch,
-then ``--mode eval --checkpoint model_best``, with AABBs and then with OBBs
-(``--rotated_bbox``, the 2D projection loss on), the AABB ``model_best``
-converted to flax's ``.msgpack`` (``tools/convert_weights``) and evaluated
-from it to the same files, a heatmap of its voxel scores
-(``tools/render_heatmap``), then ``run_fcos --mode
-train`` and ``--mode eval --checkpoint model_best`` on the OBB scenes
-(``train_fcos.sh``'s loss flags), then with ``resnet_tiny``: ``run_rpn
---check_arch``, ``--mode train`` and ``--mode eval --save_results
---output_all`` (the RCNN stage's files checked against the JAX driver's
-layout), ``run_fcos --load_backbone_only --output_all --conv_at_start``
-from that checkpoint, ``run_rpn_detect --fine_tune`` for one epoch from
-it (``--pretrained``) and its eval, and one epoch of the quality gate --
-and checks that
-none of them reached ``sys.modules``.  An AST scan shows that no file of the port,
-and not ``chip_smoke.py``, names them in an import statement.
+Subprocesses block jax / jaxlib / flax / optax / orbax and ``nerf_rpn_tpu``
+with a meta-path hook, run the CPU slice end to end through the CLI on
+synthetic 32^3 datasets written with the port's own writer, and check that
+none of the blocked packages reached ``sys.modules``.  The slice is three
+parts (:data:`PARTS`), each a test in a file of its own so that ``--dist
+loadfile`` spreads them over the workers:
+
+- ``rpn`` (here): every module of ``nerf_rpn_tpu_torch`` imported (the
+  native loader, ``datatools`` and ``utils/debug``, ``utils/profiling``
+  among them), ``python -m nerf_rpn_tpu_torch.datatools.scannet_boxes
+  --help``, ``run_rpn --mode train`` for one epoch, then ``--mode eval
+  --checkpoint model_best``, with AABBs and then with OBBs
+  (``--rotated_bbox``, the 2D projection loss on; ``resnet_tiny``), the AABB ``model_best``
+  converted to flax's ``.msgpack`` (``tools/convert_weights``) and
+  evaluated from it to the same files, a heatmap of its voxel scores
+  (``tools/render_heatmap``);
+- ``fcos`` (``test_torch_jax_free_fcos.py``): ``run_fcos --mode train`` and
+  ``--mode eval --checkpoint model_best`` on OBB scenes (``train_fcos.sh``'s
+  loss flags), on ``resnet_tiny`` (the Swin modules ran in ``rpn``);
+- ``cnn`` (``test_torch_jax_free_cnn.py``): with ``resnet_tiny``, ``run_rpn
+  --check_arch``, ``--mode train`` and ``--mode eval --save_results
+  --output_all`` (the RCNN stage's files checked against the JAX CLI's
+  layout), ``run_fcos --load_backbone_only --output_all --conv_at_start``
+  from that checkpoint, ``run_rpn_detect --fine_tune`` for one epoch from
+  it (``--pretrained``) and its eval, and one epoch of the quality gate.
+
+An AST scan shows that no file of the port, and not ``chip_smoke.py``,
+names them in an import statement.
 """
 
 import ast
@@ -35,8 +41,10 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf_rpn_tpu")
 
-SCRIPT = r"""
-import importlib, importlib.abc, pkgutil, sys
+# every part starts with the block and ends with the check that nothing
+# blocked reached ``sys.modules``
+PRELUDE = r"""
+import importlib, importlib.abc, os, sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "nerf_rpn_tpu")
 
@@ -47,7 +55,23 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+torch.set_num_threads(2)  # beside the suite's other workers
+"""
 
+EPILOGUE = r"""
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("JAX_FREE_OK")
+"""
+
+PARTS = {}
+
+# every module, a datatools CLI, and the Swin anchor RPN: AABB and OBB train
+# and eval, the AABB checkpoint as flax's .msgpack evaluated again, a tool
+PARTS["rpn"] = r"""
+import importlib, pkgutil
 import nerf_rpn_tpu_torch
 for mod in pkgutil.walk_packages(nerf_rpn_tpu_torch.__path__, "nerf_rpn_tpu_torch."):
     importlib.import_module(mod.name)
@@ -70,12 +94,14 @@ assert "generate" in out.getvalue() and "filter" in out.getvalue(), out.getvalue
 from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_rpn
 
-import os
-for data, extra in ((sys.argv[1], []),
-                    (sys.argv[1] + "/obb", ["--rotated_bbox", "--reg_loss_weight_2d", "0.5"])):
+# the OBB run on ``resnet_tiny``: the rotated losses and NMS do not depend
+# on the backbone
+for data, backbone, extra in (
+        (sys.argv[1], "swin_t", []),
+        (sys.argv[1] + "/obb", "resnet_tiny", ["--rotated_bbox", "--reg_loss_weight_2d", "0.5"])):
     write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32),
                             rotated=bool(extra))
-    common = ["--backbone_type", "swin_t", "--resolution", "32",
+    common = ["--backbone_type", backbone, "--resolution", "32",
               "--rpn_head_conv_depth", "1", "--rpn_pre_nms_top_n_test", "64",
               "--rpn_post_nms_top_n_test", "32", "--device", "cpu", "--num_workers", "0",
               "--features_path", data, "--boxes_path", data,
@@ -86,7 +112,6 @@ for data, extra in ((sys.argv[1], []),
     run_rpn.main(["--mode", "eval", "--checkpoint", data + "/run/model_best",
                   "--save_path", data + "/out", "--output_proposals", *common])
     assert os.path.exists(data + "/out/eval.json")
-    import numpy as np
     with np.load(data + "/out/proposals/synth003.npz") as z:
         assert z["proposal"].shape[1] == (7 if extra else 6), z["proposal"].shape
 
@@ -108,10 +133,17 @@ for f in ("eval.json", "proposals/synth003.npz"):
 render_heatmap.render_scene("synth003", data + "/out_msgpack/voxel_scores",
                             data + "/heatmap", export_ply=True)
 assert os.path.getsize(data + "/heatmap/synth003_heatmap.png") > 0
+"""
 
+# FCOS: train and eval on OBB scenes (``train_fcos.sh``'s loss flags), on
+# ``resnet_tiny`` (the Swin modules ran in the ``rpn`` part)
+PARTS["fcos"] = r"""
+from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 from nerf_rpn_tpu_torch.cli import run_fcos
 data = sys.argv[1] + "/obb"
-common = ["--backbone_type", "swin_t", "--resolution", "32", "--num_convs", "1",
+write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32),
+                        rotated=True)
+common = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--num_convs", "1",
           "--rotated_bbox", "--norm_reg_targets", "--centerness_on_reg",
           "--iou_loss_type", "iou", "--pre_nms_top_n", "64", "--fpn_post_nms_top_n", "32",
           "--device", "cpu", "--num_workers", "0", "--features_path", data,
@@ -124,9 +156,15 @@ run_fcos.main(["--mode", "eval", "--checkpoint", data + "/fcos/model_best",
                *common])
 with np.load(data + "/fcos_out/proposals/synth003.npz") as z:
     assert z["proposal"].shape[1] == 7 and "level_indices" in z.files
+"""
+
 # the CNN backbones (BatchNorm statistics in the checkpoint), the drivers'
-# other flags and the quality gate
+# other flags, the RCNN stage and the quality gate
+PARTS["cnn"] = r"""
+from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
+from nerf_rpn_tpu_torch.cli import run_fcos, run_rpn
 data = sys.argv[1]
+write_synthetic_dataset(data, n_train=2, n_val=1, n_test=1, resolution=(32, 32, 32))
 common = ["--backbone_type", "resnet_tiny", "--resolution", "32", "--rpn_head_conv_depth", "1",
           "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32", "--device", "cpu",
           "--num_workers", "0", "--features_path", data, "--boxes_path", data,
@@ -183,18 +221,21 @@ assert quality_gate.main(["--device", "cpu", "--combos", "rpn_aabb", "--num_epoc
 import json
 with open(data + "/gate/gate_results.json") as f:
     assert set(json.load(f)) == {"rpn_aabb"}
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-assert not leaked, leaked
-print("JAX_FREE_OK")
 """
 
 
-def test_port_runs_the_cpu_slice_without_jax(tmp_path):
+def run_part(part: str, work) -> None:
+    """``PARTS[part]`` in a subprocess with the blocked packages blocked,
+    ``work`` its scratch directory."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=600)
+    res = subprocess.run([sys.executable, "-c", PRELUDE + PARTS[part] + EPILOGUE, str(work)],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert "JAX_FREE_OK" in res.stdout
+
+
+def test_port_runs_the_cpu_slice_without_jax(tmp_path):
+    run_part("rpn", tmp_path)
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -1,0 +1,9 @@
+"""The ``cnn`` part of the port's CPU slice with jax and the JAX package
+blocked (``test_torch_jax_free.py``'s ``PARTS``), in a file of its own so
+that ``--dist loadfile`` runs it beside the other parts."""
+
+from test_torch_jax_free import run_part
+
+
+def test_port_runs_the_cnn_backbones_and_rcnn_without_jax(tmp_path):
+    run_part("cnn", tmp_path)

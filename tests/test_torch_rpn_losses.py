@@ -264,7 +264,8 @@ def test_aabb_iou_loss_is_refused_where_jax_reads_the_aabb_as_an_obb():
 
 
 def test_run_rpn_trains_obbs_with_a_rotated_iou_loss(tmp_path):
-    """``run_rpn --rotated_bbox --reg_loss_type giou`` trains on the CPU."""
+    """``run_rpn --rotated_bbox --reg_loss_type giou`` trains on the CPU
+    (``resnet_tiny``: the loss does not depend on the backbone)."""
     from nerf_rpn_tpu_torch.cli import run_rpn
     from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 
@@ -273,7 +274,7 @@ def test_run_rpn_trains_obbs_with_a_rotated_iou_loss(tmp_path):
                             rotated=True)
     logged = run_rpn.main([
         "--mode", "train", "--rotated_bbox", "--reg_loss_type", "giou",
-        "--backbone_type", "swin_t", "--resolution", "32", "--rpn_head_conv_depth", "1",
+        "--backbone_type", "resnet_tiny", "--resolution", "32", "--rpn_head_conv_depth", "1",
         "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32",
         "--device", "cpu", "--num_workers", "0", "--num_epochs", "1", "--log_interval", "1",
         "--features_path", data, "--boxes_path", data, "--dataset_split",

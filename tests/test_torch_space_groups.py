@@ -35,7 +35,7 @@ def _case(name, groups=None):
 
 
 def _ranks(work):
-    torch.set_num_threads(1)
+    torch.set_num_threads(cases.THREADS)
     groups = ddp.space_groups()
     for name in CASES:
         cases.rank_results(work, name, _case(name, groups))
@@ -44,9 +44,9 @@ def _ranks(work):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     work = tmp_path_factory.mktemp("space_groups")
-    join = cases.launch_in_background(work, _ranks, n_ranks=4)
+    join = cases.launch_in_background(work, _ranks, n_ranks=(4,))
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(cases.THREADS)
     try:  # the references, while the ranks run
         alone = {name: _case(name) for name in CASES}
     finally:

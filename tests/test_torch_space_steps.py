@@ -110,7 +110,7 @@ def runs(tmp_path_factory):
     torch.save({k: torch.from_numpy(v) for k, v in batch.items()}, f"{work}/batch.pt")
     join = cases.launch_in_background(work, cases.ranks_1x2)
     threads = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(cases.THREADS)
     try:  # the references, while the ranks run
         alone = {name: cases.run_case(name) for name in cases.CASES}
         jax_out = _jax_eval(model, cfg, state, batch)

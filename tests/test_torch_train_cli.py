@@ -1,7 +1,8 @@
 """Torch port: ``run_rpn --mode train`` on a synthetic 32^3 dataset (CPU).
 
-One epoch over 2 training scenes and 1 validation scene (swin_t,
-``conv_depth`` 1): finite losses, ``model_best`` and ``epoch_1`` written
+One epoch over 2 training scenes and 1 validation scene (``resnet_tiny``,
+``conv_depth`` 1: the CLI's plumbing does not depend on the backbone, and
+the Swin train step is held to JAX's in ``test_torch_train_step.py``): finite losses, ``model_best`` and ``epoch_1`` written
 with their sidecars, and ``--mode eval --checkpoint model_best`` giving
 the same proposals as the in-memory model.  ``delete_old_checkpoints``
 keeps the newest ``--keep_checkpoints`` by mtime.  ``--gpus`` (the
@@ -23,7 +24,7 @@ from nerf_rpn_tpu_torch.train import checkpoint as ckpt_lib
 
 
 def _argv(data, save, *extra):
-    return ["--backbone_type", "swin_t", "--resolution", "32", "--rpn_head_conv_depth", "1",
+    return ["--backbone_type", "resnet_tiny", "--resolution", "32", "--rpn_head_conv_depth", "1",
             "--rpn_pre_nms_top_n_test", "64", "--rpn_post_nms_top_n_test", "32",
             "--device", "cpu", "--num_workers", "0", "--features_path", str(data),
             "--boxes_path", str(data), "--dataset_split", str(data / "split.npz"),
@@ -53,7 +54,7 @@ def test_train_then_eval_from_the_checkpoint(tmp_path):
     for name in ("model_best", "epoch_1"):
         assert (save / name).is_file()
         sidecar = json.loads((save / f"{name}.args.json").read_text())
-        assert sidecar["backbone_type"] == "swin_t"
+        assert sidecar["backbone_type"] == "resnet_tiny"
     ckpt = torch.load(save / "model_best", weights_only=True)
     assert ckpt["epoch"] == 1 and ckpt["step"] == 2
     assert {"backbone_state_dict", "rpn_head_state_dict", "train_args",
@@ -118,7 +119,8 @@ def test_unported_train_flags_raise(flag, tmp_path):
                           *flag])
         return
     with pytest.raises(NotImplementedError):
-        run_rpn.main(["--mode", "train", "--device", "cpu", "--save_path", str(tmp_path), *flag])
+        run_rpn.main(["--mode", "train", "--device", "cpu", "--backbone_type", "resnet_tiny",
+                      "--save_path", str(tmp_path), *flag])
 
 
 @pytest.mark.parametrize("spec, gpus", [("0-3", [0, 1, 2, 3]), ("0,1,2,3", [0, 1, 2, 3]),
