@@ -246,6 +246,23 @@ nonzero before the result lines:
    anchor-RPN eval at 208x208x144 in bf16 (AABB), each against the same
    case in one process; each rank's launches asserted; peak GiB, ms and
    the exchanges (the GroupNorms' all-reduces apart).
+34. the space axis on the RCNN second stage, on the same ranks after phase
+   33: phase 25's ``train_rcnn.sh`` Swin-S OBB fine-tune at 200x200x136
+   (random weights) -- its eval of two scenes in f32 (TF32 off; the
+   backbone on each rank's slab, the FPN levels gathered, every RoI
+   scored; then the filter) against one process: scores and refined boxes
+   within ``close_enough``, labels, validity and the filter's keep-set
+   equal; and its train step with both scenes split along x, each rank of
+   the space group pooling its own block of the sampled RoIs, against
+   phase 25's one process within ``DDP_LIMITS``, the ranks bit-equal;
+   each rank's launches asserted (an eval batch K5 24, K6 24, K4 12, K1
+   12, resolve once a scene; a train step K1 24, K2 24); peak GiB a rank
+   against one process, the exchanges.
+
+The space phases' rank functions run in any ``n_data x n_space`` layout
+(``scripts/nccl_smoke.py`` runs them at (1, 4) and (2, 2) over NCCL on four
+cards): a rank's launches are then those of a whole scene or step less the
+blocks of the Swin stages where its slab holds no windows.
 
 Times are device ms per call from CUDA events around 20 back-to-back
 calls queued behind a sleep kernel (so the host's launch gaps do not
@@ -263,8 +280,8 @@ eval, FCOS train, the CNN eval paths, the ResNet train path, the RCNN
 fine-tune and features paths, phase 25's ``--gpus 0`` paths, phase 26's
 evals from each format and phase 27's evals, on the ranks and in one
 process, phase 29's native OBB train epoch, phase 30's eval of the
-extracted scene and phases 32's and 33's evals and train steps on each
-rank) runs
+extracted scene and phases 32's, 33's and 34's evals and train steps on
+each rank) runs
 with the launch counts set to 0 just before it and
 read just after; a kernel's ``launches`` in the record is its sum over them.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` line and ``{"ok":
@@ -2255,15 +2272,19 @@ def run_rcnn_path(torch, workdir, rpn_ckpt):
     """``train_rcnn.sh``'s path: synthetic OBB scenes at 200x200x130 (4
     train, 2 validation, 2 test); their proposals and FPN levels from
     ``run_rpn --mode eval --rotated_bbox --save_results --output_all`` with
-    the OBB RPN's ``model_best`` (``rpn_ckpt``); ``run_rpn_detect --mode
+    the OBB RPN's ``model_best`` (``rpn_ckpt``), half the scenes in each of
+    two processes; ``run_rpn_detect --mode
     train`` with every flag of the script, ``--pretrained rpn_ckpt``, one
     epoch with validation and checkpoints; ``--mode eval --checkpoint
     <save>/model_best --output_proposals``.  Returns the launches and the
     paths later phases read."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
 
     from nerf_rpn_tpu_torch import kernels
-    from nerf_rpn_tpu_torch.cli import run_rpn, run_rpn_detect
+    from nerf_rpn_tpu_torch.cli import run_rpn_detect
     from nerf_rpn_tpu_torch.data.synthetic import write_synthetic_dataset
 
     path = "rcnn train"
@@ -2272,13 +2293,23 @@ def run_rcnn_path(torch, workdir, rpn_ckpt):
                             seed=3, rotated=True, box_size=(20.0, 50.0))
     results = os.path.join(workdir, "rpn200_obb", "results")
     t0 = time.perf_counter()
-    run_rpn.main(["--mode", "eval", "--checkpoint", rpn_ckpt, "--backbone_type", "swin_s",
-                  "--bf16", "--rotated_bbox", "--resolution", "200", "--pad_multiple", "16",
-                  "--device", "cuda",
-                  "--features_path", data, "--boxes_path", data,
-                  "--dataset_split", os.path.join(data, "split.npz"),
-                  "--save_path", os.path.dirname(results), "--save_results", "--output_all"])
-    torch.cuda.synchronize()
+    stage1 = ["--mode", "eval", "--checkpoint", rpn_ckpt, "--backbone_type", "swin_s", "--bf16",
+              "--rotated_bbox", "--resolution", "200", "--pad_multiple", "16", "--device",
+              "cuda", "--features_path", data, "--boxes_path", data, "--save_results",
+              "--save_results_path", results, "--output_all"]
+    # the levels are written as Python floats, seconds of host time a scene:
+    # two processes at once each evaluate and write every other scene of
+    # each set (eval batches of one scene: the same files as one process)
+    with np.load(os.path.join(data, "split.npz")) as z:
+        split = {k: z[k] for k in z.files}
+    argvs = []
+    for i in (0, 1):
+        part = os.path.join(workdir, f"split200_part{i}.npz")
+        np.savez(part, **{k: v[i::2] for k, v in split.items()})
+        argvs.append([*stage1, "--dataset_split", part,
+                      "--save_path", os.path.join(workdir, "rpn200_obb", f"part{i}")])
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        list(pool.map(_run_rpn, argvs))
     n_rois = []
     for name in sorted(os.listdir(os.path.join(results, "proposals"))):
         with np.load(os.path.join(results, "proposals", name)) as z:
@@ -2334,6 +2365,17 @@ def run_rcnn_path(torch, workdir, rpn_ckpt):
     for k, v in eval_launches.items():
         launches[k] += v
     return launches, data, results, common
+
+
+def _run_rpn(argv):
+    """``run_rpn.main(argv)`` in a process of its own, the device drained
+    after it."""
+    import torch
+
+    from nerf_rpn_tpu_torch.cli import run_rpn
+
+    run_rpn.main(argv)
+    torch.cuda.synchronize()
 
 
 def time_rcnn_steps(torch, common, steps=20, warmup=3, scenes=10):
@@ -2499,9 +2541,11 @@ def run_rcnn_features_path(torch, workdir, data, results):
     RoIs and the output; 136 f32 operations a bin and channel),
     ``train_rcnn.sh``'s 3^3 bins and 2^3 samples, max (the driver's
     default) and avg."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
 
-    from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.cli import run_rpn_detect
     from nerf_rpn_tpu_torch.ops.obb import obb2hbb_3d
     from nerf_rpn_tpu_torch.ops.roi_align import multilevel_roi_align_batched
@@ -2512,21 +2556,25 @@ def run_rcnn_features_path(torch, workdir, data, results):
     launches, common_of = None, {}
     for form, d, rois in (("obb", data, os.path.join(results, "proposals")),
                           ("aabb", aabb_data, aabb_rois)):
-        path = f"rcnn features {form}"
         save = os.path.join(workdir, f"rcnn_features_{form}")
-        common = [*_rcnn_common(d, rois, save, feats_dir), "--dataset_split", split,
-                  "--output_size", "3", "3", "3", "--is_add_layer", "--is_flatten",
-                  "--cls_batch_size", "256", "--batch_size", "2", "--fg_threshold", "0.25",
-                  "--bg_threshold", "0.25", *(["--rotated_bbox"] if form == "obb" else [])]
-        common_of[form] = common
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1",
-                                      "--log_interval", "1", *common])
-        report = run_rpn_detect.main(["--mode", "eval", "--checkpoint",
-                                      os.path.join(save, "model_best"), *common])
-        torch.cuda.synchronize()
-        got = kernels.counts()
+        common_of[form] = [*_rcnn_common(d, rois, save, feats_dir), "--dataset_split", split,
+                           "--output_size", "3", "3", "3", "--is_add_layer", "--is_flatten",
+                           "--cls_batch_size", "256", "--batch_size", "2", "--fg_threshold",
+                           "0.25", "--bg_threshold", "0.25",
+                           *(["--rotated_bbox"] if form == "obb" else [])]
+    # the two forms' runs load the same saved levels (Python floats:
+    # seconds a scene of host time), each in a process of its own at once,
+    # while this process loads RoI align's scenes
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = {form: pool.submit(_features_form, common,
+                                  os.path.join(workdir, f"rcnn_features_{form}"))
+                for form, common in common_of.items()}
+        trainer = run_rpn_detect.Trainer(run_rpn_detect.parse_args(
+            ["--mode", "eval", *common_of["obb"], "--num_workers", "0"]))
+        host, _ = next(iter(trainer.batches(trainer.dataset(list(scenes["train_scenes"])))))
+        runs = {form: run.result() for form, run in runs.items()}
+    for form, (logged, report, got, seconds) in runs.items():
+        path = f"rcnn features {form}"
         if len(logged) != 1 or not np.isfinite(logged[0]["loss"]):
             fail(f"{path}: logged {logged}")
         if not np.isfinite(report["classification"]["accuracy"]):
@@ -2536,16 +2584,13 @@ def run_rcnn_features_path(torch, workdir, data, results):
         if any(got[k] != v for k, v in want.items()) or any(got[k] for k in SWIN_KERNELS):
             fail(f"{path}: launches {got}, expected {want} and no Swin kernel")
         m = logged[0]
-        print(f"[{path}] 1 epoch + eval in {time.perf_counter() - t0:.1f} s; loss "
+        print(f"[{path}] 1 epoch + eval in {seconds:.1f} s (beside the other form); loss "
               f"{m['loss']:.4f} (fg {m['fg_rois']:.0f} / bg {m['bg_rois']:.0f}); AP@25 "
               f"{report['ap_25']['ap']:.4f}, accuracy {report['classification']['accuracy']:.4f}",
               flush=True)
         launches = got if launches is None else {k: launches[k] + v for k, v in got.items()}
 
     # RoI align alone at 2 x 1024 RoIs: the OBB RoIs and their enclosing boxes
-    trainer = run_rpn_detect.Trainer(run_rpn_detect.parse_args(
-        ["--mode", "eval", *common_of["obb"], "--num_workers", "0"]))
-    host, _ = next(iter(trainer.batches(trainer.dataset(list(scenes["train_scenes"])))))
     b = trainer.device_batch(host)
     rows = {}
     for form in ("obb", "aabb"):
@@ -2570,6 +2615,26 @@ def run_rcnn_features_path(torch, workdir, data, results):
     print(f"[rcnn features] RoI align at {tuple(b['rois'].shape[:2])}, f32, 256 channels: "
           + json.dumps(rows), flush=True)
     return launches, rows
+
+
+def _features_form(common, save):
+    """One form of phase 24 in a process of its own: ``run_rpn_detect
+    --mode train`` for one epoch, then ``--mode eval`` of its
+    ``model_best``, with ``common``; returns the logged metrics, the
+    report, the launches of both runs and their seconds."""
+    import torch
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.cli import run_rpn_detect
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    logged = run_rpn_detect.main(["--mode", "train", "--num_epochs", "1", "--log_interval",
+                                  "1", *common])
+    report = run_rpn_detect.main(["--mode", "eval", "--checkpoint",
+                                  os.path.join(save, "model_best"), *common])
+    torch.cuda.synchronize()
+    return logged, report, kernels.counts(), time.perf_counter() - t0
 
 
 def _roi_align_bytes(torch, b, rois, rotated, out):
@@ -2641,12 +2706,12 @@ DDP_LIMITS = {
 }
 
 
-def _ddp_case(torch, name, dev):
+def _ddp_case(torch, name, dev, scenes=2):
     """Phase 25's step ``name``: ``(model, batch, sample, run)``, the same
     in every process on ``dev`` -- weights drawn from a seeded generator on
-    ``dev``, two unlike scenes, the anchor or RoI sample of both scenes
-    (None: FCOS), ``run(model, state, batch, sample) -> metrics``;
-    drop-path off."""
+    ``dev``, ``scenes`` unlike scenes (the odd ones ramps of rising power),
+    the anchor or RoI sample of every scene (None: FCOS), ``run(model,
+    state, batch, sample, space=None) -> metrics``; drop-path off."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.models import detector as det
@@ -2662,38 +2727,42 @@ def _ddp_case(torch, name, dev):
     shape, backbone = spec["shape"], spec["backbone"]
     dtype = getattr(torch, spec.get("dtype", "float32"))
     rng = np.random.default_rng(25)
-    grids = rng.uniform(0, 1, (2, *shape, 4)).astype(np.float32)
+    grids = rng.uniform(0, 1, (scenes, *shape, 4)).astype(np.float32)
     ramp = np.linspace(0, 1, shape[0], dtype=np.float32)[:, None, None, None]
-    grids[1] = 0.1 * grids[1] + 3.0 * ramp ** 2
-    # OBBs of a 160^3 scene, scaled to the grid
+    for i in range(1, scenes, 2):
+        grids[i] = 0.1 * grids[i] + 3.0 * ramp ** (2 + i // 2)
+    # OBBs of a 160^3 scene pair (a later pair's moved along x), scaled to
+    # the grid
     obb = np.array([[[40, 40, 55, 50, 35, 60, 0.4], [110, 115, 70, 45, 60, 50, -1.1],
                      [40, 125, 125, 30, 45, 45, 1.3]],
                     [[50, 40, 30, 90, 70, 50, -0.2], [70, 80, 95, 35, 45, 40, 0.8],
                      [0, 0, 0, 0, 0, 0, 0]]], np.float32)
+    obb = np.concatenate([obb + np.float32([4 * k, 0, 0, 0, 0, 0, 0])
+                          for k in range(-(-scenes // 2))])[:scenes]
     obb[..., :6] *= shape[0] / 160
     if spec["head"] == "rcnn":
-        rois, levels = _random_rois(np, rng, 2, 512, shape, True,
+        rois, levels = _random_rois(np, rng, scenes, 512, shape, True,
                                     size=(shape[0] / 10, shape[0] * 0.3))
         batch = _ddp_batch(torch, dev, dtype, grids=grids, rois=rois, roi_levels=levels,
-                           roi_valid=np.ones((2, 512), bool), gt_boxes=rois[:, :3],
-                           gt_mask=np.ones((2, 3), bool))
-        cfg = det.RCNNConfig(rotated=True, batch_size=256, fg_threshold=0.25,
-                             bg_threshold=0.25, output_size=(3, 3, 3), pool_mode="max")
+                           roi_valid=np.ones((scenes, 512), bool), gt_boxes=rois[:, :3],
+                           gt_mask=np.ones((scenes, 3), bool))
+        cfg = _ddp_rcnn_cfg(det)
         model = det.RCNNDetector(det.RCNNHead(256, 2, True, True, True, (3, 3, 3)),
                                  build_backbone(backbone, shape[0]))
         sample = det.sample_rois(cfg, torch.Generator(dev).manual_seed(0), batch["rois"],
                                  batch["roi_levels"], batch["roi_valid"], batch["gt_boxes"],
                                  batch["gt_mask"], 128)["indices"]
 
-        def run(model, state, batch, sample):
-            step = make_rcnn_train_step(model, cfg, SCALES, 128, reg_loss_weight=5.0)
+        def run(model, state, batch, sample, space=None):
+            step = make_rcnn_train_step(model, cfg, SCALES, 128, reg_loss_weight=5.0,
+                                        space=space)
             return step(state, batch, None, indices=sample)
     else:
         rotated = backbone.startswith("swin")
         gt = obb if rotated else np.concatenate(
             [obb[..., :3] - obb[..., 3:6] / 2, obb[..., :3] + obb[..., 3:6] / 2], -1)
         batch = _ddp_batch(torch, dev, dtype, grids=grids, gt_boxes=gt, gt_mask=obb[..., 3] > 0,
-                           ori_sizes=np.array([shape, shape], np.int32))
+                           ori_sizes=np.array([shape] * scenes, np.int32))
         if spec["head"] == "fcos":
             cfg = FCOSConfig(rotated=True, center_sampling_radius=1.5, iou_loss_type="iou",
                              norm_reg_targets=True)
@@ -2730,19 +2799,26 @@ def _ddp_case(torch, name, dev):
     return model.to(dtype), batch, sample, run
 
 
+def _ddp_rcnn_cfg(det):
+    """Phase 25's RCNN configuration (``train_rcnn.sh``'s: OBB, 3^3 bins,
+    fg / bg at 0.25; max pooling)."""
+    return det.RCNNConfig(rotated=True, batch_size=256, fg_threshold=0.25, bg_threshold=0.25,
+                          output_size=(3, 3, 3), pool_mode="max")
+
+
 def _ddp_batch(torch, dev, dtype, **arrays):
     """Host arrays -> tensors on ``dev``, the float ones in ``dtype``."""
     return {k: torch.from_numpy(np_array).to(dev, dtype) if np_array.dtype.kind == "f"
             else torch.from_numpy(np_array).to(dev) for k, np_array in arrays.items()}
 
 
-def _ddp_scene(x, r):
-    """Rank r's scene of a batch or a sample."""
+def _ddp_scene(x, r, k=1):
+    """Rank r's block of ``k`` scenes of a batch or a sample."""
     if isinstance(x, dict):
-        return {k: v[r:r + 1] for k, v in x.items()}
+        return {key: v[r * k:(r + 1) * k] for key, v in x.items()}
     if isinstance(x, list):
-        return [t[r:r + 1] for t in x]
-    return None if x is None else x[r:r + 1]
+        return [t[r * k:(r + 1) * k] for t in x]
+    return None if x is None else x[r * k:(r + 1) * k]
 
 
 def _ddp_step(torch, model, run, batch, sample):
@@ -2756,24 +2832,28 @@ def _ddp_step(torch, model, run, batch, sample):
             {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()})
 
 
-def _ddp_rank(work, dev):
-    """A rank of phase 25 (a): every case on its scene, after rank 1's
-    weights were shifted and ``broadcast_module_`` gave it rank 0's back.
-    Writes ``ddp_rank<r>.pt``: the metrics, rank 0's weights after the
-    step, whether the ranks' weights are bit-equal (rank 0's broadcast
-    and compared), K1 and K2 launches, peak GiB and, for the Swin-S RPN,
-    the gradient all-reduce's ms."""
+def _ddp_rank(work, dev, per_rank=None, step_reps=0):
+    """A rank of phase 25 (a): every case on its block of the global batch
+    (``per_rank``: scenes a rank by case, default 1), after the other
+    ranks' weights were shifted and ``broadcast_module_`` gave them rank
+    0's back.  Writes ``ddp_rank<r>.pt``: the metrics, rank 0's weights
+    after the step, whether the ranks' weights are bit-equal (rank 0's
+    broadcast and compared), K1 and K2 launches, peak GiB, with
+    ``step_reps`` the ms a step (host clock over that many more steps)
+    and, for the Swin-S RPN, the gradient all-reduce's ms."""
     import torch
     import torch.distributed as dist
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.parallel import ddp
+    from nerf_rpn_tpu_torch.train.state import TrainState
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     r, out = ddp.rank(), {}
     for name in DDP_CASES:
-        model, batch, sample, run = _ddp_case(torch, name, dev)
+        k = (per_rank or {}).get(name, 1)
+        model, batch, sample, run = _ddp_case(torch, name, dev, scenes=k * ddp.world())
         want = [t.clone() for t in model.state_dict().values()]
         if r:
             with torch.no_grad():
@@ -2785,18 +2865,18 @@ def _ddp_rank(work, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        metrics, state = _ddp_step(torch, model, run, _ddp_scene(batch, r),
-                                   _ddp_scene(sample, r))
+        part, part_sample = _ddp_scene(batch, r, k), _ddp_scene(sample, r, k)
+        metrics, state = _ddp_step(torch, model, run, part, part_sample)
         torch.cuda.synchronize()
         entry = {"metrics": metrics, "broadcast_equal": broadcast,
-                 "launches": {k: kernels.counts()[k]
-                              for k in ("window_attention_fwd", "window_attention_bwd")},
+                 "launches": {c: kernels.counts()[c]
+                              for c in ("window_attention_fwd", "window_attention_bwd")},
                  "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
-        ref = flat.clone()
-        dist.broadcast(ref, 0)
-        entry["ranks_equal"] = bool(torch.equal(flat, ref))
-        del flat, ref
+        entry["ranks_equal"] = ranks_bit_equal(torch, dist, model.state_dict().values())
+        if step_reps:
+            timed = TrainState(model, DDP_LR, 10)
+            entry["step_ms"] = _ms(torch, lambda: run(model, timed, part, part_sample),
+                                   step_reps)
         if name == DDP_TIMED:
             grads = [torch.ones_like(p) for p in model.parameters()]
             ddp.all_reduce_grads_(grads)  # warm-up
@@ -2811,19 +2891,29 @@ def _ddp_rank(work, dev):
         if r == 0:
             entry["state"] = state
         out[name] = entry
-        del model, batch, sample, state
+        del model, batch, sample, state, part, part_sample
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(work, f"ddp_rank{r}.pt"))
 
 
+def ranks_bit_equal(torch, dist, tensors):
+    """Whether this rank's ``tensors`` equal rank 0's bit for bit: their
+    bytes, broadcast from rank 0 and compared."""
+    flat = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    return bool(torch.equal(flat, ref))
+
+
 def _paired_ranks(work, cases, dev):
-    """The two ranks of phases 25 (a), 27, 32 and 33, started once: phase
-    25's steps, phase 27's ``cases``, then phase 32's and phase 33's space
-    axis."""
+    """The two ranks of phases 25 (a), 27, 32, 33 and 34, started once:
+    phase 25's steps, phase 27's ``cases``, then the space axis of phases
+    32, 33 and 34 (one space group of the two ranks)."""
     _ddp_rank(work, dev)
     _eval_split_rank(os.path.join(work, "eval_split"), cases, dev)
     _space_rank(os.path.join(work, "space"), dev)
     _space_fcos_vgg_rank(os.path.join(work, "space33"), dev)
+    _space_rcnn_rank(os.path.join(work, "space34"), dev)
 
 
 def step_readings(got, got_state, metrics, state, params):
@@ -2867,7 +2957,7 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
     reference.  Prints the Swin-S RPN's gradient all-reduce ms after
     ``card`` (the ``nvidia-smi`` name and power limit); returns the
     one-process steps ``(metrics, state, params, peak GiB)`` of the Swin-S
-    RPN and FCOS cases by name, which phases 32 and 33 read."""
+    RPN, FCOS and RCNN cases by name, which phases 32-34 read."""
     import numpy as np
 
     from nerf_rpn_tpu_torch.models.swin import SWIN_VARIANTS
@@ -2940,7 +3030,7 @@ def check_ddp_steps(torch, dev, work, cases, card=""):
           f"gradient all-reduce "
           f"({timed[0]['grad_mib']:.1f} MiB f32) {timed[0]['grad_all_reduce_ms']:.2f} ms on "
           f"rank 0, {timed[1]['grad_all_reduce_ms']:.2f} ms on rank 1", flush=True)
-    return {name: refs[name] for name in (DDP_TIMED, SPACE_FCOS_TRAIN)}
+    return {name: refs[name] for name in (DDP_TIMED, SPACE_FCOS_TRAIN, SPACE_RCNN)}
 
 
 # Phase 32: the space axis (``parallel/space.py``) on phase 25's two ranks,
@@ -2951,6 +3041,8 @@ SPACE_EVALS = {"bf16 aabb": ("bfloat16", False), "bf16 obb": ("bfloat16", True),
                "f32 aabb": ("float32", False)}
 SPACE_TIMED = "bf16 aabb"
 SPACE_REPS = 5
+# the train steps' ms on the ranks: a mean over this many steps
+SPACE_TRAIN_REPS = 2
 SPACE_BACKBONE = "swin_s"
 SPACE_SIZE = None  # None: the bench scene, run_rpn.BENCH_SHAPE, padded to 16
 
@@ -2998,10 +3090,10 @@ def _ms(torch, fn, reps):
 
 
 def _traced(torch, sp, fn):
-    """The exchanges of one ``fn()`` by kind: count, MiB reaching the rank,
-    ms (``space.trace_exchanges``)."""
+    """``(fn(), its exchanges by kind: count, MiB reaching the rank, ms)``
+    (``space.trace_exchanges``)."""
     with sp.trace_exchanges() as log:
-        fn()
+        result = fn()
     torch.cuda.synchronize()
     out = {}
     for kind, nbytes, ms in log:
@@ -3009,7 +3101,7 @@ def _traced(torch, sp, fn):
         row["count"] += 1
         row["mib"] += nbytes / 2 ** 20
         row["ms"] += ms
-    return out
+    return result, out
 
 
 def space_eval_references(torch, dev):
@@ -3043,8 +3135,8 @@ def time_alone(torch, dev, eval_case=None):
     """Phases 32's and 33's one-process times in this process, which the
     ranks' are read against in turns (before and after them): the bf16
     AABB eval's ms a scene (``eval_case``: its eval step, grids and sizes,
-    if built), and phase 25's Swin-S OBB RPN and FCOS train steps' ms (two
-    steps after a warm-up one)."""
+    if built), and phase 25's Swin-S OBB RPN and FCOS train steps' ms
+    (``SPACE_TRAIN_REPS`` steps after a warm-up one)."""
     from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
 
@@ -3060,86 +3152,157 @@ def time_alone(torch, dev, eval_case=None):
         model, batch, sample, run = _ddp_case(torch, name, dev)
         state = TrainState(model, DDP_LR, 10)
         run(model, state, batch, sample)
-        out[key] = _ms(torch, lambda: run(model, state, batch, sample), 2)
+        out[key] = _ms(torch, lambda: run(model, state, batch, sample), SPACE_TRAIN_REPS)
         del model, batch, state
         torch.cuda.empty_cache()
     return out
 
 
+def _space_layout(sp, ddp):
+    """The launch's ``n_data x n_space`` layout (``ddp.launch(...,
+    n_space=)``), or, where the launch made none, one space group of the
+    world (phase 25's two ranks), made once."""
+    groups = ddp.space_groups()
+    return groups if groups is not None else sp.make_groups(1, ddp.world())
+
+
+def _eval_part(sp, groups, grids, ori):
+    """A rank's part of a one-scene eval: the scene once for each data
+    group (a data group of its own evaluates it), the rank's slab of it."""
+    n = groups.n_data
+    return (sp.shard_grid(grids.repeat(n, *(1,) * (grids.dim() - 1)), groups),
+            ori.repeat(n, 1)[groups.data_index:groups.data_index + 1])
+
+
+def _stage_windows(model, src):
+    """Per Swin stage of ``model``'s backbone: its blocks and whether this
+    rank's slab of ``src`` holds windows there; [] for a CNN backbone."""
+    from nerf_rpn_tpu_torch.models.swin import SwinBlock, SwinFPN
+
+    bb = model.backbone
+    if not isinstance(bb, SwinFPN):
+        return []
+    return [(sum(isinstance(m, SwinBlock) for m in stage), sl.col_hi > sl.col_lo)
+            for stage, sl in zip(bb.stages, bb.level_slabs(src))]
+
+
+def slab_launches(whole, windows):
+    """A rank's launches on the space path: ``whole``, those of one scene
+    or train step, less the blocks of the Swin stages (``windows``, from
+    ``_stage_windows``) where the rank's slab holds no windows -- the
+    wrappers launch nothing for 0 windows: K5, K6 and K2 one a block, K4
+    one a shifted (odd) block, K1 one an unshifted block in eval and one a
+    block in train."""
+    out = dict(whole)
+    train = bool(whole.get("window_attention_bwd"))
+    for blocks, have in windows:
+        if have:
+            continue
+        shifted = blocks // 2
+        for name, n in (("ln_partition_qkv", blocks), ("fused_mlp_block", blocks),
+                        ("fused_window_attention", shifted), ("window_attention_bwd", blocks),
+                        ("window_attention_fwd", blocks if train else blocks - shifted)):
+            if out.get(name):
+                out[name] -= n
+    return out
+
+
+def expected_launches(whole, windows, device_type):
+    """``slab_launches`` where the rank ran on the card; none on the CPU,
+    where the wrappers run their plain twins (a CPU rehearsal)."""
+    return _nonzero(slab_launches(whole, windows)) if device_type == "cuda" else {}
+
+
+def _rank_step(torch, dist, kernels, sp, run, model, state, part, sample, groups):
+    """One train step on the space axis, the launch counts set to 0 just
+    before it and read just after: the metrics, launches, peak GiB, its
+    exchanges, whether the ranks' weights are bit-equal after it, rank 0's
+    weights."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    metrics, exchanges = _traced(torch, sp, lambda: run(model, state, part, sample,
+                                                         space=groups))
+    torch.cuda.synchronize()
+    train = {"metrics": {k: float(v) for k, v in metrics.items()},
+             "launches": kernels.counts(), "exchanges": exchanges,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    train["ranks_equal"] = ranks_bit_equal(torch, dist, model.state_dict().values())
+    if dist.get_rank() == 0:
+        train["state"] = {k: v.detach().to("cpu", copy=True)
+                          for k, v in model.state_dict().items()}
+    return train
+
+
+def _space_train(torch, dist, kernels, sp, name, dev, groups, timed=True):
+    """Phase 25's step ``name`` with its scenes split along x over the space
+    group (and over the data groups): ``_rank_step``'s readings, the
+    stages' windows and, if ``timed``, the ms a step over
+    ``SPACE_TRAIN_REPS`` more."""
+    from nerf_rpn_tpu_torch.train.state import TrainState
+
+    model, batch, sample, run = _ddp_case(torch, name, dev)
+    part = sp.shard_batch(batch, groups)
+    k = batch["grids"].shape[0] // groups.n_data
+    part_sample = _ddp_scene(sample, groups.data_index, k)
+    state = TrainState(model, DDP_LR, 10)
+    train = _rank_step(torch, dist, kernels, sp, run, model, state, part, part_sample, groups)
+    src = sp.input_slab(groups, batch["grids"].shape[1])
+    train.update(windows=_stage_windows(model, src), device=dev.type)
+    if timed:
+        train["ms"] = _ms(torch, lambda: run(model, state, part, part_sample, space=groups),
+                          SPACE_TRAIN_REPS)
+    del model, batch, part, state
+    torch.cuda.empty_cache()
+    return train
+
+
 def _space_rank(work, dev):
-    """A rank of phase 32, in a space group of the two ranks: each eval of
-    ``SPACE_EVALS`` on its slab (warmed up, then one scene with the launch
-    counts set to 0 just before it and read just after, its peak GiB);
-    the bf16 AABB eval's ms a scene (over ``SPACE_REPS``) and its
-    exchanges; phase 25's Swin-S OBB RPN train step with both scenes split
-    along x (K1 and K2 launches, peak GiB, whether the ranks' weights are
-    bit-equal after it), its exchanges and ms a step (over two).
-    The one process's times come from this process before and after the
-    ranks (``time_alone``: a one-process train step in a group of two
-    would all-reduce with a rank that runs none).  Writes
-    ``space_rank<r>.pt``."""
+    """A rank of phase 32, in the launch's space layout (phase 25's two
+    ranks: one space group): each eval of ``SPACE_EVALS`` on its slab
+    (warmed up, then one scene with the launch counts set to 0 just before
+    it and read just after, its peak GiB); the bf16 AABB eval's ms a scene
+    (over ``SPACE_REPS``) and its exchanges; phase 25's Swin-S OBB RPN
+    train step with both scenes split along x (K1 and K2 launches, peak
+    GiB, whether the ranks' weights are bit-equal after it), its exchanges
+    and ms a step (over two).  The one process's times come from this
+    process before and after the ranks (``time_alone``: a one-process train
+    step in a group of two would all-reduce with a rank that runs none).
+    Writes ``space_rank<r>.pt``."""
     import torch
     import torch.distributed as dist
 
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.parallel import ddp
     from nerf_rpn_tpu_torch.parallel import space as sp
-    from nerf_rpn_tpu_torch.train.state import TrainState
     from nerf_rpn_tpu_torch.train.steps import make_rpn_eval_step
 
     os.makedirs(work, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
-    groups = sp.make_groups(1, 2)
+    groups = _space_layout(sp, ddp)
     r, out = ddp.rank(), {"evals": {}}
-    try:
-        for name in SPACE_EVALS:
-            model, cfg, shape, grids, ori = _space_eval_case(torch, name, dev)
-            step = make_rpn_eval_step(model, cfg, shape, device=dev, space=groups)
-            part = sp.shard_grid(grids, groups)
-            step(part, ori)  # warm-up: plans, masks, cuDNN
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_counts()
-            entry = _eval_outputs(step, part, ori)
-            torch.cuda.synchronize()
-            entry.update(launches=kernels.counts(),
-                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-            if name == SPACE_TIMED:
-                entry["ms"] = _ms(torch, lambda: step(part, ori), SPACE_REPS)
-                entry["exchanges"] = _traced(torch, sp, lambda: step.forward(part))
-            out["evals"][name] = entry
-            del model, grids, part, step
-            torch.cuda.empty_cache()
-
-        model, batch, sample, run = _ddp_case(torch, DDP_TIMED, dev)
-        part = sp.shard_batch(batch, groups)
-        state = TrainState(model, DDP_LR, 10)
+    for name in SPACE_EVALS:
+        model, cfg, shape, grids, ori = _space_eval_case(torch, name, dev)
+        step = make_rpn_eval_step(model, cfg, shape, device=dev, space=groups)
+        part, part_ori = _eval_part(sp, groups, grids, ori)
+        step(part, part_ori)  # warm-up: plans, masks, cuDNN
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        metrics = run(model, state, part, sample, space=groups)
+        entry, exchanges = _traced(torch, sp, lambda: _eval_outputs(step, part, part_ori))
         torch.cuda.synchronize()
-        train = {"metrics": {k: float(v) for k, v in metrics.items()},
-                 "launches": kernels.counts(),
-                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
-        ref = flat.clone()
-        dist.broadcast(ref, 0)
-        train["ranks_equal"] = bool(torch.equal(flat, ref))
-        if r == 0:
-            train["state"] = {k: v.detach().to("cpu", copy=True)
-                              for k, v in model.state_dict().items()}
-        del flat, ref
-        train["exchanges"] = _traced(torch, sp, lambda: run(model, state, part, sample,
-                                                              space=groups))
-        train["ms"] = _ms(torch, lambda: run(model, state, part, sample, space=groups), 2)
-        out["train"] = train
-        del model, batch, part, state
+        entry.update(launches=kernels.counts(), exchanges=exchanges,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                     windows=_stage_windows(model, sp.input_slab(groups, shape[0])),
+                     device=dev.type)
+        if name == SPACE_TIMED:
+            entry["ms"] = _ms(torch, lambda: step(part, part_ori), SPACE_REPS)
+        out["evals"][name] = entry
+        del model, grids, part, step
         torch.cuda.empty_cache()
-    finally:
-        ddp.set_layout(None)
+    out["train"] = _space_train(torch, dist, kernels, sp, DDP_TIMED, dev, groups)
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, os.path.join(work, f"space_rank{r}.pt"))
 
@@ -3228,37 +3391,60 @@ def _space_eval_row(torch, np, pairs, got, want, dtype, rotated, noise, truth,
     return row, ok
 
 
+# the launches of one Swin-S train step (K1 and K2 a block), which a rank's
+# are read against (``slab_launches``)
+TRAIN_STEP_LAUNCHES = {"window_attention_fwd": 24, "window_attention_bwd": 24}
+
+
+def _nonzero(launches):
+    return {k: int(v) for k, v in launches.items() if v}
+
+
 def _space_train_check(torch, np, train, ref, one_process_ms, case, card, tag):
     """A train step on the ranks (``train``: each rank's entry) against
     phase 25's one process (``ref``: metrics, state, parameter names, peak
-    GiB): the readings within ``DDP_LIMITS``, the ranks bit-equal, K1 and
-    K2 24 a rank.  Prints the row after ``tag``; returns ``(launches by
-    path, failures)``."""
+    GiB): the readings within ``DDP_LIMITS``, the ranks bit-equal (metrics
+    too), each rank's launches K1 and K2 one a block of its stages that
+    hold windows (24 each where every stage does; ``slab_launches``), the
+    sampled counts equal.  Prints the row after ``tag``; returns
+    ``(launches by path, failures)``."""
     metrics, state, params, peak = ref
     read, flips = step_readings(train[0]["metrics"], train[0]["state"], metrics, state, params)
     row = {"case": case, "readings": read, "limits": DDP_LIMITS["float32"],
            "flipped_steps": flips, "ranks_equal": [t["ranks_equal"] for t in train],
            "one_process_peak_gib": peak, "rank_peak_gib": [t["peak_gib"] for t in train],
-           "launches_per_rank": [{k: v for k, v in t["launches"].items() if v} for t in train],
-           "ms": train[0]["ms"], "one_process_ms": one_process_ms,
+           "launches_per_rank": [_nonzero(t["launches"]) for t in train],
+           "ms": train[0].get("ms"), "one_process_ms": one_process_ms,
            "exchanges": train[0]["exchanges"]}
     print(f"[{tag}] {card}:", json.dumps(row), flush=True)
     paths, bad = {}, []
     for r, t in enumerate(train):
         paths[f"{tag} rank {r}"] = t["launches"]
-        if {k: v for k, v in t["launches"].items() if v} != {"window_attention_fwd": 24,
-                                                             "window_attention_bwd": 24}:
-            bad.append(f"{case} rank {r}: launches {t['launches']}, K1 24 and K2 24 expected")
-    if not all(t["ranks_equal"] for t in train) or train[0]["metrics"] != train[1]["metrics"]:
+        want = expected_launches(TRAIN_STEP_LAUNCHES, t["windows"], t["device"])
+        if _nonzero(t["launches"]) != want:
+            bad.append(f"{case} rank {r}: launches {_nonzero(t['launches'])}, {want} expected")
+    if not all(t["ranks_equal"] and t["metrics"] == train[0]["metrics"] for t in train):
         bad.append(f"{case}: the ranks differ after the step")
-    if train[0]["metrics"].get("dropped_positives") != metrics.get("dropped_positives"):
-        bad.append(f"{case}: dropped_positives differs from the one process's")
+    counts = [k for k in metrics if k.endswith("_rois") or k == "dropped_positives"]
+    if any(train[0]["metrics"][k] != metrics[k] for k in counts):
+        bad.append(f"{case}: counts {[(train[0]['metrics'][k], metrics[k]) for k in counts]} "
+                   "differ from the one process's")
     bad += [f"{case}: {k} {v} over its limit {DDP_LIMITS['float32'][k]}"
             for k, v in read.items() if not (np.isfinite(v) and v <= DDP_LIMITS["float32"][k])]
     return paths, bad
 
 
-def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
+def _load_ranks(torch, work, tag):
+    """Every rank's ``<tag>_rank<r>.pt`` under ``work``, in rank order."""
+    out = []
+    while os.path.exists(path := os.path.join(work, f"{tag}_rank{len(out)}.pt")):
+        out.append(torch.load(path, weights_only=False))
+    if not out:
+        fail(f"{tag}: no rank wrote its results under {work}")
+    return out
+
+
+def check_space_axis(torch, work, eval_refs, train_ref, alone, card="", tag="space axis"):
     """Phase 32's checks of the ranks' results (``_space_rank``) against
     the one process's: f32, the level outputs within ``close_enough`` (1e-5
     of the scale) and the proposals the same set (``same_proposal_sets``)
@@ -3266,21 +3452,21 @@ def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
     ``matched_proposals``), with each level's difference in ulps of its
     largest output beside it;
     each rank's launches those of one eval scene (K5 24, K6 24, K4 12, K1
-    12, resolve 1, K3 1 on AABBs); the train step's readings within phase
-    25's ``DDP_LIMITS`` of phase 25's one process, the ranks bit-equal, K1
-    and K2 24 a rank.  Prints each reading beside ``card``, with the one
-    process's times (``alone``: before and after the ranks), and returns
-    the launches by path."""
+    12, resolve 1, K3 1 on AABBs) less the blocks of the stages where its
+    slab holds no windows (``slab_launches``); the train step's readings
+    within phase 25's ``DDP_LIMITS`` of phase 25's one process, the ranks
+    bit-equal, K1 and K2 one a block.  Prints each reading beside ``card``
+    after ``tag``, with the one process's times (``alone``: before and after
+    the ranks), and returns the launches by path."""
     import numpy as np
 
-    ranks = [torch.load(os.path.join(work, "space", f"space_rank{r}.pt"), weights_only=False)
-             for r in (0, 1)]
+    ranks = _load_ranks(torch, os.path.join(work, "space"), "space")
     paths, bad = {}, []
     truth = eval_refs["f32 aabb"]
     f32 = [w for part in ("obj", "dl") for w in truth[part]]
     one_bf16 = [w for part in ("obj", "dl") for w in eval_refs["bf16 aabb"][part]]
     noise = max(level_rel(w, t) for w, t in zip(one_bf16, f32))
-    print(f"[space axis] {card}: the one process's bf16 AABB eval sits {noise:.4g} of a "
+    print(f"[{tag}] {card}: the one process's bf16 AABB eval sits {noise:.4g} of a "
           "level's largest output from its f32 eval", flush=True)
     for name, want in eval_refs.items():
         dtype = getattr(torch, SPACE_EVALS[name][0])
@@ -3289,8 +3475,8 @@ def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
         for r, rank in enumerate(ranks):
             got = rank["evals"][name]
             pairs = [(g, w) for part in ("obj", "dl") for g, w in zip(got[part], want[part])]
-            launches = {k: v for k, v in got["launches"].items() if v}
-            paths[f"space eval {name} rank {r}"] = got["launches"]
+            launches = _nonzero(got["launches"])
+            paths[f"{tag} eval {name} rank {r}"] = got["launches"]
             row, ok = _space_eval_row(torch, np, pairs, got, want, dtype, rotated, noise, f32)
             row = {"case": name, "rank": r, **row, "launches": launches,
                    "peak_gib": got["peak_gib"]}
@@ -3298,22 +3484,21 @@ def check_space_axis(torch, work, eval_refs, train_ref, alone, card=""):
                 row.update(ms=got["ms"], exchanges=got["exchanges"],
                            one_process_ms=[a["eval_ms"] for a in alone],
                            one_process_peak_gib=want["peak_gib"])
-            print(f"[space axis] {card}:", json.dumps(row), flush=True)
+            print(f"[{tag}] {card}:", json.dumps(row), flush=True)
             if not ok:
                 bad.append(f"eval {name} rank {r}: outputs differ from the one process's "
                            "beyond the phase's rule")
-            if launches != {k: int(v) for k, v in per_scene.items() if v}:
-                bad.append(f"eval {name} rank {r}: launches {launches}, one scene's "
-                           f"{per_scene}")
+            expected = expected_launches(per_scene, got["windows"], got["device"])
+            if launches != expected:
+                bad.append(f"eval {name} rank {r}: launches {launches}, expected {expected}")
     train_paths, train_bad = _space_train_check(
         torch, np, [rank["train"] for rank in ranks], train_ref[DDP_TIMED],
-        [a["train_ms"] for a in alone], DDP_TIMED, card, "space axis train step")
+        [a["train_ms"] for a in alone], DDP_TIMED, card, f"{tag} train step")
     paths.update(train_paths)
     bad += train_bad
-    print(f"[space axis] the ranks' part: {ranks[0]['seconds']:.1f} s (gloo on one card: "
-          "says nothing of NCCL across cards)", flush=True)
+    print(f"[{tag}] the ranks' part: {ranks[0]['seconds']:.1f} s", flush=True)
     if bad:
-        fail("space axis: " + "; ".join(bad))
+        fail(f"{tag}: " + "; ".join(bad))
     return paths
 
 
@@ -3376,18 +3561,20 @@ def _fcos_outputs(step, grids, ori):
 
 def _space33_steps(torch, dev, groups=None):
     """Phase 33's eval cases on ``dev``, one at a time: ``(name, kind,
-    step, grids, ori, outputs)`` with ``outputs(step, grids, ori)`` one
-    scene's host outputs; with ``groups`` the space axis' steps and each
-    rank's slab of the grid (the ranks run the FCOS cases and the bf16
-    VGG case)."""
+    model, step, grids, ori, outputs)`` with ``outputs(step, grids, ori)``
+    one scene's host outputs; with ``groups`` the space axis' steps and
+    each rank's part of the scene (``_eval_part``; the ranks run the FCOS
+    cases and the bf16 VGG case)."""
     from nerf_rpn_tpu_torch.parallel import space as sp
     from nerf_rpn_tpu_torch.train.steps import make_fcos_eval_step, make_rpn_eval_step
+
+    def part(grids, ori):
+        return (grids, ori) if groups is None else _eval_part(sp, groups, grids, ori)
 
     for name in SPACE_FCOS_EVALS:
         model, cfg, shape, grids, ori = _space_fcos_case(torch, name, dev)
         step = make_fcos_eval_step(model, cfg, shape, device=dev, space=groups)
-        yield name, "fcos", step, grids if groups is None else sp.shard_grid(grids, groups), \
-            ori, _fcos_outputs
+        yield (name, "fcos", model, step, *part(grids, ori), _fcos_outputs)
         del model, grids, step
         torch.cuda.empty_cache()
     for name in SPACE_VGG_EVALS:
@@ -3397,8 +3584,7 @@ def _space33_steps(torch, dev, groups=None):
             torch, {"vgg bf16 aabb": "bf16 aabb", "vgg f32 aabb": "f32 aabb"}[name], dev,
             SPACE_VGG)
         step = make_rpn_eval_step(model, cfg, shape, device=dev, space=groups)
-        yield name, "rpn", step, grids if groups is None else sp.shard_grid(grids, groups), \
-            ori, _eval_outputs
+        yield (name, "rpn", model, step, *part(grids, ori), _eval_outputs)
         del model, grids, step
         torch.cuda.empty_cache()
 
@@ -3411,7 +3597,7 @@ def space33_references(torch, dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     refs = {}
-    for name, _, step, grids, ori, outputs in _space33_steps(torch, dev):
+    for name, _, _, step, grids, ori, outputs in _space33_steps(torch, dev):
         outputs(step, grids, ori)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3425,13 +3611,14 @@ def space33_references(torch, dev):
 
 
 def _space_fcos_vgg_rank(work, dev):
-    """A rank of phase 33, in a space group of the two ranks: each FCOS
-    eval and the bf16 VGG eval on its slab (warmed up, then one scene with
-    the launch counts set to 0 just before it and read just after, its peak
-    GiB), the timed cases' ms a scene (over ``SPACE_REPS``) and exchanges
-    a forward; phase 25's Swin-S FCOS OBB train step with both scenes split
-    along x (K1 and K2 launches, peak GiB, whether the ranks' weights are
-    bit-equal after it), its exchanges and ms a step (over two).  Writes
+    """A rank of phase 33, in the launch's space layout (phase 25's two
+    ranks: one space group): each FCOS eval and the bf16 VGG eval on its
+    slab (warmed up, then one scene with the launch counts set to 0 just
+    before it and read just after, its peak GiB), the timed cases' ms a
+    scene (over ``SPACE_REPS``) and exchanges a forward; phase 25's Swin-S
+    FCOS OBB train step with both scenes split along x (K1 and K2
+    launches, peak GiB, whether the ranks' weights are bit-equal after
+    it), its exchanges and ms a step (over two).  Writes
     ``space33_rank<r>.pt``."""
     import torch
     import torch.distributed as dist
@@ -3439,57 +3626,29 @@ def _space_fcos_vgg_rank(work, dev):
     from nerf_rpn_tpu_torch import kernels
     from nerf_rpn_tpu_torch.parallel import ddp
     from nerf_rpn_tpu_torch.parallel import space as sp
-    from nerf_rpn_tpu_torch.train.state import TrainState
 
     os.makedirs(work, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
-    groups = sp.make_groups(1, 2)
+    groups = _space_layout(sp, ddp)
     r, out = ddp.rank(), {"evals": {}}
-    try:
-        for name, _, step, part, ori, outputs in _space33_steps(torch, dev, groups):
-            outputs(step, part, ori)  # warm-up: plans, masks, cuDNN
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_counts()
-            entry = outputs(step, part, ori)
-            torch.cuda.synchronize()
-            entry.update(launches=kernels.counts(),
-                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-            if name in (SPACE_FCOS_TIMED, SPACE_VGG_RANKED):
-                entry["ms"] = _ms(torch, lambda: step(part, ori), SPACE_REPS)
-                entry["exchanges"] = _traced(torch, sp, lambda: step.forward(part))
-            out["evals"][name] = entry
-            del step, part  # before the next case is built
-
-        model, batch, sample, run = _ddp_case(torch, SPACE_FCOS_TRAIN, dev)
-        part = sp.shard_batch(batch, groups)
-        state = TrainState(model, DDP_LR, 10)
+    for name, _, model, step, part, ori, outputs in _space33_steps(torch, dev, groups):
+        outputs(step, part, ori)  # warm-up: plans, masks, cuDNN
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        metrics = run(model, state, part, sample, space=groups)
+        entry, exchanges = _traced(torch, sp, lambda: outputs(step, part, ori))
         torch.cuda.synchronize()
-        train = {"metrics": {k: float(v) for k, v in metrics.items()},
-                 "launches": kernels.counts(),
-                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-        flat = torch.cat([t.reshape(-1).double() for t in model.state_dict().values()])
-        ref = flat.clone()
-        dist.broadcast(ref, 0)
-        train["ranks_equal"] = bool(torch.equal(flat, ref))
-        if r == 0:
-            train["state"] = {k: v.detach().to("cpu", copy=True)
-                              for k, v in model.state_dict().items()}
-        del flat, ref
-        train["exchanges"] = _traced(torch, sp, lambda: run(model, state, part, sample,
-                                                              space=groups))
-        train["ms"] = _ms(torch, lambda: run(model, state, part, sample, space=groups), 2)
-        out["train"] = train
-        del model, batch, part, state
-        torch.cuda.empty_cache()
-    finally:
-        ddp.set_layout(None)
+        entry.update(launches=kernels.counts(), exchanges=exchanges,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                     windows=_stage_windows(model, sp.input_slab(
+                         groups, part.shape[1] * groups.n_space)), device=dev.type)
+        if name in (SPACE_FCOS_TIMED, SPACE_VGG_RANKED):
+            entry["ms"] = _ms(torch, lambda: step(part, ori), SPACE_REPS)
+        out["evals"][name] = entry
+        del model, step, part  # before the next case is built
+    out["train"] = _space_train(torch, dist, kernels, sp, SPACE_FCOS_TRAIN, dev, groups)
     out["seconds"] = time.perf_counter() - t_start
     torch.save(out, os.path.join(work, f"space33_rank{r}.pt"))
 
@@ -3502,7 +3661,8 @@ def _parts(name, entry):
     return [*entry["obj"], *entry["dl"]]
 
 
-def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card=""):
+def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card="",
+                         tag="space axis 33"):
     """Phase 33's checks of the ranks' results (``_space_fcos_vgg_rank``)
     against the one process's, by phase 32's rules: f32, the outputs within
     ``close_enough`` and the proposals the same set (boxes and scores
@@ -3512,22 +3672,22 @@ def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card=""):
     AABBs, of the f32 eval), ``SPACE_BF16_MATCHED`` of its proposals kept;
     each rank's launches those of one eval scene (FCOS: K5 24, K6 24, K4
     12, K1 12, resolve 1, K3 1 on AABBs; VGG: K3 1, resolve 1, no Swin
-    kernel); the FCOS train step within phase 25's ``DDP_LIMITS`` of
-    phase 25's one process, the ranks bit-equal, K1 and K2 24 a rank.
-    Prints each reading beside ``card`` with the one process's peak GiB
-    and ms (``alone``: the FCOS train step's, before and after the ranks),
-    and returns the launches by path."""
+    kernel), less the blocks of the stages where its slab holds no windows
+    (``slab_launches``); the FCOS train step within phase 25's
+    ``DDP_LIMITS`` of phase 25's one process, the ranks bit-equal, K1 and
+    K2 one a block.  Prints each reading beside ``card`` after ``tag`` with
+    the one process's peak GiB and ms (``alone``: the FCOS train step's,
+    before and after the ranks), and returns the launches by path."""
     import numpy as np
 
-    ranks = [torch.load(os.path.join(work, "space33", f"space33_rank{r}.pt"),
-                        weights_only=False) for r in (0, 1)]
+    ranks = _load_ranks(torch, os.path.join(work, "space33"), "space33")
     paths, bad = {}, []
     noise = {}
     for family, (bf16, f32) in (("fcos", ("fcos bf16 aabb", "fcos f32 aabb")),
                                 ("vgg", ("vgg bf16 aabb", "vgg f32 aabb"))):
         noise[family] = max(level_rel(w, t) for w, t in zip(_parts(bf16, refs[bf16]),
                                                              _parts(f32, refs[f32])))
-        print(f"[space axis 33] {card}: the one process's {bf16} eval sits "
+        print(f"[{tag}] {card}: the one process's {bf16} eval sits "
               f"{noise[family]:.4g} of an output's largest magnitude from its f32 eval",
               flush=True)
     for name in (*SPACE_FCOS_EVALS, SPACE_VGG_RANKED):
@@ -3547,8 +3707,8 @@ def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card=""):
                 1e-5 * (1.0 + props["scores"].abs().max().item()))
         for r, rank in enumerate(ranks):
             got = rank["evals"][name]
-            launches = {k: v for k, v in got["launches"].items() if v}
-            paths[f"space {name} rank {r}"] = got["launches"]
+            launches = _nonzero(got["launches"])
+            paths[f"{tag} {name} rank {r}"] = got["launches"]
             row, ok = _space_eval_row(
                 torch, np, list(zip(_parts(name, got), _parts(name, want))), got, want,
                 getattr(torch, dtype_name), rotated, noise[family],
@@ -3557,21 +3717,171 @@ def check_space_fcos_vgg(torch, work, refs, train_ref, alone, card=""):
                    "peak_gib": got["peak_gib"], "one_process_peak_gib": want["peak_gib"]}
             if "ms" in got:
                 row.update(ms=got["ms"], one_process_ms=want["ms"], exchanges=got["exchanges"])
-            print(f"[space axis 33] {card}:", json.dumps(row), flush=True)
+            print(f"[{tag}] {card}:", json.dumps(row), flush=True)
             if not ok:
                 bad.append(f"eval {name} rank {r}: outputs differ from the one process's "
                            "beyond phase 32's rule")
-            if launches != {k: int(v) for k, v in per_scene.items() if v}:
-                bad.append(f"eval {name} rank {r}: launches {launches}, one scene's "
-                           f"{per_scene}")
+            expected = expected_launches(per_scene, got["windows"], got["device"])
+            if launches != expected:
+                bad.append(f"eval {name} rank {r}: launches {launches}, expected {expected}")
     train_paths, train_bad = _space_train_check(
         torch, np, [rank["train"] for rank in ranks], train_ref[SPACE_FCOS_TRAIN],
-        [a["fcos_train_ms"] for a in alone], SPACE_FCOS_TRAIN, card, "space fcos train")
+        [a["fcos_train_ms"] for a in alone], SPACE_FCOS_TRAIN, card, f"{tag} fcos train")
     paths.update(train_paths)
     bad += train_bad
-    print(f"[space axis 33] the ranks' part: {ranks[0]['seconds']:.1f} s", flush=True)
+    print(f"[{tag}] the ranks' part: {ranks[0]['seconds']:.1f} s", flush=True)
     if bad:
-        fail("space axis (FCOS, VGG): " + "; ".join(bad))
+        fail(f"{tag} (FCOS, VGG): " + "; ".join(bad))
+    return paths
+
+
+# Phase 34: the RCNN second stage on the space axis, on phase 25's two ranks
+# after phase 33: phase 25's ``train_rcnn.sh`` Swin-S OBB fine-tune (random
+# weights from seed 25, 200x200x136, 512 RoIs a scene) -- its eval of both
+# scenes in f32 (TF32 off; every RoI scored on the gathered levels, then
+# the filter at score 0: a random head scores every RoI near 0.5, so a
+# threshold there would decide on rounding) and its train step (128 RoIs a
+# scene, each rank of the space group pooling its own 64) -- against one
+# process.
+SPACE_RCNN = "swin_s rcnn obb"
+SPACE_RCNN_FILTER = (0.0, 0.1, 300)  # score, NMS IoU (the driver's), the cap
+
+
+def _space_rcnn_eval(torch, dev, groups=None):
+    """Phase 34's eval of both scenes on ``dev`` (with ``groups``: the
+    rank's part of the batch, the levels of its slab gathered):
+    ``(model, run)`` with ``run()`` the eval step and the filter, the host
+    outputs."""
+    from nerf_rpn_tpu_torch.models import detector as det
+    from nerf_rpn_tpu_torch.parallel import space as sp
+    from nerf_rpn_tpu_torch.train.steps import make_rcnn_eval_step, make_rcnn_filter_step
+
+    model, batch, _, _ = _ddp_case(torch, SPACE_RCNN, dev)
+    cfg = _ddp_rcnn_cfg(det)
+    part = batch if groups is None else sp.shard_batch(batch, groups)
+    step = make_rcnn_eval_step(model, cfg, SCALES, space=groups)
+    filt = make_rcnn_filter_step(cfg, *SPACE_RCNN_FILTER)
+    mesh = torch.tensor([DDP_CASES[SPACE_RCNN]["shape"]] * part["rois"].shape[0],
+                        dtype=torch.float32, device=dev)
+
+    def run():
+        out = step(part)
+        _, keep, order = filt(out["refined_boxes"], out["scores"], out["valid"], mesh)
+        host = {k: out[k].cpu() for k in ("scores", "refined_boxes", "labels", "valid")}
+        return {**host, "keep": keep.cpu(), "order": order.cpu()}
+
+    return model, part, run
+
+
+def space34_references(torch, dev):
+    """Phase 34's one-process eval in this process, before the ranks start:
+    the host outputs and the peak GiB of the eval after a warm-up one."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _, run = _space_rcnn_eval(torch, dev)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = run()
+    torch.cuda.synchronize()
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, run
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _space_rcnn_rank(work, dev):
+    """A rank of phase 34, in the launch's space layout (phase 25's two
+    ranks: one space group): the eval of both scenes on its slab (the
+    launch counts set to 0 just before it and read just after, its peak
+    GiB, then its exchanges a forward), and phase 25's RCNN fine-tune
+    train step with both scenes split along x (launches, peak GiB, whether
+    the ranks' weights are bit-equal after it, its exchanges).  Writes
+    ``space34_rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_rpn_tpu_torch import kernels
+    from nerf_rpn_tpu_torch.parallel import ddp
+    from nerf_rpn_tpu_torch.parallel import space as sp
+
+    os.makedirs(work, exist_ok=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    groups = _space_layout(sp, ddp)
+    model, part, run = _space_rcnn_eval(torch, dev, groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    entry, exchanges = _traced(torch, sp, run)
+    torch.cuda.synchronize()
+    entry.update(launches=kernels.counts(), exchanges=exchanges,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 windows=_stage_windows(model, sp.input_slab(
+                     groups, part["grids"].shape[1] * groups.n_space)),
+                 device=dev.type)
+    out = {"eval": entry, "data_index": groups.data_index, "n_data": groups.n_data}
+    del model, part, run
+    torch.cuda.empty_cache()
+    out["train"] = _space_train(torch, dist, kernels, sp, SPACE_RCNN, dev, groups, timed=False)
+    out["seconds"] = time.perf_counter() - t_start
+    torch.save(out, os.path.join(work, f"space34_rank{ddp.rank()}.pt"))
+
+
+def check_space_rcnn(torch, work, ref, train_ref, card="", tag="space axis 34"):
+    """Phase 34's checks of the ranks' results (``_space_rcnn_rank``)
+    against the one process's: the eval's scores and refined boxes within
+    ``close_enough`` (f32), labels, validity and the filter's keep-set
+    equal (the kept rows' order reported), each rank's launches those of
+    one eval batch of its data group's scenes (K5 24, K6 24, K4 12, K1 12;
+    the filter's resolve once a scene; K3 never on OBBs) less the blocks
+    of the stages where its slab holds no windows; the train step within phase 25's
+    ``DDP_LIMITS`` of phase 25's one process (``train_ref``), the sampled
+    fg / bg counts equal, the ranks bit-equal, K1 and K2 one a block.
+    Prints each reading beside ``card`` after ``tag`` with the peak GiB a
+    rank against one process's and the exchanges; returns the launches by
+    path."""
+    import numpy as np
+
+    ranks = _load_ranks(torch, os.path.join(work, "space34"), "space34")
+    paths, bad = {}, []
+    for r, rank in enumerate(ranks):
+        got = rank["eval"]
+        k = ref["scores"].shape[0] // rank["n_data"]  # the rank's data group's scenes
+        whole = eval_launches(1, k, rotated=True, rcnn=True)
+        want = {key: v[rank["data_index"] * k:(rank["data_index"] + 1) * k]
+                for key, v in ref.items() if key != "peak_gib"}
+        close = {key: close_enough(torch, got[key], want[key], torch.float32)
+                 for key in ("scores", "refined_boxes")}
+        same = {key: torch.equal(got[key], want[key]) for key in ("labels", "valid", "keep")}
+        kept = want["keep"]
+        order_equal = all(torch.equal(got["order"][b][:int(kept[b].sum())],
+                                      want["order"][b][:int(kept[b].sum())])
+                          for b in range(kept.shape[0]))
+        launches = _nonzero(got["launches"])
+        paths[f"{tag} eval rank {r}"] = got["launches"]
+        row = {"case": f"{SPACE_RCNN} eval", "rank": r,
+               **{f"{k}_max_abs_err": e for k, (e, _) in close.items()},
+               **{f"{k}_equal": v for k, v in same.items()},
+               "kept": int(kept.sum()), "kept_order_equal": order_equal,
+               "launches": launches, "peak_gib": got["peak_gib"],
+               "one_process_peak_gib": ref["peak_gib"], "exchanges": got["exchanges"]}
+        print(f"[{tag}] {card}:", json.dumps(row), flush=True)
+        if not (all(ok for _, ok in close.values()) and all(same.values())):
+            bad.append(f"eval rank {r}: outputs or keep-set differ from the one process's "
+                       f"({row})")
+        expected = expected_launches(whole, got["windows"], got["device"])
+        if launches != expected:
+            bad.append(f"eval rank {r}: launches {launches}, expected {expected}")
+    train_paths, train_bad = _space_train_check(
+        torch, np, [rank["train"] for rank in ranks], train_ref[SPACE_RCNN], None,
+        SPACE_RCNN, card, f"{tag} train step")
+    paths.update(train_paths)
+    bad += train_bad
+    print(f"[{tag}] the ranks' part: {ranks[0]['seconds']:.1f} s", flush=True)
+    if bad:
+        fail(f"{tag} (RCNN): " + "; ".join(bad))
     return paths
 
 
@@ -4925,6 +5235,10 @@ def main() -> None:
         space33_refs = space33_references(torch, dev)
         space33_s = time.perf_counter() - t0
         print(f"[space axis 33] phase 33's one-process evals: {space33_s:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        space34_ref = space34_references(torch, dev)
+        print(f"[space axis 34] phase 34's one-process eval: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
         t0 = time.perf_counter()
         cases = eval_split_cases(np, work, rcnn_common)
@@ -4986,6 +5300,10 @@ def main() -> None:
         paths.update(check_space_fcos_vgg(torch, work, space33_refs, space_train_ref,
                                           space_alone, smi))
         phase_done(torch, "space axis on FCOS and VGG checks", t0)
+
+        t0 = time.perf_counter()
+        paths.update(check_space_rcnn(torch, work, space34_ref, space_train_ref, smi))
+        phase_done(torch, "space axis on the RCNN checks", t0)
 
     print("[launches by path]", json.dumps(paths), flush=True)
     entries = [

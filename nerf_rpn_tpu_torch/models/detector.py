@@ -187,17 +187,19 @@ class RCNNDetector(nn.Module):
 
 def rcnn_losses(cfg: RCNNConfig, pred_deltas: torch.Tensor, pred_scores: torch.Tensor,
                 labels: torch.Tensor, matched_gt: torch.Tensor, rois: torch.Tensor,
-                valid: torch.Tensor) -> dict[str, torch.Tensor]:
+                valid: torch.Tensor, over_world: bool = False) -> dict[str, torch.Tensor]:
     """CE objectness over the valid rows + smooth-L1 on the foreground
     deltas over their count (reference ``compute_loss``,
     ``detector.py:536-559``); rows (N, .).  Under a process group both
     counts, and the switch on the foreground count, are the global
-    batch's (summed over the ranks)."""
+    batch's: summed over the data group's ranks, or with ``over_world``
+    (the space axis, where each rank of a space group holds its own block
+    of a scene's rows) over every rank."""
     logp = F.log_softmax(pred_scores, dim=-1)
     ce = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
     vf = valid.to(ce.dtype)
     fg = (labels > 0) & valid
-    n_valid, n_fg = ddp.all_reduce_sum(torch.sum(vf), torch.sum(fg))
+    n_valid, n_fg = ddp.all_reduce_sum(torch.sum(vf), torch.sum(fg), over_world=over_world)
     obj_loss = torch.sum(ce * vf) / torch.clamp(n_valid, min=1.0)
     # non-fg rows encode against themselves: a zero gt would give log(0)
     safe_gt = torch.where(fg[:, None], matched_gt, rois)

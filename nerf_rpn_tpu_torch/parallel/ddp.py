@@ -29,10 +29,13 @@ from its group's gathered head outputs, so the loss normalisers and the
 logged terms are summed over the rank's data group only
 (:func:`all_reduce_sum`; a world sum would count each scene ``n_space``
 times), while BatchNorm moments (each slab row once) and the gradients
-(each rank's slab's share) are summed over the world.  The sampling and
-drop-path seeds follow the data group (:func:`seed_for_rank`), so a space
-group draws alike.  :func:`set_layout` records the layout; without one
-the data group is the world.
+(each rank's slab's share) are summed over the world.  The RCNN train step
+is the exception: the ranks of a space group take disjoint blocks of the
+sampled RoIs (``space.row_block``), so its normalisers and logged terms are
+summed over the world (``all_reduce_sum(..., over_world=True)``).  The
+sampling and drop-path seeds follow the data group (:func:`seed_for_rank`),
+so a space group draws alike.  :func:`set_layout` records the layout;
+without one the data group is the world.
 
 Evaluation is scene parallel, as the JAX drivers evaluate a batch over a
 mesh of their devices (``make_mesh_for_batch``, ``mesh.py:112-139``): an
@@ -124,9 +127,13 @@ def is_main() -> bool:
 def barrier() -> None:
     """Every rank waits for the others (``process_barrier``, ``mesh.py:40-65``):
     at the epoch end, where rank 0 has evaluated and written checkpoints
-    alone."""
+    alone.  Under NCCL the barrier runs on the rank's current CUDA device
+    (``run_in_group`` sets it), named so that NCCL need not guess it."""
     if world() > 1:
-        dist.barrier()
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
 
 
 def seed_for_rank(seed: int) -> int:
@@ -136,15 +143,18 @@ def seed_for_rank(seed: int) -> int:
     return seed + 1_000_003 * data_rank()
 
 
-def all_reduce_sum(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The sums over the data group's ranks of detached tensors (counts,
-    loss terms, metrics), in one collective; each keeps its shape and dtype
-    (the sum runs in f64, exact for counts).  In a data group of one the
-    tensors come back as given."""
-    if data_world() == 1:
+def all_reduce_sum(*tensors: torch.Tensor, over_world: bool = False
+                   ) -> tuple[torch.Tensor, ...]:
+    """The sums over the data group's ranks (``over_world``: over every
+    rank) of detached tensors (counts, loss terms, metrics), in one
+    collective; each keeps its shape and dtype (the sum runs in f64, exact
+    for counts).  Where the group is this rank alone the tensors come back
+    as given."""
+    if (world() if over_world else data_world()) == 1:
         return tensors
     flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
-    dist.all_reduce(flat, group=_LAYOUT.data_group if _LAYOUT is not None else None)
+    group = None if over_world or _LAYOUT is None else _LAYOUT.data_group
+    dist.all_reduce(flat, group=group)
     out = flat.split([t.numel() for t in tensors])
     return tuple(o.reshape(t.shape).to(t.dtype) for o, t in zip(out, tensors))
 

@@ -8,12 +8,14 @@ statistics and the all-gathers before propose; here each op that reads
 across the x split names the global rows it needs, and one of the exchanges
 below brings them.
 
-Paths that take the axis: the anchor RPN's and the FCOS detector's eval and
-train steps (``train/steps.py``: ``make_rpn_*_step`` / ``make_fcos_*_step``
-with ``space=``) on every backbone of the table -- the Swin variants,
-``resnet`` / ``resnet_tiny`` and ``vgg_AF`` / ``vgg_EF`` (``level_slabs`` on
-each).  The RCNN second stage does not: its RoI align reads other ranks'
-rows.
+Paths that take the axis: the anchor RPN's, the FCOS detector's and the
+RCNN stage's eval and train steps (``train/steps.py``: ``make_rpn_*_step``
+/ ``make_fcos_*_step`` / ``make_rcnn_*_step`` with ``space=``) on every
+backbone of the table -- the Swin variants, ``resnet`` / ``resnet_tiny``
+and ``vgg_AF`` / ``vgg_EF`` (``level_slabs`` on each).  The RCNN's RoI
+align reads any row of a level, so its fine-tune backbone's levels are
+gathered whole (:func:`gather_x` with ``sum_grad``) and its train step
+splits the sampled RoIs over the space group (:func:`row_block`).
 
 Layout (:func:`make_groups`): ``n_data * n_space`` ranks, rank
 ``d * n_space + s`` holding data group ``d``'s scenes and the ``s``-th slab
@@ -43,7 +45,11 @@ Exchanges (autograd-aware):
 - :func:`gather_x` -- every rank's rows, the whole extent, on every rank of
   the space group (the head outputs before propose).  Its backward returns
   the rank's own rows of the gradient, not a sum: every rank of a space
-  group computes the same loss from the gathered outputs.
+  group computes the same loss from the gathered outputs.  With
+  ``sum_grad`` the ranks compute different parts of the loss from it (the
+  RCNN's RoI blocks, :func:`row_block`), and the backward sums the
+  gradient over the space group before it takes the rank's rows (a
+  reduce-scatter: one all-reduce, then the rank's rows).
 - :func:`all_reduce_sum` -- a small tensor summed over the space group (the
   FCOS head's GroupNorm moments, ``models/layers.group_norm``); its
   backward is the same all-reduce of the gradient.
@@ -211,8 +217,9 @@ def shard_batch(batch: dict, groups: SpaceGroups) -> dict:
     """A global batch dict -> this rank's: ``GRID_KEYS`` grids split over
     the data groups and along x over the space group (X must divide by
     ``n_space``), other per-scene tensors (gt boxes, sizes) over the data
-    groups only; entries that are not tensors are dropped, as
-    ``mesh.shard_batch`` drops them."""
+    groups only, and so each tensor of a list or tuple (the RCNN's
+    per-level ``features``, whole on every rank of a space group); other
+    entries are dropped, as ``mesh.shard_batch`` drops them."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, torch.Tensor):
@@ -220,7 +227,18 @@ def shard_batch(batch: dict, groups: SpaceGroups) -> dict:
                 out[k] = shard_grid(v, groups, k)
             else:
                 out[k] = v[_data_block(v.shape[0], groups)]
+        elif isinstance(v, (list, tuple)) and v and all(isinstance(t, torch.Tensor) for t in v):
+            out[k] = type(v)(t[_data_block(t.shape[0], groups)] for t in v)
     return out
+
+
+def row_block(n: int, groups: SpaceGroups) -> slice:
+    """This rank's contiguous block of ``n`` rows that every rank of its
+    space group holds alike (the RCNN's sampled RoIs of a scene), split as
+    :func:`even_bounds` splits an extent: the ranks of a space group then
+    compute disjoint parts of a loss."""
+    lo, hi = even_bounds(n, groups.n_space)[groups.space_index]
+    return slice(lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -430,8 +448,9 @@ def halo_x(x: torch.Tensor, slab: Slab, lo: int, hi: int, fill: float = 0.0) -> 
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, slab: Slab):
-        ctx.lo, ctx.hi = slab.lo, slab.hi
+    def forward(ctx, x, slab: Slab, sum_grad: bool):
+        ctx.lo, ctx.hi, ctx.sum_grad = slab.lo, slab.hi, sum_grad
+        ctx.group = slab.groups.space_group
         width = max(b - a for a, b in slab.bounds)
         bufs = _all_gather_rows(x.movedim(1, 0), width, slab.groups.space_group, "gather")
         parts = [buf[:b - a] for buf, (a, b) in zip(bufs, slab.bounds)]
@@ -439,17 +458,21 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return grad[:, ctx.lo:ctx.hi], None
+        if ctx.sum_grad:
+            grad = _all_reduce(grad, ctx.group, "gather backward")
+        return grad[:, ctx.lo:ctx.hi], None, None
 
 
-def gather_x(x: torch.Tensor, slab: Slab) -> torch.Tensor:
+def gather_x(x: torch.Tensor, slab: Slab, sum_grad: bool = False) -> torch.Tensor:
     """The whole extent ``(B, slab.extent, ...)`` on every rank of the space
-    group; the gradient of a rank's slab is its own rows of the output's
-    gradient (every rank computes the same loss from the gathered
-    tensor)."""
+    group.  The gradient of a rank's slab is its own rows of the output's
+    gradient where every rank computes the same loss from the gathered
+    tensor; with ``sum_grad``, where each rank computes its own part of the
+    loss, its own rows of the output's gradient summed over the space
+    group."""
     if slab.groups.n_space == 1:
         return x
-    return _Gather.apply(x, slab)
+    return _Gather.apply(x, slab, sum_grad)
 
 
 def _all_reduce(x: torch.Tensor, group, kind: str) -> torch.Tensor:

@@ -41,7 +41,7 @@ each level's head outputs are gathered over the space group
 (``space.gather_x``), and the eval step proposes on every rank of the
 group (the replicated result of GSPMD's all-gather), the train step takes
 the losses on the gathered outputs, their normalisers and logged terms
-summed over the data group.  The RCNN steps take no ``space``.
+summed over the data group.
 
 Under a process group (``parallel/ddp.py``) each rank runs a train step on
 its share of the global batch: the losses divide by the global batch's
@@ -63,6 +63,21 @@ the head's losses; the eval step scores every RoI; the filter step runs
 ``filter_refined_proposals`` scene by scene.  The JAX package's
 ``_rcnn_feature_barrier`` is one of its ``NERF_RPN_TPU_*`` experiment
 knobs and is not ported.
+
+The RCNN steps take ``space`` too.  The fine-tune backbone runs on the
+rank's slab and each FPN level is gathered over the space group, so that
+RoI align, which reads any row of a level, runs on whole levels; the
+features mode's levels are whole on every rank already
+(``space.shard_batch`` splits them over the data groups only).  Every rank
+of a space group samples the same RoIs (the generators follow the data
+group), then the train step takes the rank's contiguous block of each
+scene's sample (``space.row_block``): RoI align, the head and the losses
+run on that block, the loss normalisers and logged terms are summed over
+the world, and the levels' gather sums their gradient over the space group
+before it keeps the rank's rows (``gather_x(..., sum_grad=True)``).  The
+world's gradient sum is then the one process's: the head's gradient of
+each block once, and the backbone's of each slab.  The eval step scores
+every RoI on every rank of the group.
 """
 
 from __future__ import annotations
@@ -83,11 +98,13 @@ from nerf_rpn_tpu_torch.parallel import space as sp
 from nerf_rpn_tpu_torch.train.state import global_norm
 
 
-def global_terms(**terms: torch.Tensor) -> dict[str, torch.Tensor]:
+def global_terms(*, over_world: bool = False, **terms: torch.Tensor) -> dict[str, torch.Tensor]:
     """The train metrics that are sums over scenes (the loss terms, each a
     rank's numerator over the global normaliser; the counts), detached and
-    summed over the ranks: the global batch's."""
-    return dict(zip(terms, ddp.all_reduce_sum(*(v.detach() for v in terms.values()))))
+    summed over the data group's ranks (``over_world``: every rank's, where
+    the ranks of a space group hold disjoint parts): the global batch's."""
+    return dict(zip(terms, ddp.all_reduce_sum(*(v.detach() for v in terms.values()),
+                                              over_world=over_world)))
 
 
 def level_shapes_for(mesh_shape: Sequence[int], strides: Sequence[int]):
@@ -342,10 +359,20 @@ def make_fcos_eval_step(model, cfg: FCOSConfig, mesh_shape: Sequence[int],
 # ---------------------------------------------------------------------------
 
 
-def _rcnn_features(model, batch, drop_generator=None):
-    if model.backbone is not None:
+def _rcnn_features(model, batch, drop_generator=None, space=None, sum_grad=False):
+    """The FPN levels of the batch's scenes: the features mode's, or the
+    backbone's of ``grids`` -- on the space axis of the rank's slab, each
+    level gathered over the space group (``sum_grad``: the gather's backward
+    sums the gradient over the group, for ranks that pool other RoIs)."""
+    if model.backbone is None:
+        return list(batch["features"])
+    if space is None:
         return list(model.backbone(batch["grids"], drop_generator))
-    return list(batch["features"])
+    grids = batch["grids"]
+    src = sp.input_slab(space, grids.shape[1] * space.n_space)
+    slabs = model.backbone.level_slabs(src)
+    return [sp.gather_x(f, sl, sum_grad) for f, sl in
+            zip(model.backbone(grids, drop_generator, src), slabs)]
 
 
 def rcnn_pool(cfg: det.RCNNConfig, features, rois, levels, valid, spatial_scales):
@@ -357,7 +384,7 @@ def rcnn_pool(cfg: det.RCNNConfig, features, rois, levels, valid, spatial_scales
 
 def make_rcnn_train_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[float],
                          rois_per_image: int, reg_loss_weight: float = 1.0,
-                         obj_only: bool = False):
+                         obj_only: bool = False, space=None):
     """Returns ``train_step(state, batch, generator, drop_generator=None,
     indices=None) -> metrics`` (the reference's ``Classification_Model.
     forward`` + ``train_epoch``; the loss combination of
@@ -370,21 +397,28 @@ def make_rcnn_train_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[fl
     ``grids``.  ``indices`` (B, ``rois_per_image``) replaces the sampled
     RoIs.  Metrics: ``loss``, ``loss_objectness``, ``loss_rpn_box_reg``,
     ``grad_norm`` (pre-clip), ``param_norm`` (after the update) and the
-    sampled ``fg_rois`` / ``bg_rois``, device tensors all.
+    sampled ``fg_rois`` / ``bg_rois``, device tensors all.  ``space``: the
+    ``SpaceGroups`` of the space axis, ``batch`` then this rank's part
+    (``space.shard_batch``); every rank of a space group must draw its
+    generators (or take ``indices``) alike.
     """
     d = cfg.box_dim
+    split = space is not None
 
     def train_step(state, batch, generator, drop_generator=None, indices=None):
         model.train()
-        features = _rcnn_features(model, batch, drop_generator)
+        features = _rcnn_features(model, batch, drop_generator, space, sum_grad=True)
         s = det.sample_rois(cfg, generator, batch["rois"], batch["roi_levels"],
                             batch["roi_valid"], batch["gt_boxes"], batch["gt_mask"],
                             rois_per_image, indices=indices)
+        if split:  # this rank's block of each scene's sample
+            block = sp.row_block(rois_per_image, space)
+            s = {k: v[:, block] for k, v in s.items()}
         pooled = rcnn_pool(cfg, features, s["boxes"], s["levels"], s["valid"], spatial_scales)
         deltas, scores = model.head(pooled.flatten(0, 1))
         losses = det.rcnn_losses(cfg, deltas, scores, s["labels"].reshape(-1),
                                  s["matched_gt"].reshape(-1, d), s["boxes"].reshape(-1, d),
-                                 s["valid"].reshape(-1))
+                                 s["valid"].reshape(-1), over_world=split)
         losses["loss_rpn_box_reg"] = losses["loss_rpn_box_reg"] * reg_loss_weight
         if obj_only:
             total = losses["loss_objectness"]
@@ -398,13 +432,14 @@ def make_rcnn_train_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[fl
         grad_norm = state.apply_gradients()
         fg = s["labels"] > 0
         return {**global_terms(loss=total, **losses, fg_rois=(fg & s["valid"]).sum(),
-                               bg_rois=(~fg & s["valid"]).sum()),
+                               bg_rois=(~fg & s["valid"]).sum(), over_world=split),
                 "grad_norm": grad_norm, "param_norm": global_norm(list(model.parameters()))}
 
     return train_step
 
 
-def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[float]):
+def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[float],
+                        space=None):
     """Returns ``eval_step(batch) -> dict`` that scores every RoI (no
     sampling; the reference's ``cls_batch_size`` chunks are not needed):
     ``scores`` (B, R, 2) softmax probabilities, ``refined_boxes`` (B, R,
@@ -412,12 +447,14 @@ def make_rcnn_eval_step(model, cfg: det.RCNNConfig, spatial_scales: Sequence[flo
     are ``eval_step.features(batch)`` (the FPN levels),
     ``eval_step.pool(features, batch)`` (RoI align) and
     ``eval_step.head(pooled, batch)`` (the labels, the head, softmax and
-    decode)."""
+    decode).  ``space``: the ``SpaceGroups`` of the space axis, ``batch``
+    then this rank's part (``space.shard_batch``); every rank of the space
+    group scores its scenes' every RoI on the gathered levels."""
 
     @torch.inference_mode()
     def features(batch):
         model.eval()
-        return _rcnn_features(model, batch)
+        return _rcnn_features(model, batch, space=space)
 
     @torch.inference_mode()
     def pool(feats, batch):

@@ -26,8 +26,8 @@ loadfile`` spreads them over the workers:
   from that checkpoint, ``run_rpn_detect --fine_tune`` for one epoch from
   it (``--pretrained``) and its eval, and one epoch of the quality gate.
 
-An AST scan shows that no file of the port, and not ``chip_smoke.py``,
-names them in an import statement.
+An AST scan shows that no file of the port, and neither ``chip_smoke.py``
+nor ``scripts/nccl_smoke.py``, names them in an import statement.
 """
 
 import ast
@@ -250,7 +250,7 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted(Path(REPO, "nerf_rpn_tpu_torch").rglob("*.py")) + [
-        Path(REPO, "chip_smoke.py")]
+        Path(REPO, "chip_smoke.py"), Path(REPO, "scripts", "nccl_smoke.py")]
     assert len(files) > 30
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("ops/rotated_iou.py", "ops/fcos_box.py", "models/fcos.py",
